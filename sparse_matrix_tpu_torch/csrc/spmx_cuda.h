@@ -1,0 +1,51 @@
+// Plain C interface of the port's CUDA kernels (bound with ctypes by
+// sparse_matrix_tpu_torch/native/kernels.py).
+//
+// Every entry point selects `device`, enqueues one kernel on `stream` (a
+// cudaStream_t passed as void*), never synchronises and allocates nothing:
+// the Python wrapper owns every buffer. The return value is
+// cudaGetLastError() after the launch (0 = launched). Outputs that the
+// kernel accumulates into with atomics (aligned, LanePack) must be zeroed
+// by the caller.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __cplusplus
+#define SPMX_API extern "C" __attribute__((visibility("default")))
+#else
+#define SPMX_API __attribute__((visibility("default")))
+#endif
+
+// cudaGetErrorString of a code returned below
+SPMX_API const char* spmx_cuda_error_string(int err);
+
+// y[i] = sum_b data[b, i] * x[i + offsets[b]]  (x outside [0, cols) reads 0)
+// data: (nb, rows), f32 (values_bf16 = 0) or bf16 bits (values_bf16 = 1)
+SPMX_API int spmx_dia(int device, const void* data, int values_bf16,
+                      const int32_t* offsets, int nb, int64_t rows,
+                      int64_t cols, const float* x, float* y, void* stream);
+
+// y[chunk_rb[c]*128 + l] += vals[c, l] * x[col_off[c]*128 + lane[c, l]]
+SPMX_API int spmx_aligned(int device, const float* vals, const int8_t* lane,
+                          const int32_t* col_off, const int32_t* chunk_rb,
+                          int64_t num_chunks, int64_t cols, const float* x,
+                          float* y, void* stream);
+
+// per chunk: p = vals * x[col_off*128 + lane]; incl = inclusive scan of p;
+// y[chunk_rb*128 + l] += incl[ends[l]] - (starts[l] < 0 ? 0 : incl[starts[l]])
+SPMX_API int spmx_lanepack(int device, const float* vals, const int16_t* lane,
+                           const int8_t* ends, const int8_t* starts,
+                           const int32_t* col_off, const int32_t* chunk_rb,
+                           int64_t num_chunks, int64_t cols, const float* x,
+                           float* y, void* stream);
+
+// y[rb*128 + l] = sum_layer vals[layer, rb, l] * x[(rb + ds[layer] + (pos >> 7))*128
+//                                                  + (pos & 127)],
+// pos = lane[layer, rb, l] + bias; lanes int8 (lane_bytes = 1) or int16 (2);
+// values f32 (values_bf16 = 0) or bf16 bits (1)
+SPMX_API int spmx_bell(int device, const void* vals, int values_bf16,
+                       const void* lane, int lane_bytes, int bias,
+                       const int32_t* ds, int num_layers, int64_t r128,
+                       int64_t rows, int64_t cols, const float* x, float* y,
+                       void* stream);

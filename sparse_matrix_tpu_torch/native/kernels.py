@@ -1,0 +1,158 @@
+"""ctypes bindings of the CUDA kernels, with launch counts.
+
+Each ``launch_*`` function checks that its tensors are contiguous CUDA
+tensors of the types the kernel takes on one device, enqueues the kernel on
+PyTorch's current stream, raises if the launch was refused, and then adds
+one to ``launch_counts[name]``. Nothing here synchronises or allocates; the
+callers in ``ops/`` own the outputs. The library is built and loaded at the
+first launch, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+__all__ = [
+    "launch_counts",
+    "reset_launch_counts",
+    "launch_dia",
+    "launch_aligned",
+    "launch_lanepack",
+    "launch_bell",
+]
+
+KERNELS = ("dia", "aligned", "lanepack", "bell")
+
+#: launches per kernel since the last :func:`reset_launch_counts`
+launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        launch_counts[k] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from .build import build
+
+        lib = ctypes.CDLL(build())
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.spmx_cuda_error_string.restype = ctypes.c_char_p
+        lib.spmx_cuda_error_string.argtypes = [i32]
+        lib.spmx_dia.restype = i32
+        lib.spmx_dia.argtypes = [i32, vp, i32, vp, i32, i64, i64, vp, vp, vp]
+        lib.spmx_aligned.restype = i32
+        lib.spmx_aligned.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, vp]
+        lib.spmx_lanepack.restype = i32
+        lib.spmx_lanepack.argtypes = [
+            i32, vp, vp, vp, vp, vp, vp, i64, i64, vp, vp, vp,
+        ]
+        lib.spmx_bell.restype = i32
+        lib.spmx_bell.argtypes = [
+            i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i64, vp, vp, vp,
+        ]
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, dtypes: dict, **tensors) -> torch.device:
+    """All tensors contiguous, on one CUDA device, of the listed dtypes."""
+    dev = None
+    for key, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, the kernel needs CUDA")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        want = dtypes[key]
+        if t.dtype not in (want if isinstance(want, tuple) else (want,)):
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected {want}")
+    return dev
+
+
+def _run(name: str, dev: torch.device, fn, *args) -> None:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(dev.index, *args, stream)
+    if err != 0:
+        msg = _library().spmx_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+    launch_counts[name] += 1
+
+
+_F32 = torch.float32
+_VALS = (torch.float32, torch.bfloat16)
+
+
+def launch_dia(data, offsets, x, y, *, rows: int, cols: int) -> None:
+    """``y[:rows] = DIA(data, offsets) @ x`` (data ``(nb, rows)``)."""
+    dev = _check("dia", dict(data=_VALS, offsets=torch.int32, x=_F32, y=_F32),
+                 data=data, offsets=offsets, x=x, y=y)
+    nb = offsets.numel()
+    if data.shape != (nb, rows) or x.numel() != cols or y.numel() != rows:
+        raise ValueError("dia: shapes disagree with (nb, rows, cols)")
+    _run("dia", dev, _library().spmx_dia, data.data_ptr(),
+         int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols,
+         x.data_ptr(), y.data_ptr())
+
+
+def launch_aligned(vals, lane, col_off, chunk_rb, x, y) -> None:
+    """``y += aligned(vals, lane, col_off, chunk_rb) @ x``; y is the
+    ``(r128 * 128,)`` accumulator."""
+    dev = _check("aligned", dict(vals=_F32, lane=torch.int8, col_off=torch.int32,
+                                 chunk_rb=torch.int32, x=_F32, y=_F32),
+                 vals=vals, lane=lane, col_off=col_off, chunk_rb=chunk_rb, x=x, y=y)
+    chunks = vals.numel() // 128
+    if lane.numel() != vals.numel() or col_off.numel() < chunks or chunk_rb.numel() < chunks:
+        raise ValueError("aligned: slot and chunk arrays disagree")
+    _run("aligned", dev, _library().spmx_aligned, vals.data_ptr(), lane.data_ptr(),
+         col_off.data_ptr(), chunk_rb.data_ptr(), chunks, x.numel(),
+         x.data_ptr(), y.data_ptr())
+
+
+def launch_lanepack(vals, lane, ends, starts, col_off, chunk_rb, x, y) -> None:
+    """``y += lanepack(...) @ x``; y is the ``(r128 * 128,)`` accumulator."""
+    dev = _check(
+        "lanepack",
+        dict(vals=_F32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
+             col_off=torch.int32, chunk_rb=torch.int32, x=_F32, y=_F32),
+        vals=vals, lane=lane, ends=ends, starts=starts, col_off=col_off,
+        chunk_rb=chunk_rb, x=x, y=y,
+    )
+    chunks = vals.numel() // 128
+    n = vals.numel()
+    if (lane.numel(), ends.numel(), starts.numel()) != (n, n, n) or min(
+        col_off.numel(), chunk_rb.numel()
+    ) < chunks:
+        raise ValueError("lanepack: slot and chunk arrays disagree")
+    _run("lanepack", dev, _library().spmx_lanepack, vals.data_ptr(), lane.data_ptr(),
+         ends.data_ptr(), starts.data_ptr(), col_off.data_ptr(),
+         chunk_rb.data_ptr(), chunks, x.numel(), x.data_ptr(), y.data_ptr())
+
+
+def launch_bell(vals, lane, ds, x, y, *, bias: int, rows: int) -> None:
+    """``y = BELL(vals, lane, ds) @ x`` (vals/lane ``(L, r128, 128)``)."""
+    dev = _check(
+        "bell",
+        dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32, x=_F32, y=_F32),
+        vals=vals, lane=lane, ds=ds, x=x, y=y,
+    )
+    layers = ds.numel()
+    if vals.dim() != 3 or vals.shape[0] != layers or lane.shape != vals.shape:
+        raise ValueError("bell: value/lane planes disagree with ds")
+    r128 = vals.shape[1]
+    if r128 * 128 < rows or y.numel() != rows:
+        raise ValueError("bell: planes do not cover the rows")
+    _run("bell", dev, _library().spmx_bell, vals.data_ptr(),
+         int(vals.dtype == torch.bfloat16), lane.data_ptr(), lane.element_size(),
+         bias, ds.data_ptr(), layers, r128, rows, x.numel(), x.data_ptr(),
+         y.data_ptr())
