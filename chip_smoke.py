@@ -7,22 +7,39 @@ NVIDIA Hopper GPU.
 Phases, each of which ends the run with an exception on failure:
 
 1. Device and build: the card's name and power limit (nvidia-smi), its
-   compute capability, and the nvcc build of ``csrc/*.cu``.
+   compute capability, and the parallel nvcc build of ``csrc/*.cu``.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card
    and against a float64 CSR product with the per-row float32 bound of
-   ``spmv_f64_bound``, at the main path's shapes, with CUDA-event times
-   (median of 30 applies) for both.
-3. Main path, with every launch count set to 0 first: CG through
-   ``SpmvOperator`` on Poisson 2048^2 (auto-dispatched to DIA), the same
-   with bf16 band planes through ``cg_solve_ir``, CG on the aligned and the
-   BELL formats, the ``entry()`` step, and the bench's three 262k-row
-   classes through LanePack operators. Solves are checked for convergence
-   and for their true residual.
-4. Launch counts: every kernel must have run in phase 3.
+   ``spmv_f64_bound`` (both must hold it, column by column for the SpMM
+   kernels), at the main path's shapes, with CUDA-event times (median of
+   30 applies) of the kernel, its plain version and one ``torch.sparse``
+   CSR call on the same matrix (the library yardstick, used nowhere in the
+   port), and the bound of the product: the bytes it must move over
+   3.35 TB/s (the matrix once in the smallest of its plain CSR and DIA
+   forms and the kernel's plan, ``matrix_bytes``, and x and y once each),
+   or its multiply-adds over 67 TFLOP/s of f32, whichever is larger. The
+   bytes of the plan arrays the kernel reads are reported beside it
+   (``plan_bytes``).
+3. Main path, in three parts, each with every launch count set to 0 just
+   before it and read just after:
+   a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
+      dispatched to DIA), the same with bf16 band planes through
+      ``cg_solve_ir``, CG on the aligned and the BELL formats, the
+      ``entry()`` step;
+   b. the bench's three 262k-row classes through ``SpmvOperator`` with no
+      ``force`` (DIA, stripe scan(2,2), stripe scan(8,16), the reference's
+      choices) and through forced LanePack operators;
+   c. multi-RHS: ``SpmvOperator.matmat`` at K=8 on Poisson 2048^2 (DIA)
+      and 1024^2 (aligned), and ``cg_solve_multi`` over the packed
+      ``dia_matvec_multi`` (2048^2) and ``aligned_matvec_multi`` (1024^2)
+      at K=8.
+   Solves are checked for convergence and for their true residual (per
+   column for the multi-RHS solves).
+4. Launch counts: every kernel of a part must have run in that part.
 
 The last two lines are the kernels' JSON record and the result line. The
-script imports nothing of JAX. Without a CUDA device it exits with 1 and
-prints no result.
+script imports nothing of JAX or of the JAX package. Without a CUDA device
+it exits with 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -36,6 +53,7 @@ import time
 
 import numpy as np
 
+# kernel -> (source, the TPU kernel it replaces)
 REPLACES = {
     "dia": ("sparse_matrix_tpu_torch/csrc/spmv_dia.cu",
             "sparse_matrix_tpu/ops/spmv_dia.py:83"),
@@ -45,6 +63,18 @@ REPLACES = {
                  "sparse_matrix_tpu/ops/spmv.py:77"),
     "bell": ("sparse_matrix_tpu_torch/csrc/spmv_bell.cu",
              "sparse_matrix_tpu/ops/spmv_bell.py:80"),
+    "stripe": ("sparse_matrix_tpu_torch/csrc/spmv_stripe.cu",
+               "sparse_matrix_tpu/ops/spmv.py:568"),
+    "dia_spmm": ("sparse_matrix_tpu_torch/csrc/spmm_dia.cu",
+                 "sparse_matrix_tpu/ops/spmv_dia.py:215"),
+    "aligned_spmm": ("sparse_matrix_tpu_torch/csrc/spmm_aligned.cu",
+                     "sparse_matrix_tpu/ops/spmm.py:120"),
+}
+# the kernels each part of the main path must launch
+PARTS = {
+    "slice1": ("dia", "aligned", "bell"),
+    "classes": ("stripe", "dia", "lanepack"),
+    "multi_rhs": ("dia_spmm", "aligned_spmm"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -53,6 +83,20 @@ CG_TOL = 1e-5
 # inner iterations ended at 2.2e-5); its target sits above that floor
 IR_TOL = 1e-4
 EPS_F32 = 2.0 ** -23
+K_RHS = 8
+# H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# device arrays each kernel reads, for its plan bytes (a "spill" entry
+# recurses with the spill kernel's keys)
+READS = {
+    "dia": ("data", "offsets"),
+    "aligned": ("vals", "lane", "col_off", "chunk_rb"),
+    "lanepack": ("vals", "lane", "ends", "starts", "col_off", "chunk_rb"),
+    "bell": ("vals", "lane", "ds"),
+    "stripe": ("vals", "lane", "ends", "starts", "stripe_rb", "col_off"),
+}
+SPILL_OF = {"aligned": "lanepack", "bell": "lanepack", "stripe": "stripe"}
 
 
 def log(*a):
@@ -104,55 +148,128 @@ def poisson_cond(n: int) -> float:
     return (4 + 4 * c) / (4 - 4 * c)
 
 
+def arrays_bytes(kernel: str, arrs: dict) -> int:
+    """Bytes of the device arrays ``kernel`` reads, its spill's included."""
+    total = sum(arrs[k].numel() * arrs[k].element_size() for k in READS[kernel] if k in arrs)
+    if "spill" in arrs:
+        total += arrays_bytes(SPILL_OF[kernel], arrs["spill"])
+    return total
+
+
+def plain_form_bytes(m, value_bytes: int) -> int:
+    """Bytes of ``m`` in the smaller of its two plain forms: CSR with the
+    narrowest column index and row pointer, or DIA (a plane of ``rows``
+    values and one offset per occupied diagonal). ``matrix_bytes`` of a
+    check is the smaller of this and the kernel's own plan."""
+    nnz = m.nnz()
+    col_b = 1 if m.cols <= 1 << 8 else 2 if m.cols <= 1 << 16 else 4
+    ptr_b = 4 if nnz < 1 << 31 else 8
+    csr = nnz * (value_bytes + col_b) + (m.rows + 1) * ptr_b
+    ndiag = np.unique(m.indices.astype(np.int64) - m.row_ids()).size
+    return min(csr, ndiag * (m.rows * value_bytes + 4))
+
+
+def library_csr(torch, m, dev):
+    """The matrix as a ``torch.sparse`` CSR tensor on the card: the
+    library yardstick (never called by the port)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.offsets.astype(np.int64)),
+            torch.from_numpy(m.indices.astype(np.int64)),
+            torch.from_numpy(m.vals.astype(np.float32)),
+            size=(m.rows, m.cols), check_invariants=False,
+        ).to(dev)
+
+
 class KernelChecks:
-    """Phase 2: kernel vs plain version vs float64 oracle, with times."""
+    """Phase 2: kernel vs plain version vs float64 oracle, with times,
+    bound and library time."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, dev):
         self.torch = torch
+        self.dev = dev
         self.cases = {k: [] for k in REPLACES}
+        self._csr = {}
+        self._mbytes = {}
 
-    def check(self, kernel, case, m, x_np, run_kernel, run_plain, **bound_kw):
+    def check(self, kernel, case, m, x_np, run_kernel, run_plain, *, plan_bytes,
+              value_bytes=4, unpack=None, **bound_kw):
+        """``x_np`` is (cols,) or (cols, K); ``unpack`` maps a kernel or
+        plain output to (rows,) or (rows, K); ``plan_bytes`` counts the
+        bytes of the plan arrays one call of the kernel reads (x and y
+        apart); ``value_bytes`` is the width of the matrix values it
+        reads."""
         from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
 
         torch = self.torch
-        y_k = run_kernel()
-        y_p = run_plain()
+        unpack = unpack or (lambda y: y)
+        yk = unpack(run_kernel()).double().cpu().numpy()
+        yp = unpack(run_plain()).double().cpu().numpy()
         torch.cuda.synchronize()
-        yk, yp = y_k.double().cpu().numpy(), y_p.double().cpu().numpy()
-        y64, bound = spmv_f64_bound(m, x_np, **bound_kw)
-        err_k = np.abs(yk - y64)
-        err_p = np.abs(yp - y64)
-        if not (np.all(np.isfinite(yk)) and np.all(err_k <= bound)):
-            i = int(np.argmax(err_k - bound))
-            raise AssertionError(
-                f"{kernel}/{case}: kernel off the f64 oracle at row {i}: "
-                f"|err| {err_k[i]:.3e} > bound {bound[i]:.3e}"
-            )
-        if not np.all(err_p <= bound):
-            i = int(np.argmax(err_p - bound))
-            raise AssertionError(
-                f"{kernel}/{case}: plain version off the f64 oracle at row {i}"
-            )
+        xs = x_np if x_np.ndim == 2 else x_np[:, None]
+        yk2 = yk if yk.ndim == 2 else yk[:, None]
+        yp2 = yp if yp.ndim == 2 else yp[:, None]
+        ratio = 0.0
+        for q in range(xs.shape[1]):
+            y64, bound = spmv_f64_bound(m, xs[:, q], **bound_kw)
+            err_k = np.abs(yk2[:, q] - y64)
+            err_p = np.abs(yp2[:, q] - y64)
+            if not (np.all(np.isfinite(yk2[:, q])) and np.all(err_k <= bound)):
+                i = int(np.argmax(err_k - bound))
+                raise AssertionError(
+                    f"{kernel}/{case}: kernel off the f64 oracle at row {i}, column {q}: "
+                    f"|err| {err_k[i]:.3e} > bound {bound[i]:.3e}"
+                )
+            if not np.all(err_p <= bound):
+                i = int(np.argmax(err_p - bound))
+                raise AssertionError(
+                    f"{kernel}/{case}: plain version off the f64 oracle at row {i}, column {q}"
+                )
+            ratio = max(ratio, float(np.max(err_k / np.maximum(bound, 1e-300))))
         ms = cuda_ms(torch, run_kernel)
         plain_ms = cuda_ms(torch, run_plain)
-        row = dict(case=case, rows=m.rows, nnz=m.nnz(),
+        key = id(m)
+        if key not in self._csr:
+            self._csr[key] = library_csr(torch, m, self.dev)
+        a = self._csr[key]
+        xt = torch.from_numpy(x_np).to(self.dev)
+        library_ms = cuda_ms(torch, (lambda: a @ xt) if x_np.ndim == 2 else (lambda: torch.mv(a, xt)))
+        k = xs.shape[1]
+        if (key, value_bytes) not in self._mbytes:
+            self._mbytes[key, value_bytes] = plain_form_bytes(m, value_bytes)
+        # the product's compulsory bytes: A once (in the smallest form at
+        # hand, matrix_bytes), X read and Y written once
+        matrix_bytes = min(self._mbytes[key, value_bytes], plan_bytes)
+        nbytes = matrix_bytes + 4 * k * (m.rows + m.cols)
+        flops = 2.0 * m.nnz() * k
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        row = dict(case=case, rows=m.rows, nnz=m.nnz(), k=k,
                    max_abs_err=float(np.max(np.abs(yk - yp))),
-                   max_err_over_bound=float(np.max(err_k / np.maximum(bound, 1e-300))),
-                   ms=ms, plain_ms=plain_ms)
+                   max_err_over_bound=ratio, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=int(nbytes), matrix_bytes=int(matrix_bytes),
+                   plan_bytes=int(plan_bytes))
         self.cases[kernel].append(row)
-        log(f"kernel {kernel:8s} {case:28s} rows={m.rows} nnz={m.nnz()} "
-            f"max|k-plain|={row['max_abs_err']:.3e} "
-            f"max err/bound={row['max_err_over_bound']:.3f} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"{m.nnz() / ms / 1e6:.2f} Gnnz/s")
+        log(f"kernel {kernel:12s} {case:34s} rows={m.rows} nnz={m.nnz()} K={k} "
+            f"max|k-plain|={row['max_abs_err']:.3e} max err/bound={ratio:.3f} "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; matrix "
+            f"{matrix_bytes}, plan arrays {plan_bytes} bytes), "
+            f"{m.nnz() * k / ms / 1e6:.2f} Gnnz/s")
 
 
-def phase_kernels(torch, dev, chk: KernelChecks, mats):
-    from sparse_matrix_tpu.formats.aligned import plan_aligned
-    from sparse_matrix_tpu.formats.bell import plan_bell
-    from sparse_matrix_tpu.formats.dia import try_dia_from_csr
-    from sparse_matrix_tpu.formats.lanepack import plan_lanepack
-    from sparse_matrix_tpu_torch.ops import spmv, spmv_bell, spmv_dia
+def phase_kernels(torch, dev, chk: KernelChecks, mats, ops):
+    from sparse_matrix_tpu_torch.formats.aligned import plan_aligned
+    from sparse_matrix_tpu_torch.formats.bell import plan_bell
+    from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
+    from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack
+    from sparse_matrix_tpu_torch.formats.stripe import plan_stripe
+    from sparse_matrix_tpu_torch.ops import spmm, spmv, spmv_bell, spmv_dia
 
     rng = np.random.default_rng(SEED)
 
@@ -160,10 +277,15 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats):
         x_np = rng.standard_normal(m.cols).astype(np.float32)
         return x_np, torch.from_numpy(x_np).to(dev)
 
-    # DIA: Poisson 2048^2, f32 and bf16 band planes
+    def xblock(m):
+        x_np = rng.standard_normal((m.cols, K_RHS)).astype(np.float32)
+        return x_np, torch.from_numpy(x_np).to(dev)
+
+    # DIA SpMV and SpMM: Poisson 2048^2, f32 and bf16 band planes
     a2 = mats["poisson2048"]
     dia = try_dia_from_csr(a2, dtype=np.float32)
     x_np, x = xvec(a2)
+    xb_np, xb = xblock(a2)
     for tag, vdt in (("f32", None), ("bf16", torch.bfloat16)):
         arrs = spmv_dia.dia_device_arrays(dia, dev, values_dtype=vdt)
         vals = None
@@ -174,15 +296,31 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats):
             lambda: spmv_dia.spmv_dia(dia, x, device_arrays=arrs),
             lambda: spmv_dia._spmv_dia_torch(arrs["data"], x, offsets=dia.offsets,
                                              rows=dia.rows, cols=dia.cols),
+            plan_bytes=arrays_bytes("dia", arrs), vals=vals,
+            value_bytes=arrs["data"].element_size(),
+        )
+        mv = spmv_dia.dia_matvec_multi(dia, K_RHS, dev, device_arrays=arrs)
+        x3 = spmv_dia.dia_pack_rhs(dia, xb)
+        chk.check(
+            "dia_spmm", f"poisson2048_{tag}_K{K_RHS}", a2, xb_np,
+            lambda: mv(x3),
+            lambda: spmv_dia._spmm_dia_torch(arrs["data"], xb, offsets=dia.offsets,
+                                             rows=dia.rows),
+            plan_bytes=arrays_bytes("dia", arrs),
+            value_bytes=arrs["data"].element_size(),
+            unpack=lambda y: spmv_dia.dia_unpack_rhs(dia, y) if y.dim() == 3 else y,
             vals=vals,
         )
+        del arrs, mv, x3
 
-    # aligned: Poisson 1024^2 (no spill) and randlocal_262k (LanePack spill)
+    # aligned SpMV and SpMM: Poisson 1024^2 (no spill), randlocal_262k
+    # (LanePack spill)
     for name in ("poisson1024", "randlocal_262k"):
         m = mats[name]
         plan = plan_aligned(m)
         arrs = spmv.aligned_device_arrays(plan, dev)
         x_np, x = xvec(m)
+        spill = () if plan.spill is None else (plan.spill,)
 
         def plain(plan=plan, arrs=arrs, x=x):
             y = spmv._aligned_torch(arrs, x, rows=plan.rows, cols=plan.cols)
@@ -194,7 +332,57 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats):
         tag = name + ("_spill" if plan.spill is not None else "")
         chk.check("aligned", tag, m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmv.spmv_aligned(plan, x, device_arrays=arrs),
-                  plain, lanepack=() if plan.spill is None else (plan.spill,))
+                  plain, plan_bytes=arrays_bytes("aligned", arrs),
+                  lanepack=spill)
+
+        xb_np, xb = xblock(m)
+        x3 = spmm.pack_rhs(xb, m.cols)
+        mv = spmm.aligned_matvec_multi(plan, K_RHS, dev, device_arrays=arrs)
+
+        def plain_mm(plan=plan, arrs=arrs, x3=x3):
+            y3 = spmm._aligned_spmm_torch(arrs, x3, rows=plan.rows)
+            if plan.spill is not None:
+                cols_y = [spmv._lanepack_torch(arrs["spill"], x3[:, q, :].reshape(-1)[: plan.cols],
+                                               rows=plan.rows, cols=plan.cols, kw=plan.spill.kw)
+                          for q in range(K_RHS)]
+                y3 = y3 + spmm.pack_rhs(torch.stack(cols_y, 1), plan.rows)[: plan.r128]
+            return y3
+
+        chk.check("aligned_spmm", f"{tag}_K{K_RHS}", m, xb_np,
+                  lambda mv=mv, x3=x3: mv(x3), plain_mm,
+                  plan_bytes=arrays_bytes("aligned", arrs),
+                  unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=spill)
+        del arrs, mv, x3
+
+    # stripe: the operator plans of randlocal (scan 2,2) and powerlaw (scan
+    # 8,16), and a select-mode plan of randlocal with its scan-mode spill
+    cases = [("randlocal_262k", ops["randlocal_262k"]._stripe),
+             ("powerlaw_262k", ops["powerlaw_262k"]._stripe)]
+    t0 = time.perf_counter()
+    sel = plan_stripe(mats["randlocal_262k"], mode="select")
+    log(f"plan randlocal_262k stripe select: L={sel.levels} kw_g={sel.kw} "
+        f"slabs={sel.num_slabs} spill nnz={0 if sel.spill is None else sel.spill.nnz} "
+        f"{time.perf_counter() - t0:.2f} s")
+    cases.append(("randlocal_262k", sel))
+    for name, plan in cases:
+        m = mats[name]
+        arrs = spmv.stripe_device_arrays(plan, dev)
+        x_np, x = xvec(m)
+
+        def plain(plan=plan, arrs=arrs, x=x):
+            y, p, a = None, plan, arrs
+            while p is not None:
+                yp = spmv._stripe_torch(a, x, rows=p.rows, cols=p.cols, lvl=p.levels,
+                                        kw=p.kw, scan=p.mode == "scan")
+                y = yp if y is None else y + yp
+                p, a = p.spill, a.get("spill")
+            return y
+
+        chk.check("stripe", f"{name}_{plan.mode}_L{plan.levels}_kw{plan.kw}", m, x_np,
+                  lambda plan=plan, arrs=arrs, x=x: spmv.spmv_stripe(plan, x, device_arrays=arrs),
+                  plain, plan_bytes=arrays_bytes("stripe", arrs),
+                  stripe=(plan,))
+        del arrs
 
     # LanePack: the bench's three classes, both packs
     for name in ("femlike_262k", "randlocal_262k", "powerlaw_262k"):
@@ -208,7 +396,7 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats):
                 lambda plan=plan, arrs=arrs, x=x: spmv.spmv_lanepack(plan, x, device_arrays=arrs),
                 lambda plan=plan, arrs=arrs, x=x: spmv._lanepack_torch(
                     arrs, x, rows=plan.rows, cols=plan.cols, kw=plan.kw),
-                lanepack=(plan,),
+                plan_bytes=arrays_bytes("lanepack", arrs), lanepack=(plan,),
             )
 
     # BELL: Poisson 1024^2 forced (span 128, int8 lanes) and femlike_262k
@@ -230,13 +418,33 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats):
 
         chk.check("bell", f"{name}_span{plan.span}", m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
-                  plain, lanepack=() if plan.spill is None else (plan.spill,))
+                  plain, plan_bytes=arrays_bytes("bell", arrs),
+                  lanepack=() if plan.spill is None else (plan.spill,))
+    chk._csr.clear()
 
 
-def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL):
+def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, wall, step):
+    """Log iterations, residuals, wall and device ms per iteration and the
+    host's share of the wall time (``rec``, ``true_res``, ``bound_true``
+    relative to |b|, worst column for multi-RHS solves). ``step`` runs one
+    iteration of the solver's own step function, without its host read."""
+    dev_ms = device_ms_per_call(torch, step)
+    it = max(iterations, 1)
+    ms_it = wall * 1e3 / it
+    log(f"main {tag}: format={fmt} tol={tol:g} iterations={iterations} "
+        f"|r|/|b|={rec:.3e} true |b-Ax|/|b|={true_res:.3e} "
+        f"(f32 bound eps*cond={bound_true:.3e}) wall {wall:.3f} s, "
+        f"{ms_it:.4f} ms/iter, device {dev_ms:.4f} ms/iter, "
+        f"host share {max(0.0, 1 - dev_ms / ms_it):.3f}")
+
+
+def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False):
     """Run ``solve(b)``, check convergence and the true residual, print
-    iterations, ms/iteration and the host's share of the wall time."""
+    iterations, ms/iteration and the host's share of the wall time; the
+    device time is that of ``cg_solve``'s iteration over ``op`` (of
+    ``cg_solve_ir``'s inner iteration where ``ir``)."""
     from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+    from sparse_matrix_tpu_torch.solvers import cg
 
     rng = np.random.default_rng(SEED)
     b_np = rng.standard_normal(a.rows).astype(np.float32)
@@ -254,49 +462,72 @@ def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL):
     bound_true = EPS_F32 * poisson_cond(n) * bnorm
     ok = (np.all(np.isfinite(x_np)) and rec <= tol * bnorm * (1 + 1e-6)
           and true_res <= bound_true)
-    # device time of one CG iteration: the same step, with the host out of
+    # device time of one iteration: the solver's step, with the host out of
     # the way (device_ms_per_call)
-    p = b.clone()
-    r = b.clone()
-    x = torch.zeros_like(b)
-    rs = torch.dot(r, r)
+    step_fn = cg._ir_inner_step if ir else cg._cg_step
+    state = (torch.zeros_like(b), b.clone(), b.clone(), torch.dot(b, b))
 
     def step():
-        nonlocal x, p, r, rs
-        ap = op(p)
-        alpha = rs / torch.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = torch.dot(r, r)
-        p = r + (rs_new / rs) * p
-        rs = rs_new
+        nonlocal state
+        state = step_fn(op, *state)
 
-    dev_ms = device_ms_per_call(torch, step)
-    it = max(res.iterations, 1)
-    ms_it = wall * 1e3 / it
-    log(f"main {tag}: format={op.format} tol={tol:g} iterations={res.iterations} "
-        f"|r|/|b|={rec / bnorm:.3e} true |b-Ax|/|b|={true_res / bnorm:.3e} "
-        f"(f32 bound eps*cond={bound_true / bnorm:.3e}) wall {wall:.3f} s, "
-        f"{ms_it:.4f} ms/iter, device {dev_ms:.4f} ms/iter, "
-        f"host share {max(0.0, 1 - dev_ms / ms_it):.3f}")
+    _report_solve(torch, tag, op.format, tol, res.iterations, rec / bnorm, true_res / bnorm,
+                  bound_true / bnorm, wall, step)
     if not ok:
         raise AssertionError(f"{tag}: CG did not converge within the bounds")
     return res
 
 
-def phase_main(torch, dev, mats):
+def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack):
+    """``cg_solve_multi`` over a packed multi-RHS matvec at K = K_RHS:
+    every column must reach tol and a true residual within
+    eps * cond * |b_k|."""
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+    from sparse_matrix_tpu_torch.solvers import cg
+
+    rng = np.random.default_rng(SEED)
+    b_np = rng.standard_normal((a.rows, K_RHS)).astype(np.float32)
+    b3 = pack(torch.from_numpy(b_np).to(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cg.cg_solve_multi(mv, b3, tol=CG_TOL, maxiter=20000, rhs_axis=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x_np = unpack(res.x).double().cpu().numpy()
+    bnorm = np.linalg.norm(b_np.astype(np.float64), axis=0)
+    rec = res.residual_norm.double().cpu().numpy() / bnorm
+    ax = np.stack([spmv_f64_bound(a, x_np[:, q])[0] for q in range(K_RHS)], axis=1)
+    true_res = np.linalg.norm(b_np - ax, axis=0) / bnorm
+    bound_true = EPS_F32 * poisson_cond(n)
+    ok = (np.all(np.isfinite(x_np)) and np.all(rec <= CG_TOL * (1 + 1e-6))
+          and np.all(true_res <= bound_true))
+    # device time of one iteration: cg_solve_multi's step (with the device
+    # side of its stopping test), the host out of the way
+    colsum, bc = cg._rhs_layout(b3, 1)
+    tol2 = cg._tol2_t(CG_TOL, colsum(b3, b3))
+    rs = colsum(b3, b3)
+    state = (torch.zeros_like(b3), b3.clone(), b3.clone(), rs, rs > tol2)
+
+    def step():
+        nonlocal state
+        x, r, p, rs, live = state
+        live.any()
+        state = cg._cg_multi_step(mv, colsum, bc, tol2, live, x, r, p, rs)
+
+    _report_solve(torch, tag, fmt, CG_TOL, res.iterations, float(rec.max()),
+                  float(true_res.max()), bound_true, wall, step)
+    if not ok:
+        raise AssertionError(f"{tag}: multi-RHS CG did not converge within the bounds "
+                             f"(|r|/|b| {rec}, true {true_res})")
+
+
+def part_slice1(torch, dev, mats, ops):
     from sparse_matrix_tpu_torch.entry import entry
     from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
-    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
     from sparse_matrix_tpu_torch.solvers.cg import cg_solve, cg_solve_ir
 
     a2 = mats["poisson2048"]
-    t0 = time.perf_counter()
-    op = SpmvOperator(a2, device=dev)
-    log(f"plan poisson2048 auto: format={op.format} "
-        f"bytes/apply={op.bytes_per_apply()} {time.perf_counter() - t0:.2f} s")
-    if op.format != "dia":
-        raise AssertionError(f"Poisson 2048^2 dispatched to {op.format}, expected dia")
+    op = ops["poisson2048"]
     solve_and_check(torch, dev, "cg poisson2048 dia f32", a2, 2048,
                     lambda b: cg_solve(op, b, tol=CG_TOL, maxiter=20000), op)
 
@@ -308,11 +539,11 @@ def phase_main(torch, dev, mats):
                     # target at this grid size (the default 200 stalls it)
                     lambda b: cg_solve_ir(op, op_lo, b, tol=IR_TOL, maxiter=20000,
                                           inner_maxiter=5000),
-                    op_lo, tol=IR_TOL)
-    del op, op_lo
+                    op_lo, tol=IR_TOL, ir=True)
+    del op_lo
 
     a1 = mats["poisson1024"]
-    op_a = SpmvOperator(a1, device=dev, force="aligned")
+    op_a = ops["poisson1024_aligned"]
     solve_and_check(torch, dev, "cg poisson1024 aligned", a1, 1024,
                     lambda b: cg_solve(op_a, b, tol=CG_TOL, maxiter=10000), op_a)
 
@@ -329,23 +560,103 @@ def phase_main(torch, dev, mats):
         raise AssertionError(f"entry step: rs {float(rs1)} vs plain {rs_cpu}")
     log(f"main entry step: rs {float(rs1):.6f} (plain on the CPU {rs_cpu:.6f})")
 
-    # the bench's class rows; the reference dispatches randlocal and
-    # powerlaw to stripe, which is not ported, so all three are forced to
-    # the general LanePack format here
+
+def _class_apply(torch, dev, name, m, op, x_np, **bound_kw):
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+
+    x = torch.from_numpy(x_np).to(dev)
+    for _ in range(10):
+        y = op(x)
+    y64, bound = spmv_f64_bound(m, x_np, **bound_kw)
+    if not np.all(np.abs(y.cpu().numpy() - y64) <= bound):
+        raise AssertionError(f"{name}: {op.format} operator off the f64 oracle")
+    return cuda_ms(torch, lambda: op(x))
+
+
+def part_classes(torch, dev, mats, ops):
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+
     rng = np.random.default_rng(SEED)
+    # the bench's class rows through automatic dispatch (the operators
+    # were planned before the kernel phase; their plan times are logged)
+    for name in ("femlike_262k", "randlocal_262k", "powerlaw_262k"):
+        m = mats[name]
+        op = ops[name]
+        x_np = rng.standard_normal(m.cols).astype(np.float32)
+        st = op._stripe
+        ms = _class_apply(torch, dev, name, m, op, x_np,
+                          stripe=() if st is None else (st,))
+        cfg = "" if st is None else f" {st.mode}(L={st.levels}, KW={st.kw})"
+        log(f"main class {name}: format={op.format}{cfg} {ms:.4f} ms/apply, "
+            f"{m.nnz() / ms / 1e6:.2f} Gnnz/s")
+    # and through forced LanePack operators (the general fallback)
     for name in ("femlike_262k", "randlocal_262k", "powerlaw_262k"):
         m = mats[name]
         opc = SpmvOperator(m, device=dev, force="lanepack")
         x_np = rng.standard_normal(m.cols).astype(np.float32)
-        x = torch.from_numpy(x_np).to(dev)
-        for _ in range(10):
-            y = opc(x)
-        y64, bound = spmv_f64_bound(m, x_np, lanepack=(opc._plan,))
-        if not np.all(np.abs(y.cpu().numpy() - y64) <= bound):
-            raise AssertionError(f"{name}: LanePack operator off the f64 oracle")
-        ms = cuda_ms(torch, lambda: opc(x))
-        log(f"main class {name}: format={opc.format} kw={opc._plan.kw} "
+        ms = _class_apply(torch, dev, name, m, opc, x_np, lanepack=(opc._plan,))
+        log(f"main class {name} forced: format={opc.format} kw={opc._plan.kw} "
             f"pack={opc._plan.pack} {ms:.4f} ms/apply, {m.nnz() / ms / 1e6:.2f} Gnnz/s")
+
+
+def part_multi_rhs(torch, dev, mats, ops):
+    from sparse_matrix_tpu_torch.ops import spmm, spmv_dia
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+
+    rng = np.random.default_rng(SEED)
+    for name, opname in (("poisson2048", "poisson2048"), ("poisson1024", "poisson1024_aligned")):
+        m, op = mats[name], ops[opname]
+        x_np = rng.standard_normal((m.cols, K_RHS)).astype(np.float32)
+        x = torch.from_numpy(x_np).to(dev)
+        y = op.matmat(x).double().cpu().numpy()
+        for q in range(K_RHS):
+            y64, bound = spmv_f64_bound(m, x_np[:, q])
+            if not np.all(np.abs(y[:, q] - y64) <= bound):
+                raise AssertionError(f"{name}: matmat column {q} off the f64 oracle")
+        ms = cuda_ms(torch, lambda: op.matmat(x), reps=10, warmup=3)
+        log(f"main matmat {name}: format={op.format} K={K_RHS} {ms:.4f} ms "
+            f"(packing included), {m.nnz() * K_RHS / ms / 1e6:.2f} Gnnz/s")
+
+    a2 = mats["poisson2048"]
+    dia = ops["poisson2048"]._dia
+    solve_multi_and_check(
+        torch, dev, f"cg_multi poisson2048 dia K={K_RHS}", "dia packed", a2, 2048,
+        spmv_dia.dia_matvec_multi(dia, K_RHS, dev, device_arrays=ops["poisson2048"]._dia_arrs),
+        lambda b: spmv_dia.dia_pack_rhs(dia, b), lambda x3: spmv_dia.dia_unpack_rhs(dia, x3))
+    a1 = mats["poisson1024"]
+    op_a = ops["poisson1024_aligned"]
+    solve_multi_and_check(
+        torch, dev, f"cg_multi poisson1024 aligned K={K_RHS}", "aligned packed", a1, 1024,
+        spmm.aligned_matvec_multi(op_a._aligned, K_RHS, dev, device_arrays=op_a._ali_arrs),
+        lambda b: spmm.pack_rhs(b, a1.cols), lambda x3: spmm.unpack_rhs(x3, a1.rows))
+
+
+def plan_operators(dev, mats):
+    """The main path's operators, planned on the host with their times;
+    the three classes must take the reference's formats."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+
+    expected = {
+        "poisson2048": ("dia", None),
+        "femlike_262k": ("dia", None),
+        "randlocal_262k": ("stripe", ("scan", 2, 2)),
+        "powerlaw_262k": ("stripe", ("scan", 8, 16)),
+    }
+    ops = {}
+    for name, (fmt, cfg) in expected.items():
+        t0 = time.perf_counter()
+        op = SpmvOperator(mats[name], device=dev)
+        st = op._stripe
+        got = None if st is None else (st.mode, st.levels, st.kw)
+        log(f"plan {name} auto: format={op.format} stripe={got} "
+            f"bytes/apply={op.bytes_per_apply()} {time.perf_counter() - t0:.2f} s")
+        if (op.format, got) != (fmt, cfg):
+            raise AssertionError(f"{name} dispatched to {op.format} {got}, expected {fmt} {cfg}")
+        ops[name] = op
+    t0 = time.perf_counter()
+    ops["poisson1024_aligned"] = SpmvOperator(mats["poisson1024"], device=dev, force="aligned")
+    log(f"plan poisson1024 aligned: {time.perf_counter() - t0:.2f} s")
+    return ops
 
 
 def main() -> int:
@@ -380,28 +691,37 @@ def main() -> int:
     for name, _tag, m in bench_classes(SEED):
         mats[name] = m
     log(f"matrices: {time.perf_counter() - t0:.2f} s")
+    ops = plan_operators(dev, mats)
 
-    chk = KernelChecks(torch)
-    phase_kernels(torch, dev, chk, mats)
+    chk = KernelChecks(torch, dev)
+    phase_kernels(torch, dev, chk, mats, ops)
 
-    kernels.reset_launch_counts()
-    phase_main(torch, dev, mats)
-    torch.cuda.synchronize()
-    counts = dict(kernels.launch_counts)
+    counts = {k: 0 for k in REPLACES}
+    for part, fn in (("slice1", part_slice1), ("classes", part_classes),
+                     ("multi_rhs", part_multi_rhs)):
+        kernels.reset_launch_counts()
+        fn(torch, dev, mats, ops)
+        torch.cuda.synchronize()
+        got = dict(kernels.launch_counts)
+        log(f"launch counts ({part}): {got}")
+        missing = [k for k in PARTS[part] if got[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched in part {part}: {missing}")
+        for k, v in got.items():
+            counts[k] += v
     log(f"launch counts (main path): {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
 
     record = []
     for name, (src, rep) in REPLACES.items():
         cases = chk.cases[name]
+        first = cases[0]
         record.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=counts[name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
-            case=cases[0]["case"], cases=cases,
+            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=first["library_ms"],
+            case=first["case"], cases=cases,
         ))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

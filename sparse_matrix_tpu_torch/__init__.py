@@ -1,18 +1,24 @@
 """sparse_matrix_tpu_torch — the PyTorch + CUDA port of sparse_matrix_tpu.
 
-The host planners (``sparse_matrix_tpu.formats``, ``.utils.autotune``,
-``.native``: numpy, ctypes and C++) are shared with the JAX package; this
-package rebuilds the device side for an NVIDIA Hopper GPU. Its modules
-mirror the reference's names:
+The package imports nothing of the JAX package: it keeps its own numpy
+copies of the host planners (``formats/``, ``utils/autotune.py``; the
+reference's native C++ runtime is not copied) and rebuilds the device side
+for an NVIDIA Hopper GPU. Its modules mirror the reference's names:
 
     device.py           require_device; CPU tensors take plain versions
+    formats/            CsrMatrix and the DIA, LanePack, aligned, BELL and
+                        stripe planners (numpy)
+    utils/autotune.py   the dispatch cost-model constants
     native/             nvcc build and ctypes bindings of csrc/*.cu
-    ops/spmv_dia.py     DIA SpMV (kernel: csrc/spmv_dia.cu)
-    ops/spmv.py         LanePack, aligned (csrc/spmv_lanepack.cu,
-                        csrc/spmv_aligned.cu) and ELL SpMV
+    ops/spmv_dia.py     DIA SpMV and SpMM (csrc/spmv_dia.cu,
+                        csrc/spmm_dia.cu)
+    ops/spmv.py         LanePack, aligned, stripe (csrc/spmv_lanepack.cu,
+                        csrc/spmv_aligned.cu, csrc/spmv_stripe.cu) and ELL
+                        SpMV
     ops/spmv_bell.py    BELL SpMV (kernel: csrc/spmv_bell.cu)
-    ops/operator.py     SpmvOperator + plan files
-    solvers/cg.py       CG, PCG, mixed-precision CG
+    ops/spmm.py         aligned SpMM (csrc/spmm_aligned.cu), packed layout
+    ops/operator.py     SpmvOperator (apply, matmat) + plan files
+    solvers/cg.py       CG, PCG, mixed-precision CG, multi-RHS CG and PCG
     solvers/poisson.py  the 2-D Poisson model problem
     bench/corpus.py     the bench's 262k-row matrix classes
     entry.py            one CG step through the aligned kernel
@@ -34,7 +40,10 @@ _EXPORTS = {
     "CgResult": "solvers.cg",
     "cg_solve": "solvers.cg",
     "cg_solve_ir": "solvers.cg",
+    "cg_solve_multi": "solvers.cg",
     "pcg_solve": "solvers.cg",
+    "pcg_solve_multi": "solvers.cg",
+    "CsrMatrix": "formats.csr",
     "jacobi_preconditioner": "solvers.cg",
     "poisson_2d_csr": "solvers.poisson",
 }

@@ -1,7 +1,6 @@
 """The bench's synthetic matrix classes, as ``bench.py`` builds them.
 
-Copies of three generators of ``sparse_matrix_tpu/bench/corpus.py`` (that
-module imports the reference's solvers package, which imports JAX). The
+Copies of three generators of ``sparse_matrix_tpu/bench/corpus.py``. The
 same ``numpy.random.Generator`` state gives the same matrices.
 """
 
@@ -9,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from sparse_matrix_tpu.formats.csr import CsrMatrix
+from ..formats.csr import CsrMatrix
 
 __all__ = ["power_law_rows", "random_local", "fem_like", "bench_classes"]
 

@@ -5,8 +5,8 @@
 // cudaStream_t passed as void*), never synchronises and allocates nothing:
 // the Python wrapper owns every buffer. The return value is
 // cudaGetLastError() after the launch (0 = launched). Outputs that the
-// kernel accumulates into with atomics (aligned, LanePack) must be zeroed
-// by the caller.
+// kernel accumulates into with atomics (aligned, LanePack, stripe, aligned
+// SpMM) must be zeroed by the caller.
 #pragma once
 
 #include <stdint.h>
@@ -49,3 +49,31 @@ SPMX_API int spmx_bell(int device, const void* vals, int values_bf16,
                        const int32_t* ds, int num_layers, int64_t r128,
                        int64_t rows, int64_t cols, const float* x, float* y,
                        void* stream);
+
+// per slab s of 8 chunks and level l < levels, lane d:
+// y[(stripe_rb[s] + l)*128 + d] += sum_chunks g, with p = vals * x[col_off*128
+// + lane] and g = incl[ends] - (starts < 0 ? 0 : incl[starts]) (scan mode,
+// starts != NULL) or g = p[ends] (select mode, starts == NULL); ends/starts
+// (S, levels, 8, 128) int8; lanes int8 (lane_bytes = 1) or int16 (2)
+SPMX_API int spmx_stripe(int device, const float* vals, const void* lane,
+                         int lane_bytes, const int8_t* ends,
+                         const int8_t* starts, const int32_t* stripe_rb,
+                         const int32_t* col_off, int64_t num_slabs, int levels,
+                         int64_t cols, const float* x, float* y, void* stream);
+
+// packed K-column DIA SpMM (1 <= k <= 16): x3 (.., k, 128) with x[j, :] at row
+// x_lo + j/128; y3 (y_rows_total, k, 128) with y[i, :] at row y_lo + i/128,
+// every other element of y3 written 0
+SPMX_API int spmx_dia_spmm(int device, const void* data, int values_bf16,
+                           const int32_t* offsets, int nb, int64_t rows,
+                           int64_t cols, int k, const float* x3, int64_t x_lo,
+                           float* y3, int64_t y_lo, int64_t y_rows_total,
+                           void* stream);
+
+// packed K-column aligned SpMM:
+// y3[chunk_rb[c], q, l] += vals[c, l] * x3[col_off[c], q, lane[c, l]]
+SPMX_API int spmx_aligned_spmm(int device, const float* vals,
+                               const int8_t* lane, const int32_t* col_off,
+                               const int32_t* chunk_rb, int64_t num_chunks,
+                               int64_t cols, int k, const float* x3, float* y3,
+                               void* stream);

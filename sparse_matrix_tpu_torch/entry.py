@@ -11,9 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sparse_matrix_tpu.formats.aligned import plan_aligned
-
 from .device import require_device
+from .formats.aligned import plan_aligned
 from .ops.spmv import aligned_device_arrays, spmv_aligned
 from .solvers.poisson import poisson_2d_csr
 

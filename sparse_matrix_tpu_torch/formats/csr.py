@@ -1,0 +1,130 @@
+"""Host CSR matrix: the subset of ``sparse_matrix_tpu/formats/csr.py`` that
+the planners, the operator's dispatch and the tests use.
+
+Same arrays and conventions as the reference: ``vals``, ``indices``
+(uint32), ``offsets`` (int64, ``rows + 1``), an ``is_sorted`` flag, and a
+``_cache`` dict in which the planners memoize structure analyses (row ids,
+slab counts, DIA probes, row-band samples).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["CsrMatrix", "INDEX_DTYPE", "OFFSET_DTYPE", "sample_row_bands"]
+
+INDEX_DTYPE = np.uint32
+OFFSET_DTYPE = np.int64
+
+
+def _check_dims(rows: int, cols: int):
+    rows, cols = int(rows), int(cols)
+    if rows <= 0 or cols <= 0:
+        raise ValueError("matrix dimensions must be positive (got %r x %r)" % (rows, cols))
+    return rows, cols
+
+
+class CsrMatrix:
+    """Compressed sparse row matrix with optional within-row column sorting."""
+
+    __slots__ = ("_rows", "_cols", "vals", "indices", "offsets", "is_sorted", "_cache")
+
+    def __init__(self, rows: int, cols: int, vals, indices, offsets, *, is_sorted: bool):
+        self._rows, self._cols = _check_dims(rows, cols)
+        self.vals = np.asarray(vals)
+        self.indices = np.asarray(indices, dtype=INDEX_DTYPE)
+        self.offsets = np.asarray(offsets, dtype=OFFSET_DTYPE)
+        self.is_sorted = bool(is_sorted)
+        # memo for idempotent structure analyses (planners probe the same
+        # matrix repeatedly during dispatch)
+        self._cache = {}
+
+    @classmethod
+    def from_coo(cls, rows: int, cols: int, r, c, v, *, sum_duplicates: bool = True) -> "CsrMatrix":
+        """Sorted CSR from COO triplets (lexsort by row, then column);
+        duplicate coordinates are summed unless ``sum_duplicates=False``."""
+        rows, cols = _check_dims(rows, cols)
+        r = np.asarray(r, dtype=np.int64)
+        c = np.asarray(c, dtype=np.int64)
+        v = np.asarray(v)
+        order = np.lexsort((c, r))
+        r, c, v = r[order], c[order], v[order]
+        if sum_duplicates and len(r):
+            keys = r * cols + c
+            head = np.empty(len(keys), dtype=bool)
+            head[0] = True
+            np.not_equal(keys[1:], keys[:-1], out=head[1:])
+            seg = np.cumsum(head) - 1
+            summed = np.zeros(int(seg[-1]) + 1, dtype=v.dtype)
+            np.add.at(summed, seg, v)  # in entry order, dtype kept
+            v = summed
+            r, c = r[head], c[head]
+        offsets = np.zeros(rows + 1, dtype=OFFSET_DTYPE)
+        offsets[1:] = np.bincount(r, minlength=rows)
+        np.cumsum(offsets, out=offsets)
+        return cls(rows, cols, v, c.astype(INDEX_DTYPE), offsets, is_sorted=True)
+
+    @property
+    def rows(self) -> int:
+        return self._rows
+
+    @property
+    def cols(self) -> int:
+        return self._cols
+
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    def row_ids(self) -> np.ndarray:
+        """Per-entry row index (expansion of ``offsets``), memoized; treat
+        the result as read-only."""
+        out = self._cache.get("row_ids")
+        if out is None:
+            out = np.repeat(np.arange(self._rows, dtype=np.int64), np.diff(self.offsets))
+            self._cache["row_ids"] = out
+        return out
+
+
+def sample_row_bands(m: CsrMatrix, target_nnz: int = 200_000):
+    """(sub_csr, scale): four contiguous row bands totalling about
+    ``target_nnz`` entries, and the factor that scales entry, slab and
+    chunk counts back up. The dispatch estimators run on it for
+    multi-million-nnz operators. Memoized per (matrix, target)."""
+    nnz = m.nnz()
+    if nnz <= target_nnz:
+        return m, 1.0
+    memo = m._cache.setdefault("row_band_sample", {})
+    hit = memo.get(target_nnz)
+    if hit is not None:
+        return hit
+    nbands = 4
+    band_nnz = target_nnz // nbands
+    starts = np.linspace(0, nnz - band_nnz, nbands).astype(np.int64)
+    offs = m.offsets
+    vals_parts, idx_parts, counts, bounds = [], [], [], []
+    new_row = 0
+    for st in starts:
+        r0 = int(np.searchsorted(offs, st, side="right") - 1)
+        r1 = int(np.searchsorted(offs, st + band_nnz, side="right"))
+        r1 = min(max(r1, r0 + 1), m.rows)
+        lo, hi = int(offs[r0]), int(offs[r1])
+        vals_parts.append(m.vals[lo:hi])
+        idx_parts.append(m.indices[lo:hi].astype(np.int64))
+        counts.append(np.diff(offs[r0 : r1 + 1]))
+        bounds.append(r0 - new_row)  # band's row renumbering shift
+        new_row += r1 - r0
+    # shift each band's columns with its rows (plus one uniform offset C
+    # that keeps them non-negative), so every element offset c - r, and
+    # with it the layer/bucket/chunk structure, survives the renumbering
+    C = max(max(bounds), 0)
+    idx_parts = [(ip - sh + C).astype(INDEX_DTYPE) for ip, sh in zip(idx_parts, bounds)]
+    cnt = np.concatenate(counts)
+    sub_offs = np.zeros(len(cnt) + 1, OFFSET_DTYPE)
+    np.cumsum(cnt, out=sub_offs[1:])
+    sub = CsrMatrix(
+        len(cnt), m.cols + C, np.concatenate(vals_parts),
+        np.concatenate(idx_parts), sub_offs, is_sorted=m.is_sorted,
+    )
+    out = (sub, nnz / max(1, sub.nnz()))
+    memo[target_nnz] = out
+    return out

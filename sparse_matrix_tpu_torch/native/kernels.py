@@ -3,7 +3,8 @@
 Each ``launch_*`` function checks that its tensors are contiguous CUDA
 tensors of the types the kernel takes on one device, enqueues the kernel on
 PyTorch's current stream, raises if the launch was refused, and then adds
-one to ``launch_counts[name]``. Nothing here synchronises or allocates; the
+one to ``launch_counts[name]``; with no work (an empty plan) it launches
+and counts nothing. Nothing here synchronises or allocates; the
 callers in ``ops/`` own the outputs. The library is built and loaded at the
 first launch, never at import.
 """
@@ -22,9 +23,12 @@ __all__ = [
     "launch_aligned",
     "launch_lanepack",
     "launch_bell",
+    "launch_stripe",
+    "launch_dia_spmm",
+    "launch_aligned_spmm",
 ]
 
-KERNELS = ("dia", "aligned", "lanepack", "bell")
+KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -57,6 +61,18 @@ def _library() -> ctypes.CDLL:
         lib.spmx_bell.restype = i32
         lib.spmx_bell.argtypes = [
             i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i64, vp, vp, vp,
+        ]
+        lib.spmx_stripe.restype = i32
+        lib.spmx_stripe.argtypes = [
+            i32, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, vp, vp, vp,
+        ]
+        lib.spmx_dia_spmm.restype = i32
+        lib.spmx_dia_spmm.argtypes = [
+            i32, vp, i32, vp, i32, i64, i64, i32, vp, i64, vp, i64, i64, vp,
+        ]
+        lib.spmx_aligned_spmm.restype = i32
+        lib.spmx_aligned_spmm.argtypes = [
+            i32, vp, vp, vp, vp, i64, i64, i32, vp, vp, vp,
         ]
         _LIB = lib
     return _LIB
@@ -114,6 +130,8 @@ def launch_aligned(vals, lane, col_off, chunk_rb, x, y) -> None:
     chunks = vals.numel() // 128
     if lane.numel() != vals.numel() or col_off.numel() < chunks or chunk_rb.numel() < chunks:
         raise ValueError("aligned: slot and chunk arrays disagree")
+    if chunks == 0:
+        return
     _run("aligned", dev, _library().spmx_aligned, vals.data_ptr(), lane.data_ptr(),
          col_off.data_ptr(), chunk_rb.data_ptr(), chunks, x.numel(),
          x.data_ptr(), y.data_ptr())
@@ -134,6 +152,8 @@ def launch_lanepack(vals, lane, ends, starts, col_off, chunk_rb, x, y) -> None:
         col_off.numel(), chunk_rb.numel()
     ) < chunks:
         raise ValueError("lanepack: slot and chunk arrays disagree")
+    if chunks == 0:
+        return
     _run("lanepack", dev, _library().spmx_lanepack, vals.data_ptr(), lane.data_ptr(),
          ends.data_ptr(), starts.data_ptr(), col_off.data_ptr(),
          chunk_rb.data_ptr(), chunks, x.numel(), x.data_ptr(), y.data_ptr())
@@ -156,3 +176,74 @@ def launch_bell(vals, lane, ds, x, y, *, bias: int, rows: int) -> None:
          int(vals.dtype == torch.bfloat16), lane.data_ptr(), lane.element_size(),
          bias, ds.data_ptr(), layers, r128, rows, x.numel(), x.data_ptr(),
          y.data_ptr())
+
+
+def launch_stripe(vals, lane, ends, starts, stripe_rb, col_off, x, y, *, levels: int) -> None:
+    """``y += stripe(...) @ x`` for one stripe plan (scan mode when
+    ``starts`` is given, select mode when it is None); y is the
+    ``(r128_padded * 128,)`` accumulator."""
+    tensors = dict(vals=vals, lane=lane, ends=ends, stripe_rb=stripe_rb,
+                   col_off=col_off, x=x, y=y)
+    if starts is not None:
+        tensors["starts"] = starts
+    dev = _check(
+        "stripe",
+        dict(vals=_F32, lane=(torch.int8, torch.int16), ends=torch.int8,
+             starts=torch.int8, stripe_rb=torch.int32, col_off=torch.int32,
+             x=_F32, y=_F32),
+        **tensors,
+    )
+    slabs = stripe_rb.numel()
+    if (
+        vals.numel() != slabs * 1024 or lane.numel() != vals.numel()
+        or col_off.numel() != slabs * 8
+        or ends.shape != (slabs, levels, 8, 128)
+        or (starts is not None and starts.shape != ends.shape)
+    ):
+        raise ValueError("stripe: slab arrays disagree with (slabs, levels)")
+    if slabs == 0:
+        return
+    _run("stripe", dev, _library().spmx_stripe, vals.data_ptr(), lane.data_ptr(),
+         lane.element_size(), ends.data_ptr(),
+         None if starts is None else starts.data_ptr(), stripe_rb.data_ptr(),
+         col_off.data_ptr(), slabs, levels, x.numel(), x.data_ptr(), y.data_ptr())
+
+
+def launch_dia_spmm(data, offsets, x3, y3, *, rows: int, cols: int, x_lo: int, y_lo: int) -> None:
+    """``y3 = DIA(data, offsets) @ x3`` in the packed ``(.., K, 128)``
+    layout (data ``(nb, rows)``, 1 <= K <= 16); writes every element of
+    y3."""
+    dev = _check("dia_spmm", dict(data=_VALS, offsets=torch.int32, x3=_F32, y3=_F32),
+                 data=data, offsets=offsets, x3=x3, y3=y3)
+    nb = offsets.numel()
+    k = x3.shape[1] if x3.dim() == 3 else 0
+    if (
+        data.shape != (nb, rows) or x3.dim() != 3 or y3.dim() != 3
+        or not 1 <= k <= 16 or x3.shape[2] != 128 or y3.shape[1:] != (k, 128)
+        or (x3.shape[0] - x_lo) * 128 < cols or (y3.shape[0] - y_lo) * 128 < rows
+    ):
+        raise ValueError("dia_spmm: shapes disagree with (nb, rows, cols, K)")
+    _run("dia_spmm", dev, _library().spmx_dia_spmm, data.data_ptr(),
+         int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols, k,
+         x3.data_ptr(), x_lo, y3.data_ptr(), y_lo, y3.shape[0])
+
+
+def launch_aligned_spmm(vals, lane, col_off, chunk_rb, x3, y3, *, cols: int) -> None:
+    """``y3 += aligned(vals, lane, col_off, chunk_rb) @ x3`` in the packed
+    ``(.., K, 128)`` layout; y3 is the accumulator."""
+    dev = _check("aligned_spmm",
+                 dict(vals=_F32, lane=torch.int8, col_off=torch.int32,
+                      chunk_rb=torch.int32, x3=_F32, y3=_F32),
+                 vals=vals, lane=lane, col_off=col_off, chunk_rb=chunk_rb, x3=x3, y3=y3)
+    chunks = vals.numel() // 128
+    if lane.numel() != vals.numel() or min(col_off.numel(), chunk_rb.numel()) < chunks:
+        raise ValueError("aligned_spmm: slot and chunk arrays disagree")
+    if x3.dim() != 3 or x3.shape[2] != 128 or y3.shape[1:] != x3.shape[1:]:
+        raise ValueError("aligned_spmm: x3 and y3 must be (.., K, 128) with one K")
+    if x3.shape[0] * 128 < cols:
+        raise ValueError("aligned_spmm: x3 does not cover the columns")
+    if chunks == 0:
+        return
+    _run("aligned_spmm", dev, _library().spmx_aligned_spmm, vals.data_ptr(),
+         lane.data_ptr(), col_off.data_ptr(), chunk_rb.data_ptr(), chunks, cols,
+         x3.shape[1], x3.data_ptr(), y3.data_ptr())

@@ -1,17 +1,15 @@
 """Planned SpMV operator with automatic format selection.
 
 Counterpart of ``sparse_matrix_tpu/ops/operator.py``. The dispatch below is
-the reference's decision code, calling the same jax-free estimators
+the reference's decision code over the port's copies of its estimators
 (``estimate_bell``, ``_count_slabs``, ``_chunk_keys``,
 ``sample_row_bands``, ``stripe._mode_cost``, ``autotune.get``), so the
 port's automatic choice equals the reference's ``SpmvOperator(m).format``
-for ``dia``, ``hybrid``, ``aligned``, ``lanepack``, ``bell`` and ``ell``.
+for ``dia``, ``hybrid``, ``aligned``, ``lanepack``, ``bell``, ``stripe``
+and ``ell``, and its stripe plan the reference's ``(mode, L, KW)``.
 
 Not ported:
 
-* **stripe** — where the reference picks (or is forced to) the stripe
-  format, the port raises ``NotImplementedError``; its kernel is the first
-  of slice 2 (ROADMAP.md, queue B item B5).
 * **row and column splits** — the reference shards operators past its
   VMEM caps (``_VMEM_X_LIMIT``, ``_ROWS_SPLIT_LIMIT``) and row-splits
   LanePack plans past its 1 MB SMEM budget. The H100 kernels have neither
@@ -19,6 +17,9 @@ Not ported:
   would take: a banded matrix goes to DIA as in the reference, an
   SMEM-bound LanePack winner is planned as one LanePack plan, and the rest
   runs the regular dispatch.
+* **the packed LanePack and BELL SpMM kernels** (ROADMAP.md queue B, B7
+  and B8) — :meth:`SpmvOperator.matmat` raises ``NotImplementedError``
+  where the reference would launch them.
 """
 
 from __future__ import annotations
@@ -28,11 +29,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparse_matrix_tpu.formats.csr import CsrMatrix
-from sparse_matrix_tpu.formats.dia import DiaMatrix, try_dia_from_csr
-from sparse_matrix_tpu.formats.lanepack import LanePackPlan, plan_lanepack
-
 from ..device import require_device
+from ..formats.aligned import AlignedPlan, _chunk_keys, plan_aligned
+from ..formats.bell import BellPlan, estimate_bell, plan_bell
+from ..formats.csr import CsrMatrix, sample_row_bands
+from ..formats.dia import DiaMatrix, try_dia_from_csr
+from ..formats.lanepack import LanePackPlan, _count_slabs, plan_lanepack
+from ..formats.lanepack import _cost_constants as _lanepack_cost_constants
+from ..formats.stripe import StripePlan, _mode_cost, _stripe_counts, plan_stripe
+from ..formats.stripe import _cost_constants as _stripe_cost_constants
+from ..utils import autotune
 from .spmv import _TORCH_DTYPES, _t
 
 __all__ = [
@@ -49,9 +55,13 @@ MIN_BAND_NNZ_FRACTION = 0.3  # hybrid only pays if bands cover enough nnz
 
 _NP_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
 
-STRIPE_NOT_PORTED = (
-    "the stripe SpMV format is not ported yet (ROADMAP.md queue B, item B5: "
-    "the first kernel of slice 2)"
+LANEPACK_SPMM_NOT_PORTED = (
+    "the packed LanePack SpMM kernel is not ported yet (ROADMAP.md queue B, "
+    "item B7); the reference runs it for K >= 8 or plans under 512 slabs"
+)
+BELL_SPMM_NOT_PORTED = (
+    "the packed BELL SpMM kernel is not ported yet (ROADMAP.md queue B, item "
+    "B8); the reference runs it for K >= 8"
 )
 
 
@@ -92,8 +102,8 @@ class SpmvOperator:
 
     Formats, picked by structure as in the reference: ``dia`` (banded),
     ``hybrid`` (well-filled diagonals in DIA + residual in LanePack or ELL),
-    ``aligned``, ``bell``, ``lanepack`` and ``ell``. ``force`` names one of
-    them. ``values_dtype=torch.bfloat16`` stores the DIA band or BELL value
+    ``aligned``, ``bell``, ``stripe``, ``lanepack`` and ``ell``. ``force``
+    names one of them. ``values_dtype=torch.bfloat16`` stores the DIA band or BELL value
     planes half-width (the other formats raise); applies widen to ``dtype``
     before they accumulate. The host plan is built once; its arrays live on
     ``device`` and ``__call__`` takes an ``x`` on that device.
@@ -115,13 +125,17 @@ class SpmvOperator:
         self._plan = None
         self._aligned = None
         self._bell = None
+        self._stripe = None
         self._ell = None
         self._ell_spill = None
         self._dispatch(m, _NP_DTYPES[dtype], force)
 
     def _dispatch(self, m: CsrMatrix, dtype, force):
         if force == "stripe":
-            raise NotImplementedError(STRIPE_NOT_PORTED)
+            # the reference plans a forced stripe operator on plan_stripe's
+            # own grid (L = 1 included)
+            self._set_stripe(m, dtype)
+            return
 
         if force == "aligned":
             self._set_aligned(m, dtype)
@@ -173,8 +187,6 @@ class SpmvOperator:
                 self._set_ell(m, dtype)
                 return
             if plan_est > 4 * m.nnz() * 8 and ell_bytes < plan_est / 2:
-                from sparse_matrix_tpu.utils import autotune
-
                 if plan_est > 1 << 29:
                     self._set_ell(m, dtype)
                     return
@@ -191,18 +203,17 @@ class SpmvOperator:
             if not self._lanepack_viable(m):
                 # the reference's branch for LanePack plans past its 1 MB
                 # SMEM budget
-                from sparse_matrix_tpu.formats.bell import estimate_bell
-
                 est = estimate_bell(m)
                 bell_ok = est["viable"] and est["spill_nnz"] <= est["kept_nnz"]
                 t_aligned, t_gen, slabs = self._general_costs(m)
                 t_bell = est["cost_ns"] if bell_ok else float("inf")
-                t_stripe, stripe_ok, _ = self._stripe_cost_and_viable(m)
+                t_stripe, stripe_ok, scfg = self._stripe_cost_and_viable(m)
                 if stripe_ok and t_stripe < min(
                     t_aligned, t_bell,
                     t_gen if t_gen is not None else float("inf"),
                 ):
-                    raise NotImplementedError(STRIPE_NOT_PORTED)
+                    self._set_stripe(m, dtype, cfg=scfg)
+                    return
                 if (
                     t_gen is not None
                     and slabs is not None
@@ -229,7 +240,11 @@ class SpmvOperator:
         if force is None:
             choice = self._general_choice(m)
             if choice == "stripe":
-                raise NotImplementedError(STRIPE_NOT_PORTED)
+                # the counts are memoized: this recovers the grid argmin so
+                # plan_stripe skips its own grid
+                _t, _ok, scfg = self._stripe_cost_and_viable(m)
+                self._set_stripe(m, dtype, cfg=scfg)
+                return
             if choice == "bell":
                 self._set_bell(m, dtype)
                 return
@@ -246,11 +261,6 @@ class SpmvOperator:
         """(t_aligned, t_lanepack, lanepack_slabs) estimated kernel ns for
         the aligned and general LanePack families plus the best-kw slab
         count; counts come from sampled row bands on large matrices."""
-        from sparse_matrix_tpu.formats.aligned import _chunk_keys
-        from sparse_matrix_tpu.formats.csr import sample_row_bands
-        from sparse_matrix_tpu.formats.lanepack import _count_slabs, _cost_constants
-        from sparse_matrix_tpu.utils import autotune
-
         scale = 1.0
         mm = m
         if m.nnz() > SpmvOperator._SAMPLED_COSTS_NNZ:
@@ -279,7 +289,7 @@ class SpmvOperator:
             + m.nnz() * autotune.get("aligned_slab_per_entry_ns"),
             chunks * (lo + (hi - lo) * frac),
         )
-        c_fixed, c_kw, _, _ = _cost_constants()
+        c_fixed, c_kw, _, _ = _lanepack_cost_constants()
         t_gen = None
         gen_slabs = None
         for kw in (1, 2, 4, 8, 16):
@@ -294,15 +304,11 @@ class SpmvOperator:
     @staticmethod
     def _stripe_cost_and_viable(m: CsrMatrix):
         """(best stripe ns, viable, (mode, L, KW) argmin) over the
-        reference's pricing grid, with sampled counts on large matrices."""
-        from sparse_matrix_tpu.formats.stripe import (
-            _cost_constants,
-            _mode_cost,
-            _stripe_counts,
-        )
-
+        reference's pricing grid (L in (2, 4, 8) only, ROADMAP.md C2), with
+        sampled counts on large matrices; "viable" is the reference's SMEM
+        budget, a dispatch input here."""
         mm, scale = SpmvOperator._sampled_for_counts(m)
-        consts = _cost_constants()
+        consts = _stripe_cost_constants()
         best, best_slabs, best_cfg = None, None, None
         for mode in ("scan", "select"):
             for lc in (2, 4, 8):
@@ -330,8 +336,6 @@ class SpmvOperator:
     def _general_choice(m: CsrMatrix) -> str:
         """Pick the general-path family by estimated kernel time: ``bell``,
         ``aligned``, ``stripe`` or ``lanepack``."""
-        from sparse_matrix_tpu.formats.bell import estimate_bell
-
         if m.nnz() == 0:
             return "lanepack"
         est = estimate_bell(m)
@@ -354,8 +358,6 @@ class SpmvOperator:
         on well-filled diagonals of a row-band sample."""
         if m.nnz() <= SpmvOperator._SAMPLED_COSTS_NNZ:
             return True
-        from sparse_matrix_tpu.formats.csr import sample_row_bands
-
         sub, _ = sample_row_bands(m)
         so = sub.indices.astype(np.int64) - sub.row_ids()
         _, counts = np.unique(so, return_counts=True)
@@ -368,8 +370,6 @@ class SpmvOperator:
         """(sub, scale) for slab-count estimates: sampled row bands above
         the cost cap."""
         if m.nnz() > SpmvOperator._SAMPLED_COSTS_NNZ:
-            from sparse_matrix_tpu.formats.csr import sample_row_bands
-
             return sample_row_bands(m)
         return m, 1.0
 
@@ -377,8 +377,6 @@ class SpmvOperator:
     def _lanepack_viable(m: CsrMatrix) -> bool:
         """The reference's SMEM budget test for LanePack plans (a dispatch
         input here: it decides formats, not whether the kernel can run)."""
-        from sparse_matrix_tpu.formats.lanepack import _count_slabs
-
         mm, scale = SpmvOperator._sampled_for_counts(m)
         slabs = min(
             (
@@ -392,8 +390,6 @@ class SpmvOperator:
 
     @staticmethod
     def _estimate_lanepack_bytes(m: CsrMatrix) -> int:
-        from sparse_matrix_tpu.formats.lanepack import _count_slabs
-
         mm, scale = SpmvOperator._sampled_for_counts(m)
         best = None
         for kw in (1, 2, 4, 8, 16):
@@ -437,8 +433,6 @@ class SpmvOperator:
         self._ell_spill = None if spill is None else tuple(_t(a, self.device) for a in spill)
 
     def _set_aligned(self, m, dtype):
-        from sparse_matrix_tpu.formats.aligned import plan_aligned
-
         self._no_bf16("aligned")
         self._set_aligned_plan(plan_aligned(m, dtype=dtype))
 
@@ -450,8 +444,6 @@ class SpmvOperator:
         self._ali_arrs = aligned_device_arrays(plan, self.device)
 
     def _set_bell(self, m, dtype):
-        from sparse_matrix_tpu.formats.bell import plan_bell
-
         self._set_bell_plan(plan_bell(m, dtype=dtype))
 
     def _set_bell_plan(self, plan):
@@ -460,6 +452,22 @@ class SpmvOperator:
         self.format = "bell"
         self._bell = plan
         self._bell_arrs = bell_device_arrays(plan, self.device, values_dtype=self._values_dtype)
+
+    def _set_stripe(self, m, dtype, cfg=None):
+        self._no_bf16("stripe")
+        if cfg is not None:
+            mode, lvl, kw = cfg
+            plan = plan_stripe(m, dtype=dtype, mode=mode, levels=lvl, kw=kw)
+        else:
+            plan = plan_stripe(m, dtype=dtype)
+        self._set_stripe_plan(plan)
+
+    def _set_stripe_plan(self, plan: StripePlan):
+        from .spmv import stripe_device_arrays
+
+        self.format = "stripe"
+        self._stripe = plan
+        self._stripe_arrs = stripe_device_arrays(plan, self.device)
 
     def _set_dia(self, dia: DiaMatrix):
         from .spmv_dia import dia_device_arrays
@@ -495,6 +503,10 @@ class SpmvOperator:
             from .spmv import spmv_aligned
 
             y = spmv_aligned(self._aligned, x, device_arrays=self._ali_arrs)
+        if self._stripe is not None:
+            from .spmv import spmv_stripe
+
+            y = spmv_stripe(self._stripe, x, device_arrays=self._stripe_arrs)
         if self._dia is not None:
             from .spmv_dia import spmv_dia
 
@@ -514,6 +526,79 @@ class SpmvOperator:
             y = y3 if y is None else y + y3
         return y
 
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        """``Y = A @ X`` for ``X`` of shape (cols, K), routed as the
+        reference routes it: DIA (and a hybrid's band part) through the DIA
+        SpMM kernel in balanced chunks of at most 16 columns (a chunk of
+        one through the SpMV kernel), aligned through the aligned SpMM
+        kernel, stripe, small-K BELL and large small-K LanePack plans
+        column by column through their SpMV kernels, ELL as a plain
+        gather. Where the reference would launch its packed LanePack or
+        BELL SpMM kernel (not ported: ROADMAP.md B7, B8) this raises
+        ``NotImplementedError``. Iterative multi-RHS solvers should use the
+        packed layouts directly (``dia_matvec_multi``,
+        ``aligned_matvec_multi``) to skip the per-apply relayout."""
+        if x.device != self.device:
+            raise ValueError(f"x is on {x.device}, the operator on {self.device}")
+        if x.dim() != 2 or x.shape[0] != self.cols:
+            raise ValueError(f"x must be ({self.cols}, K), got {tuple(x.shape)}")
+        if x.dtype != self.dtype:
+            raise TypeError(f"x has dtype {x.dtype}, the operator {self.dtype}")
+        k = int(x.shape[1])
+        from .spmm import bell_spmm_viable, lanepack_spmm_uses_kernel
+
+        # refuse before any launch
+        if self._bell is not None and k >= 8 and bell_spmm_viable(self._bell, min(k, 16)):
+            raise NotImplementedError(BELL_SPMM_NOT_PORTED)
+        if self._plan is not None and lanepack_spmm_uses_kernel(self._plan, k):
+            raise NotImplementedError(LANEPACK_SPMM_NOT_PORTED)
+
+        def columns(apply):
+            return torch.stack([apply(x[:, j]) for j in range(k)], dim=1)
+
+        y = None
+        if self._bell is not None:
+            from .spmv_bell import spmv_bell
+
+            y = columns(lambda v: spmv_bell(self._bell, v, device_arrays=self._bell_arrs))
+        if self._stripe is not None:
+            from .spmv import spmv_stripe
+
+            y = columns(lambda v: spmv_stripe(self._stripe, v, device_arrays=self._stripe_arrs))
+        if self._dia is not None:
+            from .spmv_dia import spmm_dia_stream, spmv_dia
+
+            nchunks = -(-k // 16)
+            base, rem = divmod(k, nchunks)
+            parts, j = [], 0
+            for step in (base + (i < rem) for i in range(nchunks)):
+                xs = x[:, j:j + step]
+                if step >= 2:
+                    parts.append(spmm_dia_stream(self._dia, xs, device_arrays=self._dia_arrs))
+                else:
+                    parts.append(spmv_dia(self._dia, xs[:, 0].contiguous(),
+                                          device_arrays=self._dia_arrs)[:, None])
+                j += step
+            y = torch.cat(parts, dim=1)
+        if self._aligned is not None:
+            from .spmm import spmm_aligned
+
+            y = spmm_aligned(self._aligned, x, device_arrays=self._ali_arrs)
+        if self._plan is not None:
+            from .spmv import spmv_lanepack
+
+            y2 = columns(lambda v: spmv_lanepack(self._plan, v, device_arrays=self._lp_arrs))
+            y = y2 if y is None else y + y2
+        if self._ell is not None:
+            from .spmm import spmm_ell
+
+            y2 = spmm_ell(*self._ell, x)
+            if self._ell_spill is not None:
+                sr, sc, sv = self._ell_spill
+                y2 = y2.index_add(0, sr.long(), sv[:, None] * x[sc.long()])
+            y = y2 if y is None else y + y2
+        return y
+
     def bytes_per_apply(self) -> int:
         """Device bytes of operator data streamed per SpMV (x and y not
         counted); bf16 value planes count at their stored width."""
@@ -528,6 +613,8 @@ class SpmvOperator:
             total += self._plan.slot_bytes()
         if self._aligned is not None:
             total += self._aligned.slot_bytes()
+        if self._stripe is not None:
+            total += self._stripe.slot_bytes()
         if self._bell is not None:
             total += int(self._bell_arrs["vals"].nbytes + self._bell_arrs["lane"].nbytes)
             if self._bell.spill is not None:
@@ -563,6 +650,34 @@ def _lanepack_from_payload(z, prefix: str) -> LanePackPlan:
     )
 
 
+def _stripe_payload(st, prefix: str, payload: dict) -> None:
+    payload.update({
+        prefix + "vals": st.vals, prefix + "lane": st.lane, prefix + "ends": st.ends,
+        prefix + "rb": st.stripe_rb, prefix + "col_off": st.col_off,
+        prefix + "chunk_stripe": st.chunk_stripe, prefix + "rb_mask": st.rb_mask,
+        prefix + "nnz": st.nnz, prefix + "levels": st.levels, prefix + "kw": st.kw,
+        prefix + "mode": st.mode, prefix + "rows": st.rows, prefix + "cols": st.cols,
+    })
+    if st.starts is not None:
+        payload[prefix + "starts"] = st.starts
+    if st.spill is not None:  # a scan-mode spill: one level deep
+        _stripe_payload(st.spill, prefix + "sp_", payload)
+
+
+def _stripe_from_payload(z, prefix: str) -> StripePlan:
+    return StripePlan(
+        rows=int(z[prefix + "rows"]), cols=int(z[prefix + "cols"]),
+        levels=int(z[prefix + "levels"]), kw=int(z[prefix + "kw"]),
+        mode=str(z[prefix + "mode"]),
+        vals=z[prefix + "vals"], lane=z[prefix + "lane"], ends=z[prefix + "ends"],
+        starts=z[prefix + "starts"] if prefix + "starts" in z else None,
+        stripe_rb=z[prefix + "rb"], col_off=z[prefix + "col_off"],
+        chunk_stripe=z[prefix + "chunk_stripe"], rb_mask=z[prefix + "rb_mask"],
+        nnz=int(z[prefix + "nnz"]), dtype=z[prefix + "vals"].dtype,
+        spill=_stripe_from_payload(z, prefix + "sp_") if prefix + "sp_vals" in z else None,
+    )
+
+
 def save_operator_plan(op: SpmvOperator, path: str) -> None:
     """Persist a planned operator as the npz that the reference's
     ``save_operator_plan`` writes, so either package can load it."""
@@ -593,6 +708,8 @@ def save_operator_plan(op: SpmvOperator, path: str) -> None:
         })
         if bl.spill is not None:
             payload.update(_lanepack_payload(bl.spill, "bellsp_"))
+    if op._stripe is not None:
+        _stripe_payload(op._stripe, "stripe_", payload)
     if op._plan is not None:
         payload.update(_lanepack_payload(op._plan, "lp_"))
     if op._ell is not None:
@@ -609,25 +726,21 @@ def save_operator_plan(op: SpmvOperator, path: str) -> None:
 def load_operator_plan(path: str, device) -> SpmvOperator:
     """Rebuild an operator on ``device`` from a plan file written by either
     package's ``save_operator_plan`` (keys ``format``, ``dia_*``,
-    ``ali_*``, ``alisp_*``, ``lp_*``, ``bell_*``, ``bellsp_*``, ``ell_*``).
-    Split and stripe plans raise ``NotImplementedError``."""
-    from sparse_matrix_tpu.formats.aligned import AlignedPlan
-    from sparse_matrix_tpu.formats.bell import BellPlan
-
+    ``ali_*``, ``alisp_*``, ``lp_*``, ``bell_*``, ``bellsp_*``,
+    ``stripe_*``, ``stripe_sp_*``, ``ell_*``). Split plans raise
+    ``NotImplementedError``."""
     with np.load(path, allow_pickle=False) as z:
         if "split_kind" in z:
             raise NotImplementedError(
                 "row/column-split plans are not ported (the H100 kernels "
                 "have no VMEM or SMEM walls); re-plan the matrix unsplit"
             )
-        if "stripe_vals" in z:
-            raise NotImplementedError(STRIPE_NOT_PORTED)
         op = SpmvOperator.__new__(SpmvOperator)
         op.device = require_device(device)
         op._values_dtype = None
         op.format = str(z["format"])
         op.rows, op.cols, op.nnz = int(z["rows"]), int(z["cols"]), int(z["nnz"])
-        op._dia = op._plan = op._aligned = op._bell = None
+        op._dia = op._plan = op._aligned = op._bell = op._stripe = None
         op._ell = op._ell_spill = None
         dtypes = []
         if "dia_data" in z:
@@ -662,6 +775,9 @@ def load_operator_plan(path: str, device) -> SpmvOperator:
                 dtype=z["bell_vals"].dtype, spill=spill,
             ))
             dtypes.append(z["bell_vals"].dtype)
+        if "stripe_vals" in z:
+            op._set_stripe_plan(_stripe_from_payload(z, "stripe_"))
+            dtypes.append(z["stripe_vals"].dtype)
         if "lp_vals" in z:
             op._set_lanepack_plan(_lanepack_from_payload(z, "lp_"))
             dtypes.append(z["lp_vals"].dtype)

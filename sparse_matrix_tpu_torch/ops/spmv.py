@@ -1,14 +1,17 @@
-"""General SpMV paths: the LanePack and aligned kernels and the ELL gather.
+"""General SpMV paths: the LanePack, aligned and stripe kernels and the ELL
+gather.
 
-Counterpart of ``sparse_matrix_tpu/ops/spmv.py``. The host plans are the
-reference's own (``sparse_matrix_tpu.formats.lanepack`` / ``.aligned``);
-only the device side is rebuilt:
+Counterpart of ``sparse_matrix_tpu/ops/spmv.py``. The host plans come from
+the port's planners (``formats/``), array-equal to the reference's:
 
 * :func:`spmv_lanepack` — the segmented-reduce kernel
   (``csrc/spmv_lanepack.cu``) over a ``LanePackPlan``;
 * :func:`spmv_aligned` — the destination-aligned kernel
   (``csrc/spmv_aligned.cu``), plus the LanePack kernel on the plan's spill
   sub-plan, both accumulating into one y;
+* :func:`spmv_stripe` — the multi-level stripe kernel
+  (``csrc/spmv_stripe.cu``) over a ``StripePlan`` and, through the same
+  kernel, its scan-mode spill sub-plan;
 * :func:`spmv_ell` / :func:`spmv_ell_spill` — padded-ELL gathers in plain
   PyTorch on every device (the reference computes ELL in XLA, not Pallas);
 * :func:`spmv_oracle` — the host CSR row loop, the test oracle, and
@@ -16,11 +19,12 @@ only the device side is rebuilt:
   error bound that the tests and ``chip_smoke.py`` hold the kernels to.
 
 A CUDA ``x`` launches the kernels; a CPU ``x`` takes the plain versions
-:func:`_lanepack_torch` and :func:`_aligned_torch`. The TPU-only limits of
-the reference are not carried over: its SMEM and VMEM raises, the B-slab
-padding of ``_pick_b``, the SMEM slab segmentation of aligned plans, and
-the ``rb_a``/``rb_b``/``split`` two-target packing (the kernels target rows
-through ``chunk_rb``, as the reference's own CPU path does).
+:func:`_lanepack_torch`, :func:`_aligned_torch` and :func:`_stripe_torch`.
+The TPU-only limits of the reference are not carried over: its SMEM and
+VMEM raises, the B-slab padding of ``_pick_b``, the SMEM slab segmentation
+of aligned plans, and the ``rb_a``/``rb_b``/``split`` two-target packing
+(the kernels target rows through ``chunk_rb`` and ``stripe_rb``, as the
+reference's own CPU path does).
 """
 
 from __future__ import annotations
@@ -30,16 +34,17 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sparse_matrix_tpu.formats.csr import CsrMatrix
-from sparse_matrix_tpu.formats.lanepack import LANES, LanePackPlan
-
 from ..device import on_cuda
+from ..formats.csr import CsrMatrix
+from ..formats.lanepack import LANES, SUBLANES, LanePackPlan
 
 __all__ = [
     "lanepack_device_arrays",
     "spmv_lanepack",
     "aligned_device_arrays",
     "spmv_aligned",
+    "stripe_device_arrays",
+    "spmv_stripe",
     "ell_from_csr",
     "ell_spill_from_csr",
     "spmv_ell",
@@ -206,6 +211,108 @@ def spmv_aligned(plan, x, *, device_arrays=None, allow_downcast=False):
 
 
 # ---------------------------------------------------------------------------
+# Stripe (multi-level destinations; formats/stripe.py)
+# ---------------------------------------------------------------------------
+
+
+def _stripe_chain(plan):
+    """The plan and its spill sub-plans, outermost first."""
+    while plan is not None:
+        yield plan
+        plan = plan.spill
+
+
+def stripe_device_arrays(plan, device) -> dict:
+    """A ``StripePlan``'s arrays on ``device``: ``vals`` (f32) and ``lane``
+    (int8 or int16) as ``(chunks, 128)``; ``ends`` and, in scan mode,
+    ``starts`` (int8) in the plan's ``(S, L, 8, 128)`` layout;
+    ``stripe_rb`` (S,), ``col_off``/``chunk_stripe`` (chunks,) int32;
+    ``rb_mask``; ``spill``: the spill sub-plan's arrays."""
+    chunks = plan.num_slabs * plan.vals.shape[1]
+    arrs = dict(
+        vals=_t(plan.vals.reshape(chunks, LANES), device),
+        lane=_t(plan.lane.reshape(chunks, LANES), device),
+        ends=_t(plan.ends, device),
+        stripe_rb=_t(plan.stripe_rb[: plan.num_slabs].astype(np.int32), device),
+        col_off=_t(plan.col_off[:chunks].astype(np.int32), device),
+        chunk_stripe=_t(plan.chunk_stripe[:chunks].astype(np.int32), device),
+        rb_mask=_t(plan.rb_mask, device),
+    )
+    if plan.starts is not None:
+        arrs["starts"] = _t(plan.starts, device)
+    if plan.spill is not None:
+        arrs["spill"] = stripe_device_arrays(plan.spill, device)
+    return arrs
+
+
+def _stripe_torch(arrs, x, *, rows: int, cols: int, lvl: int, kw: int, scan: bool):
+    """Plain PyTorch evaluation of one stripe plan (not its spill): the
+    counterpart of ``_stripe_reference`` (window gather, product, cumsum in
+    scan mode, per-level boundary gathers scatter-added at
+    ``chunk_stripe * L + level``, empty blocks masked)."""
+    vals = arrs["vals"]
+    s8 = vals.shape[0]
+    lane = arrs["lane"].long()
+    # (S, L, 8, 128) -> per chunk (S*8, L, 128)
+    ends = arrs["ends"].transpose(1, 2).reshape(s8, lvl, LANES).long()
+    co = arrs["col_off"].long()
+    c128 = -(-cols // LANES)
+    xpad = torch.zeros((c128 + kw) * LANES, dtype=x.dtype, device=x.device)
+    xpad[: x.shape[0]] = x
+    x2d = xpad.reshape(c128 + kw, LANES)
+    win = x2d[co[:, None] + torch.arange(kw, device=x.device)[None, :]].reshape(s8, kw * LANES)
+    p = vals * torch.gather(win, 1, lane)
+    if scan:
+        starts = arrs["starts"].transpose(1, 2).reshape(s8, lvl, LANES).long()
+        c = torch.cumsum(p, dim=1)
+    r128p = arrs["rb_mask"].shape[0]
+    y2d = torch.zeros(r128p, LANES, dtype=vals.dtype, device=x.device)
+    rb0 = arrs["chunk_stripe"].long() * lvl
+    for lv in range(lvl):
+        e = ends[:, lv]
+        if scan:
+            s = starts[:, lv]
+            g = torch.gather(c, 1, e) - torch.where(
+                s < 0, 0.0, torch.gather(c, 1, s.clamp(min=0))
+            )
+        else:
+            g = torch.gather(p, 1, e)
+        y2d.index_add_(0, rb0 + lv, g)
+    y2d = torch.where(arrs["rb_mask"][:, None] > 0, y2d, 0.0)
+    return y2d.reshape(-1)[:rows]
+
+
+def _stripe_cuda(plan, arrs, x, y) -> None:
+    """Launch the stripe kernel for ``plan`` and each spill sub-plan, all
+    adding into ``y`` (an empty plan launches nothing)."""
+    from ..native.kernels import launch_stripe
+
+    launch_stripe(arrs["vals"], arrs["lane"], arrs["ends"], arrs.get("starts"),
+                  arrs["stripe_rb"], arrs["col_off"], x, y, levels=plan.levels)
+    if plan.spill is not None:
+        _stripe_cuda(plan.spill, arrs["spill"], x, y)
+
+
+def spmv_stripe(plan, x, *, device_arrays=None, allow_downcast=False):
+    """``y = A @ x`` through the stripe kernel on the plan and its spill
+    sub-plan (CUDA ``x``: one y for all), or through the plain version
+    (CPU ``x``). The reference's SMEM and VMEM refusals are not carried
+    over: the kernel reads its indices and x from device memory."""
+    x = _cast_x(x, plan.dtype, allow_downcast)
+    arrs = device_arrays if device_arrays is not None else stripe_device_arrays(plan, x.device)
+    if on_cuda(x):
+        r128p = max(p.r128_padded for p in _stripe_chain(plan))
+        y = torch.zeros(r128p * LANES, dtype=x.dtype, device=x.device)
+        _stripe_cuda(plan, arrs, x.contiguous(), y)
+        return y[: plan.rows]
+    y = _stripe_torch(arrs, x, rows=plan.rows, cols=plan.cols, lvl=plan.levels,
+                      kw=plan.kw, scan=plan.mode == "scan")
+    if plan.spill is not None:
+        y = y + spmv_stripe(plan.spill, x, device_arrays=arrs["spill"])
+    return y
+
+
+# ---------------------------------------------------------------------------
 # ELL gather (plain PyTorch on every device)
 # ---------------------------------------------------------------------------
 
@@ -268,42 +375,66 @@ def spmv_ell_spill(ell_vals, ell_cols, spill_rows, spill_cols, spill_vals, x):
 U_F32 = 2.0 ** -24  # unit roundoff of float32
 
 
-def _lanepack_run_mass(plan: LanePackPlan, x: np.ndarray) -> np.ndarray:
-    """Per row: the absolute mass ``sum |p|`` of every chunk in which the
-    row has a run. A run's sum is a difference of two prefix sums of its
-    chunk, so its rounding error scales with that mass, not with the row's
-    own products."""
+def _chunk_mass(vals, lane, col_off, cols: int, x: np.ndarray) -> np.ndarray:
+    """Per chunk: the absolute mass ``sum |p|`` of its 128 products."""
+    chunks = col_off.shape[0]
+    v = vals.reshape(chunks, LANES).astype(np.float64)
+    j = col_off[:, None].astype(np.int64) * LANES + lane.reshape(chunks, LANES)
+    xg = np.where(j < cols, x[np.minimum(j, cols - 1)], 0.0)
+    return np.abs(v * xg).sum(axis=1)
+
+
+def _run_mass(row, chunk, run, mass, rows: int):
+    """(per row: the summed mass of the chunks holding its runs, per row:
+    whether it has a run). ``row``, ``chunk`` and ``run`` are per
+    (chunk slot, destination) arrays of one shape."""
+    n = max(rows, int(row.max()) + 1 if row.size else 0)
+    per = np.bincount(row[run], weights=mass[chunk[run]], minlength=n)
+    ran = np.bincount(row[run], minlength=n) > 0
+    return per[:rows], ran[:rows]
+
+
+def _lanepack_run_mass(plan: LanePackPlan, x: np.ndarray):
     chunks = plan.num_slabs * plan.vals.shape[1]
-    vals = plan.vals.reshape(chunks, LANES).astype(np.float64)
-    j = plan.col_off[:chunks, None].astype(np.int64) * LANES + plan.lane.reshape(
-        chunks, LANES
-    )
-    xg = np.where(j < plan.cols, x[np.minimum(j, plan.cols - 1)], 0.0)
-    mass = np.abs(vals * xg).sum(axis=1)
-    ends = plan.ends.reshape(chunks, LANES)
-    starts = plan.starts.reshape(chunks, LANES)
-    run = (ends != 0) | (starts != 0)
+    mass = _chunk_mass(plan.vals, plan.lane, plan.col_off[:chunks], plan.cols, x)
+    run = ((plan.ends != 0) | (plan.starts != 0)).reshape(chunks, LANES)
     row = plan.chunk_rb[:chunks, None].astype(np.int64) * LANES + np.arange(LANES)
-    per = np.bincount(
-        row[run], weights=np.broadcast_to(mass[:, None], run.shape)[run],
-        minlength=plan.r128 * LANES,
-    )
-    return per[: plan.rows]
+    chunk = np.broadcast_to(np.arange(chunks)[:, None], run.shape)
+    return _run_mass(row, chunk, run, mass, plan.rows)
 
 
-def spmv_f64_bound(m: CsrMatrix, x, *, vals=None, lanepack=()):
+def _stripe_run_mass(plan, x: np.ndarray):
+    """The scan-mode counterpart of :func:`_lanepack_run_mass`: a level's
+    run at (slab, level, sub, lane) is row ``(stripe_rb + level)*128 +
+    lane``, summed from chunk ``slab*8 + sub``."""
+    s, lvl = plan.num_slabs, plan.levels
+    chunks = s * SUBLANES
+    mass = _chunk_mass(plan.vals, plan.lane, plan.col_off[:chunks], plan.cols, x)
+    run = (plan.ends != 0) | (plan.starts != 0)  # (S, L, 8, 128)
+    rb = plan.stripe_rb[:s, None].astype(np.int64) + np.arange(lvl)  # (S, L)
+    row = rb[:, :, None, None] * LANES + np.arange(LANES)[None, None, None, :]
+    row = np.broadcast_to(row, run.shape)
+    chunk = np.arange(chunks).reshape(s, 1, SUBLANES, 1)
+    chunk = np.broadcast_to(chunk, run.shape)
+    return _run_mass(row, chunk, run, mass, plan.rows)
+
+
+def spmv_f64_bound(m: CsrMatrix, x, *, vals=None, lanepack=(), stripe=()):
     """``(y_f64, bound)``: the float64 CSR product ``A @ x`` and a per-row
     bound on the error of a float32 evaluation of it.
 
-    Without LanePack parts the bound is ``(nnz_row + 1) * u * (|A||x|)_i``
-    (u = 2^-24): a sum of nnz_row rounded products in any order, which
-    covers DIA, aligned and BELL, with or without atomics. ``lanepack``
-    lists the LanePack plans (or spill sub-plans) that take part; then it is
-    ``(2*128 + nnz_row) * u * ((|A||x|)_i + P_i)``, P_i being the mass of the
-    chunks that hold row i's runs (see :func:`_lanepack_run_mass`): the run
-    sums are prefix-sum differences, scanned in another order than the
-    reference's. ``vals`` replaces the matrix values (e.g. their bf16
-    rounding, for bf16 value planes)."""
+    A row summed from plain products has the bound ``(nnz_row + 1) * u *
+    (|A||x|)_i`` (u = 2^-24): a sum of nnz_row rounded products in any
+    order, which covers DIA, aligned, BELL and stripe in select mode, with
+    or without atomics. ``lanepack`` lists the LanePack plans (or spill
+    sub-plans) and ``stripe`` the stripe plans (with their spills) that
+    take part; a row with a run in a prefix-summed chunk (every LanePack
+    chunk, stripe chunks in scan mode) gets ``(2*128 + nnz_row) * u *
+    ((|A||x|)_i + P_i)``, P_i being the mass of the chunks that hold its
+    runs: a run sum is a difference of two prefix sums of its chunk, so
+    its rounding error scales with that mass, not with the row's own
+    products (ROADMAP.md C8). ``vals`` replaces the matrix values (e.g.
+    their bf16 rounding, for bf16 value planes)."""
     x = np.asarray(x, dtype=np.float64)
     v = (m.vals if vals is None else vals).astype(np.float64)
     r = m.row_ids()
@@ -311,10 +442,15 @@ def spmv_f64_bound(m: CsrMatrix, x, *, vals=None, lanepack=()):
     y = np.bincount(r, weights=prod, minlength=m.rows)
     mag = np.bincount(r, weights=np.abs(prod), minlength=m.rows)
     nnz_row = np.diff(m.offsets).astype(np.float64)
-    if not lanepack:
-        return y, (nnz_row + 1) * U_F32 * mag
-    mass = sum(_lanepack_run_mass(p, x) for p in lanepack)
-    return y, (2 * LANES + nnz_row) * U_F32 * (mag + mass)
+    plain = (nnz_row + 1) * U_F32 * mag
+    scanned = [_lanepack_run_mass(p, x) for p in lanepack]
+    scanned += [_stripe_run_mass(p, x) for s in stripe for p in _stripe_chain(s)
+                if p.mode == "scan"]
+    if not scanned:
+        return y, plain
+    mass = sum(ms for ms, _ in scanned)
+    ran = np.logical_or.reduce([r_ for _, r_ in scanned])
+    return y, np.where(ran, (2 * LANES + nnz_row) * U_F32 * (mag + mass), plain)
 
 
 def spmv_oracle(m: CsrMatrix, x: np.ndarray) -> np.ndarray:

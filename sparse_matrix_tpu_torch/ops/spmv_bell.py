@@ -1,7 +1,7 @@
 """BELL (blocked-ELL layers) SpMV.
 
-Counterpart of ``sparse_matrix_tpu/ops/spmv_bell.py``: the reference's
-``BellPlan`` (``sparse_matrix_tpu.formats.bell``) goes to the device as its
+Counterpart of ``sparse_matrix_tpu/ops/spmv_bell.py``: a ``BellPlan``
+(``formats/bell.py``) goes to the device as its
 ``(L, r128, 128)`` value and lane planes; a CUDA ``x`` launches the BELL
 kernel (``csrc/spmv_bell.cu``) and then the LanePack kernel on the spill
 sub-plan, a CPU ``x`` takes the plain version :func:`_bell_torch`. The
@@ -13,10 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from sparse_matrix_tpu.formats.bell import BellPlan
-from sparse_matrix_tpu.formats.lanepack import LANES
-
 from ..device import on_cuda
+from ..formats.bell import BellPlan
+from ..formats.lanepack import LANES
 from .spmv import _cast_x, _lanepack_cuda, _lanepack_torch, _t, lanepack_device_arrays
 
 __all__ = ["bell_device_arrays", "spmv_bell"]

@@ -1,15 +1,14 @@
 """2D Poisson 5-point Laplacian model problem (the CG workload).
 
 A host numpy copy of ``sparse_matrix_tpu/solvers/poisson.py``'s
-``poisson_2d_csr``: that package's ``solvers/__init__`` imports its JAX CG,
-so the port keeps its own copy. Returns the reference's ``CsrMatrix``.
+``poisson_2d_csr``, returning the port's ``CsrMatrix``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from sparse_matrix_tpu.formats.csr import CsrMatrix
+from ..formats.csr import CsrMatrix
 
 __all__ = ["poisson_2d_csr"]
 

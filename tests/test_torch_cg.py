@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from sparse_matrix_tpu.formats import csr as ref_csr  # noqa: E402
 from sparse_matrix_tpu.ops import operator as ref_op  # noqa: E402
 from sparse_matrix_tpu.solvers import cg as ref_cg  # noqa: E402
 from sparse_matrix_tpu_torch.ops.operator import SpmvOperator  # noqa: E402
@@ -32,6 +33,12 @@ def problem():
     return a, b
 
 
+def _ref(m):
+    """The reference's CsrMatrix over the same arrays."""
+    return ref_csr.CsrMatrix(m.rows, m.cols, m.vals, m.indices, m.offsets,
+                             is_sorted=m.is_sorted)
+
+
 def _same_solution(res, ref_res):
     x, x_ref = res.x.numpy().astype(np.float64), np.asarray(ref_res.x, np.float64)
     assert abs(res.iterations - int(ref_res.iterations)) <= 2
@@ -43,7 +50,7 @@ def test_cg_solve(problem, force):
     a, b = problem
     op = SpmvOperator(a, device="cpu", force=force)
     res = cg.cg_solve(op, torch.from_numpy(b), tol=TOL, maxiter=500)
-    ref_res = ref_cg.cg_solve(ref_op.SpmvOperator(a, force=force), jnp.asarray(b),
+    ref_res = ref_cg.cg_solve(ref_op.SpmvOperator(_ref(a), force=force), jnp.asarray(b),
                               tol=TOL, maxiter=500)
     _same_solution(res, ref_res)
     assert float(res.residual_norm) <= TOL * np.linalg.norm(b) * (1 + 1e-6)
@@ -54,8 +61,8 @@ def test_pcg_solve_jacobi(problem):
     op = SpmvOperator(a, device="cpu")
     res = cg.pcg_solve(op, torch.from_numpy(b), cg.jacobi_preconditioner(a, "cpu"),
                        tol=TOL, maxiter=500)
-    ref_res = ref_cg.pcg_solve(ref_op.SpmvOperator(a), jnp.asarray(b),
-                               ref_cg.jacobi_preconditioner(a), tol=TOL, maxiter=500)
+    ref_res = ref_cg.pcg_solve(ref_op.SpmvOperator(_ref(a)), jnp.asarray(b),
+                               ref_cg.jacobi_preconditioner(_ref(a)), tol=TOL, maxiter=500)
     _same_solution(res, ref_res)
 
 
@@ -66,7 +73,7 @@ def test_cg_solve_ir_bf16_planes(problem):
     assert lo._dia_arrs["data"].dtype == torch.bfloat16
     res = cg.cg_solve_ir(hi, lo, torch.from_numpy(b), tol=TOL, maxiter=2000)
     ref_res = ref_cg.cg_solve_ir(
-        ref_op.SpmvOperator(a), ref_op.SpmvOperator(a, values_dtype=jnp.bfloat16),
+        ref_op.SpmvOperator(_ref(a)), ref_op.SpmvOperator(_ref(a), values_dtype=jnp.bfloat16),
         jnp.asarray(b), tol=TOL, maxiter=2000,
     )
     _same_solution(res, ref_res)

@@ -1,9 +1,11 @@
 """Discipline of the port package (sparse_matrix_tpu_torch) and chip_smoke.py.
 
-* With every ``jax*`` import blocked, the port imports, plans a Poisson
-  32^2 operator on the CPU and runs three CG iterations; importing the
-  package itself loads neither torch nor the CUDA toolchain.
-* No module of the port, nor chip_smoke.py, imports jax.
+* With every ``jax*`` import and the JAX package ``sparse_matrix_tpu``
+  itself blocked, the port imports every module and chip_smoke.py, plans a
+  Poisson 32^2 operator on the CPU and runs three CG iterations; importing
+  the package itself loads neither torch nor the CUDA toolchain.
+* No module of the port, nor chip_smoke.py, imports jax or anything of
+  ``sparse_matrix_tpu``.
 * The capability rules of tests/test_capability_discipline.py, applied to
   the port: no unseeded or global RNG, environment reads only in
   ``native/build.py``, wall clocks only in chip_smoke.py, no bare
@@ -33,6 +35,8 @@ class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name == "jax" or name.startswith(("jax.", "jaxlib")):
             raise ImportError(f"jax is blocked: {name}")
+        if name == "sparse_matrix_tpu" or name.startswith("sparse_matrix_tpu."):
+            raise ImportError(f"the JAX package is blocked: {name}")
         return None
 
 sys.meta_path.insert(0, _NoJax())
@@ -62,6 +66,8 @@ b = torch.from_numpy(np.random.default_rng(0).standard_normal(a.rows).astype(np.
 res = spt.cg_solve(op, b, maxiter=3)
 assert res.iterations == 3 and bool(torch.isfinite(res.x).all())
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(m == "sparse_matrix_tpu" or m.startswith("sparse_matrix_tpu.")
+               for m in sys.modules)
 print(op.format, res.iterations)
 """)
     assert out.split() == ["dia", "3"]
@@ -82,6 +88,11 @@ def _dotted(node):
     return ""
 
 
+def _blocked(name: str) -> bool:
+    return (name == "jax" or name.startswith(("jax.", "jaxlib"))
+            or name == "sparse_matrix_tpu" or name.startswith("sparse_matrix_tpu."))
+
+
 def test_no_jax_import_in_port():
     bad = []
     for path in _sources():
@@ -91,8 +102,7 @@ def test_no_jax_import_in_port():
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
                 names = [node.module]
-            bad += [f"{path.name}:{node.lineno}: {n}" for n in names
-                    if n == "jax" or n.startswith(("jax.", "jaxlib"))]
+            bad += [f"{path.name}:{node.lineno}: {n}" for n in names if _blocked(n)]
     assert not bad, bad
 
 
@@ -135,7 +145,8 @@ def test_cuda_device_without_gpu_raises():
         require_device("meta")
 
 
-@pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell"])
+@pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell", "stripe",
+                                    "dia_spmm", "aligned_spmm"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     from sparse_matrix_tpu_torch.native import kernels
 
@@ -149,6 +160,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
         "lanepack": lambda: kernels.launch_lanepack(f32, i16, i8, i8, i32, i32, f32, f32),
         "bell": lambda: kernels.launch_bell(f32[None, None], i8[None, None], i32, f32, f32,
                                             bias=128, rows=128),
+        "stripe": lambda: kernels.launch_stripe(f32, i8, i8, None, i32, i32, f32, f32, levels=1),
+        "dia_spmm": lambda: kernels.launch_dia_spmm(f32[None], i32, f32[None, None], f32[None, None],
+                                                    rows=128, cols=128, x_lo=0, y_lo=0),
+        "aligned_spmm": lambda: kernels.launch_aligned_spmm(f32, i8, i32, i32, f32[None, None],
+                                                            f32[None, None], cols=128),
     }
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="needs CUDA"):

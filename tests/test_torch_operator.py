@@ -2,8 +2,7 @@
 (sparse_matrix_tpu_torch/ops/operator.py).
 
 * The port's automatic and forced format choice equals the reference's
-  ``SpmvOperator(m).format``; a matrix the reference sends to stripe (not
-  ported) raises ``NotImplementedError``.
+  ``SpmvOperator(m).format`` (stripe: tests/test_torch_stripe.py).
 * Applies agree with the reference operator: ``max|dy| <= 2e-5 *
   max(1, max|y|)`` (both f32).
 * A plan file written by one package and read by the other computes the
@@ -18,15 +17,22 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from sparse_matrix_tpu.bench import corpus as ref_corpus  # noqa: E402
-from sparse_matrix_tpu.formats.csr import CsrMatrix  # noqa: E402
+from sparse_matrix_tpu.formats import csr as ref_csr  # noqa: E402
 from sparse_matrix_tpu.ops import operator as ref_op  # noqa: E402
 from sparse_matrix_tpu_torch.bench import corpus  # noqa: E402
+from sparse_matrix_tpu_torch.formats.csr import CsrMatrix  # noqa: E402
 from sparse_matrix_tpu_torch.ops.operator import (  # noqa: E402
     SpmvOperator,
     load_operator_plan,
     save_operator_plan,
 )
 from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr  # noqa: E402
+
+
+def _ref(m):
+    """The reference's CsrMatrix over the same arrays."""
+    return ref_csr.CsrMatrix(m.rows, m.cols, m.vals, m.indices, m.offsets,
+                             is_sorted=m.is_sorted)
 
 
 def _with_random_entries(a, extra, seed):
@@ -72,7 +78,7 @@ def _x(m, seed=0):
 ])
 def test_auto_format_matches_reference(name, expected):
     m = MATRICES[name]()
-    ref = ref_op.SpmvOperator(m)
+    ref = ref_op.SpmvOperator(_ref(m))
     op = SpmvOperator(m, device="cpu")
     assert ref.format == op.format == expected
     x = _x(m)
@@ -90,20 +96,11 @@ def test_auto_format_matches_reference(name, expected):
 ])
 def test_forced_format_matches_reference(force, name):
     m = MATRICES[name]()
-    ref = ref_op.SpmvOperator(m, force=force)
+    ref = ref_op.SpmvOperator(_ref(m), force=force)
     op = SpmvOperator(m, device="cpu", force=force)
     assert op.format == ref.format
     x = _x(m, 1)
     _agree(op(torch.from_numpy(x)).numpy(), ref(jnp.asarray(x)))
-
-
-def test_stripe_is_not_ported():
-    m = corpus.power_law_rows(np.random.default_rng(0), 1 << 13, 16)
-    assert ref_op.SpmvOperator._general_choice(m) == "stripe"
-    with pytest.raises(NotImplementedError, match="B5"):
-        SpmvOperator(m, device="cpu")
-    with pytest.raises(NotImplementedError, match="stripe"):
-        SpmvOperator(poisson_2d_csr(8, dtype=np.float32), device="cpu", force="stripe")
 
 
 def test_bf16_values_only_on_streaming_formats():
@@ -125,7 +122,7 @@ def test_bf16_values_only_on_streaming_formats():
 def test_plan_files_cross_load(tmp_path, force, name):
     m = MATRICES[name]()
     x = _x(m, 2)
-    ref = ref_op.SpmvOperator(m, force=force)
+    ref = ref_op.SpmvOperator(_ref(m), force=force)
     y_ref = np.asarray(ref(jnp.asarray(x)))
     # the reference's file, read by the port
     ref_op.save_operator_plan(ref, str(tmp_path / "ref.npz"))

@@ -1,6 +1,7 @@
 """Port parity: aligned, LanePack and ELL SpMV (sparse_matrix_tpu_torch/ops/spmv.py).
 
-The same host plan (the reference's planners) goes to the JAX package's
+The same COO input is planned by each package's own planners (array-equal
+plans: tests/test_torch_formats.py) and goes to the JAX package's
 ``spmv_aligned`` / ``spmv_lanepack`` / ``spmv_ell_xla`` (their CPU branches)
 and to the port's CPU path (the plain versions of the CUDA kernels).
 Tolerances:
@@ -21,13 +22,23 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from sparse_matrix_tpu.formats.aligned import plan_aligned  # noqa: E402
-from sparse_matrix_tpu.formats.csr import CsrMatrix  # noqa: E402
-from sparse_matrix_tpu.formats.lanepack import plan_lanepack  # noqa: E402
+from sparse_matrix_tpu.formats import aligned as ref_aligned  # noqa: E402
+from sparse_matrix_tpu.formats import csr as ref_csr  # noqa: E402
+from sparse_matrix_tpu.formats import lanepack as ref_lanepack  # noqa: E402
 from sparse_matrix_tpu.ops import spmv as ref  # noqa: E402
 from sparse_matrix_tpu.utils import autotune  # noqa: E402
+from sparse_matrix_tpu_torch.formats.aligned import plan_aligned  # noqa: E402
+from sparse_matrix_tpu_torch.formats.csr import CsrMatrix  # noqa: E402
+from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack  # noqa: E402
 from sparse_matrix_tpu_torch.ops import spmv  # noqa: E402
 from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr  # noqa: E402
+from sparse_matrix_tpu_torch.utils import autotune as port_autotune  # noqa: E402
+
+
+def _ref(m):
+    """The reference's CsrMatrix over the same arrays."""
+    return ref_csr.CsrMatrix(m.rows, m.cols, m.vals, m.indices, m.offsets,
+                             is_sorted=m.is_sorted)
 
 
 def _rand_csr(rng, rows, cols, density, *, empty_row_blocks=()):
@@ -62,7 +73,7 @@ def test_aligned_no_spill_poisson():
     assert plan.spill is None
     x = _x(1, m.cols)
     y = spmv.spmv_aligned(plan, torch.from_numpy(x)).numpy()
-    _agree(y, ref.spmv_aligned(plan, jnp.asarray(x)))
+    _agree(y, ref.spmv_aligned(ref_aligned.plan_aligned(_ref(m)), jnp.asarray(x)))
     _bounded(m, x, y)
 
 
@@ -70,9 +81,11 @@ def test_aligned_no_spill_poisson():
 def aligned_spills(monkeypatch, tmp_path):
     # the autotune override of tests/test_tpu_kernels.py: a huge aligned
     # slab cost makes plan_aligned spill its low-fill chunks to LanePack
+    # (the reference reads it from a cache file, the port from DEFAULTS)
     p = tmp_path / "autotune.json"
     p.write_text(json.dumps({"lanepack_aligned_slab_ns": 1e6}))
     monkeypatch.setenv("SPMX_AUTOTUNE_CACHE", str(p))
+    monkeypatch.setitem(port_autotune.DEFAULTS, "lanepack_aligned_slab_ns", 1e6)
     autotune.reset_cache()
     yield
     autotune.reset_cache()
@@ -87,7 +100,9 @@ def test_aligned_with_lanepack_spill(aligned_spills):
     arrs = spmv.aligned_device_arrays(plan, "cpu")
     assert "spill" in arrs
     y = spmv.spmv_aligned(plan, torch.from_numpy(x), device_arrays=arrs).numpy()
-    _agree(y, ref.spmv_aligned(plan, jnp.asarray(x)))
+    ref_plan = ref_aligned.plan_aligned(_ref(m), spill_k=32)
+    assert ref_plan.spill is not None
+    _agree(y, ref.spmv_aligned(ref_plan, jnp.asarray(x)))
     _bounded(m, x, y, lanepack=(plan.spill,))
 
 
@@ -100,7 +115,8 @@ def test_lanepack_kw_and_pack(kw, pack):
     assert (plan.kw, plan.pack) == (kw, pack)
     x = _x(3, m.cols)
     y = spmv.spmv_lanepack(plan, torch.from_numpy(x)).numpy()
-    _agree(y, ref.spmv_lanepack(plan, jnp.asarray(x)))
+    ref_plan = ref_lanepack.plan_lanepack(_ref(m), kw=kw, pack=pack)
+    _agree(y, ref.spmv_lanepack(ref_plan, jnp.asarray(x)))
     _bounded(m, x, y, lanepack=(plan,))
 
 
@@ -112,7 +128,7 @@ def test_lanepack_empty_row_blocks():
     x = _x(4, m.cols)
     y = spmv.spmv_lanepack(plan, torch.from_numpy(x)).numpy()
     assert np.all(y[:128] == 0) and np.all(y[256:384] == 0) and np.all(y[512:] == 0)
-    _agree(y, ref.spmv_lanepack(plan, jnp.asarray(x)))
+    _agree(y, ref.spmv_lanepack(ref_lanepack.plan_lanepack(_ref(m)), jnp.asarray(x)))
     _bounded(m, x, y, lanepack=(plan,))
 
 
@@ -123,7 +139,7 @@ def test_lanepack_wide_rectangular():
     x = _x(5, m.cols)
     y = spmv.spmv_lanepack(plan, torch.from_numpy(x)).numpy()
     assert y.shape == (200,)
-    _agree(y, ref.spmv_lanepack(plan, jnp.asarray(x)))
+    _agree(y, ref.spmv_lanepack(ref_lanepack.plan_lanepack(_ref(m)), jnp.asarray(x)))
     _bounded(m, x, y, lanepack=(plan,))
 
 
@@ -140,7 +156,7 @@ def test_ell_plain():
     rng = np.random.default_rng(9)
     m = _rand_csr(rng, 300, 260, 0.05)
     ev, ec = spmv.ell_from_csr(m)
-    rv, rc = ref.ell_from_csr(m)
+    rv, rc = ref.ell_from_csr(_ref(m))
     assert np.array_equal(ev, rv) and np.array_equal(ec, rc)
     x = _x(6, m.cols)
     y = spmv.spmv_ell(torch.from_numpy(ev), torch.from_numpy(ec), torch.from_numpy(x)).numpy()
@@ -157,7 +173,7 @@ def test_ell_with_coo_spill():
     v = np.r_[m.vals, rng.standard_normal(200).astype(np.float32)]
     m = CsrMatrix.from_coo(300, 300, r, c, v)
     parts = spmv.ell_spill_from_csr(m)
-    ref_parts = ref.ell_spill_from_csr(m)
+    ref_parts = ref.ell_spill_from_csr(_ref(m))
     for a, b in zip(parts, ref_parts):
         assert np.array_equal(a, b)
     assert len(parts[2]) > 0
@@ -172,4 +188,4 @@ def test_spmv_oracle_matches_f64_product():
     x = _x(12, m.cols)
     y64, _ = spmv.spmv_f64_bound(m, x)
     assert np.allclose(spmv.spmv_oracle(m, x), y64, rtol=1e-6, atol=1e-6)
-    assert np.array_equal(spmv.spmv_oracle(m, x), ref.spmv_oracle(m, x))
+    assert np.array_equal(spmv.spmv_oracle(m, x), ref.spmv_oracle(_ref(m), x))

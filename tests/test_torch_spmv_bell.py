@@ -1,8 +1,9 @@
 """Port parity: BELL SpMV (sparse_matrix_tpu_torch/ops/spmv_bell.py).
 
 The reference's ``plan_bell`` plan goes to the JAX package's ``spmv_bell``
-(its CPU interpret branch) and to the port's CPU path (the plain version of
-the CUDA kernel, plus the LanePack plain version on the spill). Tolerances:
+(its CPU interpret branch) and the port's ``plan_bell`` plan of the same
+matrix to the port's CPU path (the plain version of the CUDA kernel, plus
+the LanePack plain version on the spill). Tolerances:
 
 * port vs JAX, both f32: ``max|dy| <= 2e-5 * max(1, max|y|)``;
 * port vs float64: ``(nnz_row + 1) * u * (|A||x|)_i`` (u = 2^-24), the
@@ -17,11 +18,13 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from sparse_matrix_tpu.formats.bell import plan_bell  # noqa: E402
-from sparse_matrix_tpu.formats.csr import CsrMatrix  # noqa: E402
+from sparse_matrix_tpu.formats import bell as ref_bell  # noqa: E402
+from sparse_matrix_tpu.formats import csr as ref_csr  # noqa: E402
 from sparse_matrix_tpu.ops.spmv_bell import bell_device_arrays as ref_arrays  # noqa: E402
 from sparse_matrix_tpu.ops.spmv_bell import spmv_bell as ref_spmv_bell  # noqa: E402
 from sparse_matrix_tpu_torch.bench.corpus import fem_like  # noqa: E402
+from sparse_matrix_tpu_torch.formats.bell import plan_bell  # noqa: E402
+from sparse_matrix_tpu_torch.formats.csr import CsrMatrix  # noqa: E402
 from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound  # noqa: E402
 from sparse_matrix_tpu_torch.ops.spmv_bell import (  # noqa: E402
     bell_device_arrays,
@@ -33,11 +36,14 @@ from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr  # noqa: E402
 def _check(m, plan, x, values_dtype=None):
     arrs = bell_device_arrays(plan, "cpu", values_dtype=values_dtype)
     y = spmv_bell(plan, torch.from_numpy(x), device_arrays=arrs).numpy()
+    ref_plan = ref_bell.plan_bell(
+        ref_csr.CsrMatrix(m.rows, m.cols, m.vals, m.indices, m.offsets, is_sorted=m.is_sorted),
+        span=plan.span)
     ref_kw, vals = {}, None
     if values_dtype is not None:
-        ref_kw["device_arrays"] = ref_arrays(plan, values_dtype=jnp.bfloat16)
+        ref_kw["device_arrays"] = ref_arrays(ref_plan, values_dtype=jnp.bfloat16)
         vals = torch.from_numpy(m.vals.astype(np.float32)).to(values_dtype).double().numpy()
-    y_ref = np.asarray(ref_spmv_bell(plan, jnp.asarray(x), **ref_kw))
+    y_ref = np.asarray(ref_spmv_bell(ref_plan, jnp.asarray(x), **ref_kw))
     assert y.shape == (m.rows,) and y.dtype == np.float32
     assert np.max(np.abs(y - y_ref)) <= 2e-5 * max(1.0, float(np.max(np.abs(y_ref))))
     lanepack = () if plan.spill is None else (plan.spill,)

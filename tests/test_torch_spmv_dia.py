@@ -1,8 +1,8 @@
 """Port parity: DIA SpMV (sparse_matrix_tpu_torch/ops/spmv_dia.py).
 
-The port's CPU path (the plain version of the CUDA kernel) against the JAX
-package's ``_spmv_dia_jit`` on the same band planes, and against a float64
-CSR product. Tolerances:
+The port's CPU path (the plain version of the CUDA kernel) on the port's
+DIA plan against the JAX package's ``_spmv_dia_jit`` on the reference's
+plan of the same matrix, and against a float64 CSR product. Tolerances:
 
 * port vs JAX, both f32: ``max|dy| <= 2e-5 * max(1, max|y|)`` (the bound of
   tests/test_tpu_kernels.py);
@@ -17,9 +17,11 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from sparse_matrix_tpu.formats.csr import CsrMatrix  # noqa: E402
-from sparse_matrix_tpu.formats.dia import try_dia_from_csr  # noqa: E402
+from sparse_matrix_tpu.formats import csr as ref_csr  # noqa: E402
+from sparse_matrix_tpu.formats import dia as ref_dia  # noqa: E402
 from sparse_matrix_tpu.ops.spmv_dia import _spmv_dia_jit  # noqa: E402
+from sparse_matrix_tpu_torch.formats.csr import CsrMatrix  # noqa: E402
+from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr  # noqa: E402
 from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound  # noqa: E402
 from sparse_matrix_tpu_torch.ops.spmv_dia import (  # noqa: E402
     _spmv_dia_torch,
@@ -45,13 +47,16 @@ def _banded_rect(rows, cols, offsets, seed):
 def _check(m, dia, x, values_dtype=None):
     arrs = dia_device_arrays(dia, "cpu", values_dtype=values_dtype)
     y = spmv_dia(dia, torch.from_numpy(x), device_arrays=arrs).numpy()
-    data = jnp.asarray(dia.data)
+    ref_plan = ref_dia.try_dia_from_csr(ref_csr.CsrMatrix(
+        m.rows, m.cols, m.vals, m.indices, m.offsets, is_sorted=m.is_sorted))
+    data = jnp.asarray(ref_plan.data)
     vals = None
     if values_dtype is not None:
         data = data.astype(jnp.bfloat16)
         vals = torch.from_numpy(m.vals.astype(np.float32)).to(values_dtype).double().numpy()
     y_ref = np.asarray(
-        _spmv_dia_jit(data, jnp.asarray(x), offsets=dia.offsets, rows=dia.rows, cols=dia.cols)
+        _spmv_dia_jit(data, jnp.asarray(x), offsets=ref_plan.offsets, rows=ref_plan.rows,
+                      cols=ref_plan.cols)
     )
     assert y.shape == (m.rows,) and y.dtype == np.float32
     assert np.max(np.abs(y - y_ref)) <= 2e-5 * max(1.0, float(np.max(np.abs(y_ref))))
