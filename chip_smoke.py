@@ -2,25 +2,37 @@
 """Smoke run of the PyTorch + CUDA port (``sparse_matrix_tpu_torch``) on one
 NVIDIA Hopper GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--c12]
+
+``--c12`` adds the one-off timing of ROADMAP C12 (the aligned SpMM's old
+per-column spill loop against its one LanePack SpMM launch).
 
 Phases, each of which ends the run with an exception on failure:
 
 1. Device and build: the card's name and power limit (nvidia-smi), its
    compute capability, and the parallel nvcc build of ``csrc/*.cu``.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card
-   and against a float64 CSR product with the per-row float32 bound of
-   ``spmv_f64_bound`` (both must hold it, column by column for the SpMM
-   kernels), at the main path's shapes, with CUDA-event times (median of
-   30 applies) of the kernel, its plain version and one ``torch.sparse``
-   CSR call on the same matrix (the library yardstick, used nowhere in the
-   port), and the bound of the product: the bytes it must move over
-   3.35 TB/s (the matrix once in the smallest of its plain CSR and DIA
-   forms and the kernel's plan, ``matrix_bytes``, and x and y once each),
-   or its multiply-adds over 67 TFLOP/s of f32, whichever is larger. The
-   bytes of the plan arrays the kernel reads are reported beside it
-   (``plan_bytes``).
-3. Main path, in three parts, each with every launch count set to 0 just
+   and against a float64 oracle at the main path's shapes. The SpMV and
+   SpMM kernels are held to the per-row float32 bound of
+   ``spmv_f64_bound`` (column by column for the SpMM kernels), the block
+   SpGEMM to ``(n_ij + 2) * u * (|A||B|)_ij`` per entry of the union of
+   both patterns (``+ 2 * 2^-8 * (|A||B|)_ij`` for bf16 blocks). Each case
+   has CUDA-event times (median of 30 calls, 5 for the block SpGEMM) of
+   the kernel, its plain version and one library call on the same inputs
+   (``torch.sparse`` CSR times X, or CSR times CSR for the SpGEMM, with the
+   dense ``torch.matmul`` beside it; a yardstick used nowhere in the
+   port), and the bound: the larger of the bytes the product must move
+   over 3.35 TB/s (the matrix once in the smallest of its plain CSR and DIA
+   forms and the kernel's plan, ``matrix_bytes``, and x and y once each;
+   for the block SpGEMM A and B in their smallest plain forms, at the
+   width of the stored blocks, and C's entries once) and the operations
+   the product needs over the data sheet's peak for their type (2*nnz*K
+   for the SpMV and SpMM kernels, the BCSR SpMM included; 2 per expanded
+   scalar product for the block SpGEMM; 67 TFLOP/s of f32 on the CUDA
+   cores, 989 TFLOP/s of bf16 tensor cores for bf16 blocks). The dense-
+   block work the block kernels do (2*bs^2*F per stored block, 2*bs^3 per
+   pair) is logged beside it as ``block_flops``. TF32 must be off.
+3. Main path, in five parts, each with every launch count set to 0 just
    before it and read just after:
    a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
       dispatched to DIA), the same with bf16 band planes through
@@ -32,9 +44,17 @@ Phases, each of which ends the run with an exception on failure:
    c. multi-RHS: ``SpmvOperator.matmat`` at K=8 on Poisson 2048^2 (DIA)
       and 1024^2 (aligned), and ``cg_solve_multi`` over the packed
       ``dia_matvec_multi`` (2048^2) and ``aligned_matvec_multi`` (1024^2)
-      at K=8.
+      at K=8;
+   d. general multi-RHS: ``matmat`` at K=8 on Poisson 1024^2 (forced
+      LanePack, forced BELL) and randlocal_262k (forced LanePack, aligned
+      with its LanePack spill), ``cg_solve_multi`` over the packed
+      ``lanepack_matvec_multi`` (Poisson 1024^2) and over the BELL
+      operator's ``matmat`` (Poisson 512^2), at K=8;
+   e. block sparse: ``BlockSpgemm(U, U).multiply()`` for U uniform 8192^2
+      at 0.2 % in f32 and bf16 block storage, ``spgemm_block_device`` and
+      ``spmm_bcsr`` on the block-tridiagonal 65536^2 matrix.
    Solves are checked for convergence and for their true residual (per
-   column for the multi-RHS solves).
+   column for the multi-RHS solves), products against float64.
 4. Launch counts: every kernel of a part must have run in that part.
 
 The last two lines are the kernels' JSON record and the result line. The
@@ -69,12 +89,22 @@ REPLACES = {
                  "sparse_matrix_tpu/ops/spmv_dia.py:215"),
     "aligned_spmm": ("sparse_matrix_tpu_torch/csrc/spmm_aligned.cu",
                      "sparse_matrix_tpu/ops/spmm.py:120"),
+    "lanepack_spmm": ("sparse_matrix_tpu_torch/csrc/spmm_lanepack.cu",
+                      "sparse_matrix_tpu/ops/spmm.py:343"),
+    "bell_spmm": ("sparse_matrix_tpu_torch/csrc/spmm_bell.cu",
+                  "sparse_matrix_tpu/ops/spmm.py:640"),
+    "bcsr_spmm": ("sparse_matrix_tpu_torch/csrc/spmm_bcsr.cu",
+                  "sparse_matrix_tpu/ops/spmm.py:61"),
+    "block_spgemm": ("sparse_matrix_tpu_torch/csrc/spgemm_block.cu",
+                     "sparse_matrix_tpu/ops/spgemm_block.py:72"),
 }
 # the kernels each part of the main path must launch
 PARTS = {
     "slice1": ("dia", "aligned", "bell"),
     "classes": ("stripe", "dia", "lanepack"),
     "multi_rhs": ("dia_spmm", "aligned_spmm"),
+    "general_multi_rhs": ("lanepack_spmm", "bell_spmm"),
+    "block_sparse": ("bcsr_spmm", "block_spgemm"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -84,9 +114,13 @@ CG_TOL = 1e-5
 IR_TOL = 1e-4
 EPS_F32 = 2.0 ** -23
 K_RHS = 8
-# H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak
+# H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak and dense
+# bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+# timed calls of a block SpGEMM case (tens of ms each at uniform 8192)
+SPGEMM_REPS = 5
 # device arrays each kernel reads, for its plan bytes (a "spill" entry
 # recurses with the spill kernel's keys)
 READS = {
@@ -253,17 +287,95 @@ class KernelChecks:
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=int(nbytes), matrix_bytes=int(matrix_bytes),
-                   plan_bytes=int(plan_bytes))
+                   plan_bytes=int(plan_bytes), flops=flops)
         self.cases[kernel].append(row)
         log(f"kernel {kernel:12s} {case:34s} rows={m.rows} nnz={m.nnz()} K={k} "
             f"max|k-plain|={row['max_abs_err']:.3e} max err/bound={ratio:.3f} "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; matrix "
-            f"{matrix_bytes}, plan arrays {plan_bytes} bytes), "
+            f"{matrix_bytes}, plan arrays {plan_bytes} bytes; {flops:.4g} flop / 67 "
+            f"TFLOP/s), "
             f"{m.nnz() * k / ms / 1e6:.2f} Gnnz/s")
 
 
-def phase_kernels(torch, dev, chk: KernelChecks, mats, ops):
+    def check_spgemm(self, case, lhs, rhs, eng, *, storage):
+        """The block SpGEMM kernel of ``eng`` (a ``BlockSpgemm``) against
+        its plain version on the card and, as host CSR, against the float64
+        product; times the kernel, the plain version, ``torch.sparse.mm`` of
+        the two CSR tensors and the dense ``torch.matmul`` (sizes to 16384)."""
+        from sparse_matrix_tpu_torch.ops import spgemm_block
+        from sparse_matrix_tpu_torch.ops.device_sorted import padded_to_host
+
+        torch = self.torch
+        nc = len(eng.c_keys)
+
+        def plain():
+            return spgemm_block._block_numeric_torch(eng.a_blocks, eng.b_blocks, eng.pair_a,
+                                                     eng.pair_b, eng.pair_c, num_c=nc,
+                                                     bs=eng.bs)
+
+        ck = eng.multiply_device()
+        cp = plain()
+        torch.cuda.synchronize()
+        max_abs = float((ck - cp).abs().max())
+        c = padded_to_host(eng.multiply_coo(ck))
+        ratio = spgemm_f64_check(lhs, rhs, c, bf16=storage == "bf16", tag=case)
+        spgemm_f64_check(lhs, rhs, padded_to_host(eng.multiply_coo(cp)),
+                         bf16=storage == "bf16", tag=case + " plain")
+        del ck, cp
+        ms = cuda_ms(torch, eng.multiply_device, reps=SPGEMM_REPS, warmup=2)
+        plain_ms = cuda_ms(torch, plain, reps=SPGEMM_REPS, warmup=1)
+        a_t = library_csr(torch, lhs, self.dev)
+        b_t = library_csr(torch, rhs, self.dev)
+        library_ms = cuda_ms(torch, lambda: torch.sparse.mm(a_t, b_t), reps=SPGEMM_REPS,
+                             warmup=2)
+        dense_ms = None
+        if max(lhs.rows, lhs.cols, rhs.cols) <= 16384:
+            ad, bd = a_t.to_dense(), b_t.to_dense()
+            dense_ms = cuda_ms(torch, lambda: torch.matmul(ad, bd), reps=SPGEMM_REPS, warmup=2)
+            del ad, bd
+        del a_t, b_t
+        bs, pairs = eng.bs, eng.num_pairs
+        # the product's own needs: A and B once in their smallest plain
+        # forms (values at the stored width), C's entries written once; 2
+        # flops per expanded scalar product
+        vb = eng.a_blocks.element_size()
+        nbytes = plain_form_bytes(lhs, vb) + plain_form_bytes(rhs, vb) + plain_form_bytes(c, 4)
+        products = int(np.diff(rhs.offsets)[lhs.indices].sum())
+        flops = 2.0 * products
+        block_flops = 2.0 * pairs * bs ** 3
+        rate = BF16_TC_FLOP_PER_S if storage == "bf16" else F32_FLOP_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / rate * 1e3
+        row = dict(case=case, rows=lhs.rows, nnz=lhs.nnz(), pairs=pairs, c_blocks=nc,
+                   nnz_c=c.nnz(), storage=storage, max_abs_err=max_abs,
+                   max_err_over_bound=ratio, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   dense_matmul_ms=dense_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=int(nbytes), flops=flops, block_flops=block_flops)
+        self.cases["block_spgemm"].append(row)
+        log(f"kernel block_spgemm {case:34s} rows={lhs.rows} pairs={pairs} C blocks={nc} "
+            f"nnz(C)={c.nnz()} {storage} max|k-plain|={max_abs:.3e} max err/bound={ratio:.3f} "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, "
+            f"dense matmul {'not measured' if dense_ms is None else f'{dense_ms:.4f} ms'}, "
+            f"bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; {flops:.4g} flop "
+            f"of {products} scalar products / {rate / 1e12:g} TFLOP/s); dense-block work "
+            f"{block_flops:.4g} flop, {block_flops / ms / 1e9:.2f} TFLOP/s")
+
+
+def spgemm_f64_check(lhs, rhs, c, *, bf16: bool, tag: str) -> float:
+    """Hold the host CSR ``c`` to the float64 product, entry by entry on the
+    union of both patterns (``spgemm_err_over_bound``); returns the largest
+    error/bound."""
+    from sparse_matrix_tpu_torch.ops.spgemm_block import spgemm_err_over_bound
+
+    ratio = spgemm_err_over_bound(lhs, rhs, c, bf16=bf16)
+    if not ratio <= 1.0:
+        raise AssertionError(f"block_spgemm/{tag}: off the f64 oracle (max err/bound {ratio})")
+    return ratio
+
+
+def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
     from sparse_matrix_tpu_torch.formats.aligned import plan_aligned
     from sparse_matrix_tpu_torch.formats.bell import plan_bell
     from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
@@ -342,16 +454,16 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops):
         def plain_mm(plan=plan, arrs=arrs, x3=x3):
             y3 = spmm._aligned_spmm_torch(arrs, x3, rows=plan.rows)
             if plan.spill is not None:
-                cols_y = [spmv._lanepack_torch(arrs["spill"], x3[:, q, :].reshape(-1)[: plan.cols],
-                                               rows=plan.rows, cols=plan.cols, kw=plan.spill.kw)
-                          for q in range(K_RHS)]
-                y3 = y3 + spmm.pack_rhs(torch.stack(cols_y, 1), plan.rows)[: plan.r128]
+                y3 = y3 + spmm._lanepack_spmm_torch(arrs["spill"], x3, cols=plan.cols,
+                                                    kw=plan.spill.kw)
             return y3
 
         chk.check("aligned_spmm", f"{tag}_K{K_RHS}", m, xb_np,
                   lambda mv=mv, x3=x3: mv(x3), plain_mm,
                   plan_bytes=arrays_bytes("aligned", arrs),
                   unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=spill)
+        if c12 and plan.spill is not None:
+            time_c12(torch, chk, plan, arrs, mv, x3)
         del arrs, mv, x3
 
     # stripe: the operator plans of randlocal (scan 2,2) and powerlaw (scan
@@ -423,6 +535,186 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops):
     chk._csr.clear()
 
 
+def time_c12(torch, chk, plan, arrs, mv, x3):
+    """ROADMAP C12 (``--c12``): the aligned SpMM with its LanePack spill run
+    the old way (the aligned kernel, then per column a strided copy of x,
+    one LanePack SpMV launch and one add into y3) against the packed matvec
+    ``mv``, whose spill is one LanePack SpMM launch for all K columns;
+    timed in turns (before, after, after, before) in this call."""
+    from sparse_matrix_tpu_torch.native.kernels import launch_aligned_spmm
+    from sparse_matrix_tpu_torch.ops import spmv
+
+    r128, k = plan.r128, x3.shape[1]
+
+    def before():
+        y3 = torch.zeros_like(x3)
+        launch_aligned_spmm(arrs["vals"], arrs["lane"], arrs["col_off"], arrs["chunk_rb"],
+                            x3, y3, cols=plan.cols)
+        for q in range(k):
+            xq = x3[:, q, :].reshape(-1)[: plan.cols].contiguous()
+            yq = torch.zeros(r128 * 128, dtype=x3.dtype, device=x3.device)
+            spmv._lanepack_cuda(arrs["spill"], xq, yq)
+            y3[:r128, q, :] += yq.reshape(r128, 128)
+        return y3
+
+    yb, ya = before(), mv(x3)
+    diff = float((yb - ya).abs().max()) / max(1.0, float(ya.abs().max()))
+    if diff > 1e-5:
+        raise AssertionError(f"C12: the column loop and the packed spill differ by {diff:.3e}")
+    t = [cuda_ms(torch, before), cuda_ms(torch, lambda: mv(x3)),
+         cuda_ms(torch, lambda: mv(x3)), cuda_ms(torch, before)]
+    row = chk.cases["aligned_spmm"][-1]
+    row["c12"] = dict(before_ms=[t[0], t[3]], after_ms=[t[1], t[2]], rel_diff=diff)
+    log(f"C12 {row['case']}: spill column loop {t[0]:.4f} / {t[3]:.4f} ms, "
+        f"one LanePack SpMM launch {t[1]:.4f} / {t[2]:.4f} ms (in turns); results differ "
+        f"by {diff:.2e} of max|y|")
+
+
+def aligned_spill_csr(m, plan):
+    """The entries of ``m`` that an aligned plan leaves to its LanePack
+    spill: those its aligned slots (the nonzero values) do not hold."""
+    from sparse_matrix_tpu_torch.formats.csr import CsrMatrix
+
+    chunks = plan.num_slabs * 8
+    c, lane_pos = np.nonzero(plan.vals.reshape(chunks, 128))
+    r_a = plan.chunk_rb[:chunks][c].astype(np.int64) * 128 + lane_pos
+    c_a = (plan.col_off[:chunks][c].astype(np.int64) * 128
+           + plan.lane.reshape(chunks, 128)[c, lane_pos].astype(np.int64))
+    r = m.row_ids()
+    keep = ~np.isin(r * m.cols + m.indices.astype(np.int64), r_a * m.cols + c_a)
+    sub = CsrMatrix.from_coo(m.rows, m.cols, r[keep], m.indices[keep].astype(np.int64),
+                             m.vals[keep])
+    if sub.nnz() != plan.spill.nnz:
+        raise AssertionError(f"spill CSR has {sub.nnz()} entries, the spill plan {plan.spill.nnz}")
+    return sub
+
+
+def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
+    """Phase 2 for the LanePack SpMM (B7), BELL SpMM (B8), BCSR SpMM (B10)
+    and block SpGEMM (B11) kernels."""
+    from sparse_matrix_tpu_torch.formats.bcsr import BsrMatrix
+    from sparse_matrix_tpu_torch.formats.bell import plan_bell
+    from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack
+    from sparse_matrix_tpu_torch.ops import spmm, spmv
+    from sparse_matrix_tpu_torch.ops.spgemm_block import BlockSpgemm
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the block kernels are held to FP32")
+    rng = np.random.default_rng(SEED + 3)
+
+    def xblock(m, k=K_RHS):
+        x_np = rng.standard_normal((m.cols, k)).astype(np.float32)
+        return x_np, torch.from_numpy(x_np).to(dev)
+
+    # B7: forced LanePack plans at K=8
+    t0 = time.perf_counter()
+    pl_plan = plan_lanepack(mats["powerlaw_262k"])
+    log(f"plan powerlaw_262k lanepack: kw={pl_plan.kw} pack={pl_plan.pack} "
+        f"{time.perf_counter() - t0:.2f} s")
+    cases = [("poisson1024", ops["poisson1024_lanepack"]._plan, ops["poisson1024_lanepack"]._lp_arrs),
+             ("randlocal_262k", ops["randlocal_262k_lanepack"]._plan,
+              ops["randlocal_262k_lanepack"]._lp_arrs),
+             ("powerlaw_262k", pl_plan, spmv.lanepack_device_arrays(pl_plan, dev))]
+    for name, plan, arrs in cases:
+        m = mats[name]
+        x_np, x = xblock(m)
+        x3 = spmm.pack_rhs(x, m.cols, guard=plan.kw)
+        chk.check("lanepack_spmm", f"{name}_{plan.pack}_kw{plan.kw}_K{K_RHS}", m, x_np,
+                  lambda plan=plan, arrs=arrs, x3=x3: spmm.spmm_lanepack_packed(
+                      plan, x3, device_arrays=arrs),
+                  lambda plan=plan, arrs=arrs, x3=x3: spmm._lanepack_spmm_torch(
+                      arrs, x3, cols=plan.cols, kw=plan.kw),
+                  plan_bytes=arrays_bytes("lanepack", arrs),
+                  unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=(plan,))
+    del cases, arrs
+    # ... and the spill of randlocal's aligned plan in the aligned layout (one
+    # guard row: the kernel reads zeros past cols), the C12 path
+    op = ops["randlocal_262k_aligned"]
+    sp_plan, sp_arrs = op._aligned.spill, op._ali_arrs["spill"]
+    sub = aligned_spill_csr(mats["randlocal_262k"], op._aligned)
+    x_np, x = xblock(sub)
+    x3 = spmm.pack_rhs(x, sub.cols)
+    chk.check("lanepack_spmm", f"randlocal_262k_aligned_spill_kw{sp_plan.kw}_K{K_RHS}", sub, x_np,
+              lambda: spmm.spmm_lanepack_packed(sp_plan, x3, device_arrays=sp_arrs),
+              lambda: spmm._lanepack_spmm_torch(sp_arrs, x3, cols=sp_plan.cols, kw=sp_plan.kw),
+              plan_bytes=arrays_bytes("lanepack", sp_arrs),
+              unpack=lambda y: spmm.unpack_rhs(y, sub.rows), lanepack=(sp_plan,))
+    del sub, x3
+
+    # B8: Poisson 1024^2 span 128 at K=8 and 16, femlike_262k span 256 at K=8
+    t0 = time.perf_counter()
+    fem_plan = plan_bell(mats["femlike_262k"])
+    log(f"plan femlike_262k bell: span={fem_plan.span} layers={fem_plan.num_layers} "
+        f"{time.perf_counter() - t0:.2f} s")
+    from sparse_matrix_tpu_torch.ops.spmv_bell import bell_device_arrays
+
+    pb = ops["poisson1024_bell"]
+    for name, plan, arrs, k in (("poisson1024", pb._bell, pb._bell_arrs, 8),
+                                ("poisson1024", pb._bell, pb._bell_arrs, 16),
+                                ("femlike_262k", fem_plan, bell_device_arrays(fem_plan, dev), 8)):
+        m = mats[name]
+        x_np, x = xblock(m, k)
+
+        def plain(plan=plan, arrs=arrs, x=x):
+            y3 = spmm._bell_spmm_torch(arrs["vals"], arrs["lane"], x, ds=plan.ds,
+                                       modes=plan.modes, span=plan.span, cols=plan.cols)
+            if plan.spill is not None:
+                y3 = y3 + spmm._lanepack_spmm_torch(arrs["spill"], spmm.pack_rhs(x, plan.cols),
+                                                    cols=plan.cols, kw=plan.spill.kw)
+            return spmm.unpack_rhs(y3, plan.rows)
+
+        chk.check("bell_spmm", f"{name}_span{plan.span}_K{k}", m, x_np,
+                  lambda plan=plan, arrs=arrs, x=x: spmm.spmm_bell(plan, x, device_arrays=arrs),
+                  plain, plan_bytes=arrays_bytes("bell", arrs),
+                  lanepack=() if plan.spill is None else (plan.spill,))
+    del fem_plan, arrs
+
+    # B10: the block-tridiagonal 65536^2 matrix and the corpus's blocked_2k
+    # size, bs 128, X of 128 columns
+    for name in ("blocked65536", "blocked2048"):
+        m = mats[name]
+        t0 = time.perf_counter()
+        b = BsrMatrix.from_csr(m)
+        log(f"plan {name} BsrMatrix.from_csr: nnzb={b.nnzb} empty block rows="
+            f"{int(np.sum(np.diff(b.block_offsets) == 0))} {time.perf_counter() - t0:.2f} s")
+        arrs = spmm.bcsr_device_arrays(b, dev)
+        x_np, x = xblock(m, 128)
+
+        def plain(b=b, arrs=arrs, x=x, m=m):
+            xf = torch.zeros((b.bcols * b.bs, 128), device=dev)
+            xf[: m.cols] = x
+            y = spmm._bcsr_torch(arrs, xf.reshape(b.bcols, b.bs, 128), brows=b.brows)
+            return y.reshape(-1, 128)[: m.rows]
+
+        plan_bytes = sum(arrs[key].numel() * arrs[key].element_size()
+                         for key in ("blocks", "block_cols", "block_offsets"))
+        chk.check("bcsr_spmm", f"{name}_bs{b.bs}_F128", m, x_np,
+                  lambda b=b, arrs=arrs, x=x: spmm.spmm_bcsr(b, x, device_arrays=arrs), plain,
+                  plan_bytes=plan_bytes)
+        row = chk.cases["bcsr_spmm"][-1]
+        row["block_flops"] = 2.0 * b.nnzb * b.bs ** 2 * 128
+        log(f"kernel bcsr_spmm {row['case']}: dense-block work {row['block_flops']:.4g} "
+            f"flop, {row['block_flops'] / row['ms'] / 1e9:.2f} TFLOP/s")
+        del b, arrs
+
+    # B11: U @ U for uniform 8192^2 at 0.2 % in f32 and bf16 storage, the
+    # block-tridiagonal 65536^2 matrix squared, uniform 2048^2 at 1 % squared
+    for case, name, storage in (("uniform8192_f32", "uniform8192", "f32"),
+                                ("uniform8192_bf16", "uniform8192", "bf16"),
+                                ("blocked65536_f32", "blocked65536", "f32"),
+                                ("uniform2048_f32", "uniform2048", "f32")):
+        m = mats[name]
+        t0 = time.perf_counter()
+        eng = BlockSpgemm(m, m, device=dev, storage=storage)
+        torch.cuda.synchronize()
+        log(f"plan {case} BlockSpgemm: pairs={eng.num_pairs} C blocks={len(eng.c_keys)} "
+            f"{time.perf_counter() - t0:.2f} s")
+        chk.check_spgemm(case, m, m, eng, storage=storage)
+        del eng
+        torch.cuda.empty_cache()
+    chk._csr.clear()
+
+
 def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, wall, step):
     """Log iterations, residuals, wall and device ms per iteration and the
     host's share of the wall time (``rec``, ``true_res``, ``bound_true``
@@ -478,10 +770,10 @@ def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False):
     return res
 
 
-def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack):
-    """``cg_solve_multi`` over a packed multi-RHS matvec at K = K_RHS:
-    every column must reach tol and a true residual within
-    eps * cond * |b_k|."""
+def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack, rhs_axis=1):
+    """``cg_solve_multi`` over a multi-RHS matvec at K = K_RHS, packed
+    (``rhs_axis=1``) or on (n, K) columns (``rhs_axis=-1``): every column
+    must reach tol and a true residual within eps * cond * |b_k|."""
     from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
     from sparse_matrix_tpu_torch.solvers import cg
 
@@ -490,7 +782,7 @@ def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack):
     b3 = pack(torch.from_numpy(b_np).to(dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = cg.cg_solve_multi(mv, b3, tol=CG_TOL, maxiter=20000, rhs_axis=1)
+    res = cg.cg_solve_multi(mv, b3, tol=CG_TOL, maxiter=20000, rhs_axis=rhs_axis)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     x_np = unpack(res.x).double().cpu().numpy()
@@ -503,7 +795,7 @@ def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack):
           and np.all(true_res <= bound_true))
     # device time of one iteration: cg_solve_multi's step (with the device
     # side of its stopping test), the host out of the way
-    colsum, bc = cg._rhs_layout(b3, 1)
+    colsum, bc = cg._rhs_layout(b3, rhs_axis)
     tol2 = cg._tol2_t(CG_TOL, colsum(b3, b3))
     rs = colsum(b3, b3)
     state = (torch.zeros_like(b3), b3.clone(), b3.clone(), rs, rs > tol2)
@@ -631,6 +923,122 @@ def part_multi_rhs(torch, dev, mats, ops):
         lambda b: spmm.pack_rhs(b, a1.cols), lambda x3: spmm.unpack_rhs(x3, a1.rows))
 
 
+def _matmat_check(torch, dev, name, m, op, rng, **bound_kw):
+    """``op.matmat`` at K = K_RHS, column by column within the f64 bound;
+    logs its time (packing included)."""
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+
+    x_np = rng.standard_normal((m.cols, K_RHS)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    y = op.matmat(x).double().cpu().numpy()
+    for q in range(K_RHS):
+        y64, bound = spmv_f64_bound(m, x_np[:, q], **bound_kw)
+        if not np.all(np.abs(y[:, q] - y64) <= bound):
+            raise AssertionError(f"{name}: {op.format} matmat column {q} off the f64 oracle")
+    ms = cuda_ms(torch, lambda: op.matmat(x), reps=10, warmup=3)
+    log(f"main matmat {name}: format={op.format} K={K_RHS} {ms:.4f} ms "
+        f"(packing included), {m.nnz() * K_RHS / ms / 1e6:.2f} Gnnz/s")
+
+
+def part_general_multi_rhs(torch, dev, mats, ops):
+    from sparse_matrix_tpu_torch.ops import spmm
+
+    rng = np.random.default_rng(SEED + 4)
+    for name, opname in (("poisson1024", "poisson1024_lanepack"),
+                         ("poisson1024", "poisson1024_bell"),
+                         ("randlocal_262k", "randlocal_262k_lanepack"),
+                         ("randlocal_262k", "randlocal_262k_aligned")):
+        op = ops[opname]
+        lp = () if op._plan is None else (op._plan,)
+        if op._aligned is not None and op._aligned.spill is not None:
+            lp = (op._aligned.spill,)
+        if op._bell is not None and op._bell.spill is not None:
+            lp = (op._bell.spill,)
+        _matmat_check(torch, dev, f"{name} {opname.split('_')[-1]}", mats[name], op, rng,
+                      lanepack=lp)
+
+    a1 = mats["poisson1024"]
+    op_l = ops["poisson1024_lanepack"]
+    kw = op_l._plan.kw
+    solve_multi_and_check(
+        torch, dev, f"cg_multi poisson1024 lanepack K={K_RHS}", "lanepack packed", a1, 1024,
+        spmm.lanepack_matvec_multi(op_l._plan, K_RHS, dev, device_arrays=op_l._lp_arrs),
+        lambda b: spmm.pack_rhs(b, a1.cols, guard=kw), lambda x3: spmm.unpack_rhs(x3, a1.rows))
+    a5 = mats["poisson512"]
+    solve_multi_and_check(
+        torch, dev, f"cg_multi poisson512 bell matmat K={K_RHS}", "bell", a5, 512,
+        ops["poisson512_bell"].matmat, lambda b: b, lambda x: x, rhs_axis=-1)
+
+
+def part_block_sparse(torch, dev, mats, ops):
+    from sparse_matrix_tpu_torch.formats.bcsr import BsrMatrix
+    from sparse_matrix_tpu_torch.ops.device_sorted import padded_to_host
+    from sparse_matrix_tpu_torch.ops.spgemm_block import (
+        BlockSpgemm,
+        block_pairs_plan,
+        spgemm_block_device,
+    )
+    from sparse_matrix_tpu_torch.ops.spmm import spmm_bcsr
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+
+    u = mats["uniform8192"]
+    t0 = time.perf_counter()
+    ub = BsrMatrix.from_csr(u)
+    t1 = time.perf_counter()
+    pairs = block_pairs_plan(ub, ub)
+    log(f"main plan uniform8192: BsrMatrix.from_csr {t1 - t0:.3f} s, block_pairs_plan "
+        f"{time.perf_counter() - t1:.3f} s ({len(pairs[0])} pairs)")
+    del ub, pairs
+    for storage in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        eng = BlockSpgemm(u, u, device=dev, storage=storage)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c = eng.multiply()
+        t2 = time.perf_counter()
+        ratio = spgemm_f64_check(u, u, c, bf16=storage == "bf16", tag=f"main uniform8192 {storage}")
+        # multiply() once more, itemized: numeric phase, device sparsify,
+        # live-prefix readback and host CSR
+        t3 = time.perf_counter()
+        blocks = eng.multiply_device()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        p = eng.multiply_coo(blocks)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        padded_to_host(p)
+        t6 = time.perf_counter()
+        log(f"main BlockSpgemm uniform8192 {storage}: nnz(C)={c.nnz()} plan+upload "
+            f"{t1 - t0:.3f} s, multiply {t2 - t1:.3f} s (again, itemized: numeric phase "
+            f"{t4 - t3:.3f} s, device sparsify {t5 - t4:.3f} s, readback of {c.nnz()} "
+            f"entries and host CSR {t6 - t5:.3f} s), max err/bound {ratio:.3f}")
+        del eng, c, blocks, p
+        torch.cuda.empty_cache()
+
+    b = mats["blocked65536"]
+    t0 = time.perf_counter()
+    c = spgemm_block_device(b, b, device=dev)
+    t1 = time.perf_counter()
+    ratio = spgemm_f64_check(b, b, c, bf16=False, tag="main blocked65536")
+    log(f"main spgemm_block_device blocked65536: nnz(C)={c.nnz()} {t1 - t0:.3f} s (plan, "
+        f"kernel, device sparsify, live-prefix readback), max err/bound {ratio:.3f}")
+    del c
+
+    t0 = time.perf_counter()
+    bb = BsrMatrix.from_csr(b)
+    t1 = time.perf_counter()
+    x_np = np.random.default_rng(SEED + 5).standard_normal((b.cols, 128)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    y = spmm_bcsr(bb, x).double().cpu().numpy()
+    t2 = time.perf_counter()
+    for q in range(x_np.shape[1]):
+        y64, bound = spmv_f64_bound(b, x_np[:, q])
+        if not np.all(np.abs(y[:, q] - y64) <= bound):
+            raise AssertionError(f"spmm_bcsr blocked65536: column {q} off the f64 oracle")
+    log(f"main spmm_bcsr blocked65536 F=128: BsrMatrix.from_csr {t1 - t0:.3f} s, apply "
+        f"(upload, kernel, readback) {t2 - t1:.3f} s")
+
+
 def plan_operators(dev, mats):
     """The main path's operators, planned on the host with their times;
     the three classes must take the reference's formats."""
@@ -653,9 +1061,15 @@ def plan_operators(dev, mats):
         if (op.format, got) != (fmt, cfg):
             raise AssertionError(f"{name} dispatched to {op.format} {got}, expected {fmt} {cfg}")
         ops[name] = op
-    t0 = time.perf_counter()
-    ops["poisson1024_aligned"] = SpmvOperator(mats["poisson1024"], device=dev, force="aligned")
-    log(f"plan poisson1024 aligned: {time.perf_counter() - t0:.2f} s")
+    for name, m, force in (("poisson1024_aligned", "poisson1024", "aligned"),
+                           ("poisson1024_lanepack", "poisson1024", "lanepack"),
+                           ("poisson1024_bell", "poisson1024", "bell"),
+                           ("poisson512_bell", "poisson512", "bell"),
+                           ("randlocal_262k_lanepack", "randlocal_262k", "lanepack"),
+                           ("randlocal_262k_aligned", "randlocal_262k", "aligned")):
+        t0 = time.perf_counter()
+        ops[name] = SpmvOperator(mats[m], device=dev, force=force)
+        log(f"plan {m} {force}: {time.perf_counter() - t0:.2f} s")
     return ops
 
 
@@ -666,7 +1080,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
 
-    from sparse_matrix_tpu_torch.bench.corpus import bench_classes
+    from sparse_matrix_tpu_torch.bench.corpus import bench_classes, blocked, random_uniform
     from sparse_matrix_tpu_torch.device import require_device
     from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.native.build import build
@@ -690,15 +1104,24 @@ def main() -> int:
     mats = {f"poisson{n}": poisson_2d_csr(n, dtype=np.float32) for n in (512, 1024, 2048)}
     for name, _tag, m in bench_classes(SEED):
         mats[name] = m
+    # the block-sparse shapes: the corpus's uniform and blocked generators
+    # (blocked_2k's density, and 65536 rows so that the card has real work)
+    mats["uniform8192"] = random_uniform(np.random.default_rng(SEED), 8192, 0.002)
+    mats["uniform2048"] = random_uniform(np.random.default_rng(SEED), 2048, 0.01)
+    mats["blocked65536"] = blocked(np.random.default_rng(SEED), 65536, 64, 0.05)
+    mats["blocked2048"] = blocked(np.random.default_rng(SEED), 2048, 64, 0.05)
     log(f"matrices: {time.perf_counter() - t0:.2f} s")
     ops = plan_operators(dev, mats)
 
     chk = KernelChecks(torch, dev)
-    phase_kernels(torch, dev, chk, mats, ops)
+    phase_kernels(torch, dev, chk, mats, ops, c12="--c12" in sys.argv[1:])
+    phase_kernels_slice3(torch, dev, chk, mats, ops)
 
     counts = {k: 0 for k in REPLACES}
     for part, fn in (("slice1", part_slice1), ("classes", part_classes),
-                     ("multi_rhs", part_multi_rhs)):
+                     ("multi_rhs", part_multi_rhs),
+                     ("general_multi_rhs", part_general_multi_rhs),
+                     ("block_sparse", part_block_sparse)):
         kernels.reset_launch_counts()
         fn(torch, dev, mats, ops)
         torch.cuda.synchronize()

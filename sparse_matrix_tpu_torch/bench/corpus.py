@@ -1,6 +1,6 @@
 """The bench's synthetic matrix classes, as ``bench.py`` builds them.
 
-Copies of three generators of ``sparse_matrix_tpu/bench/corpus.py``. The
+Copies of five generators of ``sparse_matrix_tpu/bench/corpus.py``. The
 same ``numpy.random.Generator`` state gives the same matrices.
 """
 
@@ -10,7 +10,36 @@ import numpy as np
 
 from ..formats.csr import CsrMatrix
 
-__all__ = ["power_law_rows", "random_local", "fem_like", "bench_classes"]
+__all__ = ["random_uniform", "power_law_rows", "blocked", "random_local", "fem_like",
+           "bench_classes"]
+
+
+def random_uniform(rng, n, density) -> CsrMatrix:
+    """``n * n * density`` entries at uniform random positions (duplicates
+    summed)."""
+    nnz = int(n * n * density)
+    r = rng.integers(0, n, nnz)
+    c = rng.integers(0, n, nnz)
+    v = rng.standard_normal(nnz)
+    return CsrMatrix.from_coo(n, n, r, c, v)
+
+
+def blocked(rng, n, block, density_in_block) -> CsrMatrix:
+    """Block-tridiagonal: ``block x block`` tiles on the three central
+    block diagonals, each with ``block^2 * density_in_block`` random
+    entries."""
+    nb = n // block
+    rows, cols, vals = [], [], []
+    for bi in range(nb):
+        for bj in (bi - 1, bi, bi + 1):
+            if 0 <= bj < nb:
+                k = int(block * block * density_in_block)
+                rows.append(bi * block + rng.integers(0, block, k))
+                cols.append(bj * block + rng.integers(0, block, k))
+                vals.append(rng.standard_normal(k))
+    return CsrMatrix.from_coo(
+        n, n, np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+    )
 
 
 def power_law_rows(rng, n, avg_nnz, alpha: float = 1.5) -> CsrMatrix:

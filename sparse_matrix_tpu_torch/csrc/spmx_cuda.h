@@ -6,7 +6,7 @@
 // the Python wrapper owns every buffer. The return value is
 // cudaGetLastError() after the launch (0 = launched). Outputs that the
 // kernel accumulates into with atomics (aligned, LanePack, stripe, aligned
-// SpMM) must be zeroed by the caller.
+// SpMM, LanePack SpMM) must be zeroed by the caller.
 #pragma once
 
 #include <stdint.h>
@@ -77,3 +77,43 @@ SPMX_API int spmx_aligned_spmm(int device, const float* vals,
                                const int32_t* chunk_rb, int64_t num_chunks,
                                int64_t cols, int k, const float* x3, float* y3,
                                void* stream);
+
+// packed K-column LanePack SpMM (k >= 1): per chunk c and column q,
+// p = vals * x3[col_off + (lane >> 7), q, lane & 127] (x past cols reads 0);
+// incl = inclusive scan of p over the chunk;
+// y3[chunk_rb[c], q, l] += incl[ends[l]] - (starts[l] < 0 ? 0 : incl[starts[l]])
+SPMX_API int spmx_lanepack_spmm(int device, const float* vals,
+                                const int16_t* lane, const int8_t* ends,
+                                const int8_t* starts, const int32_t* col_off,
+                                const int32_t* chunk_rb, int64_t num_chunks,
+                                int64_t cols, int k, const float* x3, float* y3,
+                                void* stream);
+
+// packed K-column BELL SpMM (1 <= k <= 16): with pos = lane[layer, rb, l] + bias
+// and j = (rb + ds[layer] + (pos >> 7))*128 + (pos & 127),
+// y3[rb, q, l] = sum_layer vals[layer, rb, l] * x3[j/128, q, j%128]
+// (j outside [0, cols) reads 0); every element of y3 (r128, k, 128) is written
+SPMX_API int spmx_bell_spmm(int device, const void* vals, int values_bf16,
+                            const void* lane, int lane_bytes, int bias,
+                            const int32_t* ds, int num_layers, int64_t r128,
+                            int64_t cols, int k, const float* x3, float* y3,
+                            void* stream);
+
+// BCSR SpMM: y[br*bs + i, n] = sum_{p in block row br} sum_j
+// blocks[p, i, j] * x[block_cols[p]*bs + j, n]; x (bcols*bs, f), y (brows*bs, f)
+// row-major, f a multiple of 128, bs a multiple of 16 in [16, 128]; every
+// element of y is written (block rows with no block get 0)
+SPMX_API int spmx_bcsr_spmm(int device, const float* blocks,
+                            const int32_t* block_cols,
+                            const int32_t* block_offsets, int64_t brows, int bs,
+                            int64_t f, const float* x, float* y, void* stream);
+
+// block SpGEMM numeric phase: c[q] = sum_{p in [seg[q], seg[q+1])}
+// a_blocks[pair_a[p]] @ b_blocks[pair_b[p]] (bs x bs each, f32 or bf16 bits
+// for blocks_bf16 = 1; c f32), summed in pair order in FP32; every element of
+// c (num_c, bs, bs) is written
+SPMX_API int spmx_block_spgemm(int device, const void* a_blocks,
+                               const void* b_blocks, int blocks_bf16,
+                               const int32_t* pair_a, const int32_t* pair_b,
+                               const int32_t* seg, int64_t num_c, int bs,
+                               float* c, void* stream);

@@ -1,4 +1,5 @@
-"""Host planning of the port: CSR and the SpMV plan formats (numpy only).
+"""Host planning of the port: CSR, BCSR and the SpMV plan formats (numpy
+only).
 
 Counterparts of ``sparse_matrix_tpu/formats/`` (the numpy branches of its
 planners; the reference's native C++ runtime is not copied). The plans

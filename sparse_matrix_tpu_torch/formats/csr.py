@@ -1,5 +1,5 @@
 """Host CSR matrix: the subset of ``sparse_matrix_tpu/formats/csr.py`` that
-the planners, the operator's dispatch and the tests use.
+the planners, the operator's dispatch, the block SpGEMM and the tests use.
 
 Same arrays and conventions as the reference: ``vals``, ``indices``
 (uint32), ``offsets`` (int64, ``rows + 1``), an ``is_sorted`` flag, and a
@@ -63,6 +63,25 @@ class CsrMatrix:
         offsets[1:] = np.bincount(r, minlength=rows)
         np.cumsum(offsets, out=offsets)
         return cls(rows, cols, v, c.astype(INDEX_DTYPE), offsets, is_sorted=True)
+
+    @classmethod
+    def new(cls, rows: int, cols: int, *, dtype=np.float64, is_sorted: bool = True) -> "CsrMatrix":
+        """An empty ``rows x cols`` matrix."""
+        rows, cols = _check_dims(rows, cols)
+        return cls(
+            rows,
+            cols,
+            np.zeros(0, dtype=dtype),
+            np.zeros(0, dtype=INDEX_DTYPE),
+            np.zeros(rows + 1, dtype=OFFSET_DTYPE),
+            is_sorted=is_sorted,
+        )
+
+    def to_dense(self) -> np.ndarray:
+        a = np.zeros((self._rows, self._cols), dtype=self.vals.dtype)
+        # duplicate-free by construction (from_coo sums duplicates)
+        a[self.row_ids(), self.indices.astype(np.int64)] = self.vals
+        return a
 
     @property
     def rows(self) -> int:

@@ -26,9 +26,14 @@ __all__ = [
     "launch_stripe",
     "launch_dia_spmm",
     "launch_aligned_spmm",
+    "launch_lanepack_spmm",
+    "launch_bell_spmm",
+    "launch_bcsr_spmm",
+    "launch_block_spgemm",
 ]
 
-KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm")
+KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
+           "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -74,6 +79,18 @@ def _library() -> ctypes.CDLL:
         lib.spmx_aligned_spmm.argtypes = [
             i32, vp, vp, vp, vp, i64, i64, i32, vp, vp, vp,
         ]
+        lib.spmx_lanepack_spmm.restype = i32
+        lib.spmx_lanepack_spmm.argtypes = [
+            i32, vp, vp, vp, vp, vp, vp, i64, i64, i32, vp, vp, vp,
+        ]
+        lib.spmx_bell_spmm.restype = i32
+        lib.spmx_bell_spmm.argtypes = [
+            i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i32, vp, vp, vp,
+        ]
+        lib.spmx_bcsr_spmm.restype = i32
+        lib.spmx_bcsr_spmm.argtypes = [i32, vp, vp, vp, i64, i32, i64, vp, vp, vp]
+        lib.spmx_block_spgemm.restype = i32
+        lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, vp, vp, i64, i32, vp, vp]
         _LIB = lib
     return _LIB
 
@@ -247,3 +264,113 @@ def launch_aligned_spmm(vals, lane, col_off, chunk_rb, x3, y3, *, cols: int) -> 
     _run("aligned_spmm", dev, _library().spmx_aligned_spmm, vals.data_ptr(),
          lane.data_ptr(), col_off.data_ptr(), chunk_rb.data_ptr(), chunks, cols,
          x3.shape[1], x3.data_ptr(), y3.data_ptr())
+
+
+def launch_lanepack_spmm(vals, lane, ends, starts, col_off, chunk_rb, x3, y3, *, cols: int) -> None:
+    """``y3 += lanepack(...) @ x3`` in the packed ``(.., K, 128)`` layout;
+    y3 is the accumulator, x reads past ``cols`` give zero."""
+    dev = _check(
+        "lanepack_spmm",
+        dict(vals=_F32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
+             col_off=torch.int32, chunk_rb=torch.int32, x3=_F32, y3=_F32),
+        vals=vals, lane=lane, ends=ends, starts=starts, col_off=col_off,
+        chunk_rb=chunk_rb, x3=x3, y3=y3,
+    )
+    chunks = vals.numel() // 128
+    n = vals.numel()
+    if (lane.numel(), ends.numel(), starts.numel()) != (n, n, n) or min(
+        col_off.numel(), chunk_rb.numel()
+    ) < chunks:
+        raise ValueError("lanepack_spmm: slot and chunk arrays disagree")
+    if x3.dim() != 3 or x3.shape[2] != 128 or y3.dim() != 3 or y3.shape[1:] != x3.shape[1:]:
+        raise ValueError("lanepack_spmm: x3 and y3 must be (.., K, 128) with one K")
+    if x3.shape[0] * 128 < cols:
+        raise ValueError("lanepack_spmm: x3 does not cover the columns")
+    if chunks == 0 or x3.shape[1] == 0:
+        return
+    _run("lanepack_spmm", dev, _library().spmx_lanepack_spmm, vals.data_ptr(),
+         lane.data_ptr(), ends.data_ptr(), starts.data_ptr(), col_off.data_ptr(),
+         chunk_rb.data_ptr(), chunks, cols, x3.shape[1], x3.data_ptr(), y3.data_ptr())
+
+
+def launch_bell_spmm(vals, lane, ds, x3, y3, *, bias: int, cols: int) -> None:
+    """``y3 = BELL(vals, lane, ds) @ x3`` in the packed ``(.., K, 128)``
+    layout (vals/lane ``(L, r128, 128)``, y3 ``(r128, K, 128)``, 1 <= K <=
+    16); writes every element of y3."""
+    dev = _check(
+        "bell_spmm",
+        dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32, x3=_F32, y3=_F32),
+        vals=vals, lane=lane, ds=ds, x3=x3, y3=y3,
+    )
+    layers = ds.numel()
+    if vals.dim() != 3 or vals.shape[0] != layers or lane.shape != vals.shape:
+        raise ValueError("bell_spmm: value/lane planes disagree with ds")
+    k = x3.shape[1] if x3.dim() == 3 else 0
+    r128 = vals.shape[1]
+    if (
+        not 1 <= k <= 16 or x3.shape[2] != 128 or y3.shape != (r128, k, 128)
+        or x3.shape[0] * 128 < cols
+    ):
+        raise ValueError("bell_spmm: shapes disagree with (L, r128, cols, K)")
+    _run("bell_spmm", dev, _library().spmx_bell_spmm, vals.data_ptr(),
+         int(vals.dtype == torch.bfloat16), lane.data_ptr(), lane.element_size(),
+         bias, ds.data_ptr(), layers, r128, cols, k, x3.data_ptr(), y3.data_ptr())
+
+
+def _check_bs(name: str, bs: int) -> None:
+    if bs % 16 or not 16 <= bs <= 128:
+        raise ValueError(f"{name}: block size {bs} must be a multiple of 16 in [16, 128]")
+
+
+def launch_bcsr_spmm(blocks, block_cols, block_offsets, x, y) -> None:
+    """``y = BCSR(blocks, block_cols, block_offsets) @ x``: x is
+    ``(bcols * bs, F)``, y ``(brows * bs, F)``, F a multiple of 128; writes
+    every element of y (block rows with no block get zeros)."""
+    dev = _check("bcsr_spmm",
+                 dict(blocks=_F32, block_cols=torch.int32, block_offsets=torch.int32,
+                      x=_F32, y=_F32),
+                 blocks=blocks, block_cols=block_cols, block_offsets=block_offsets, x=x, y=y)
+    if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
+        raise ValueError("bcsr_spmm: blocks must be (nnzb, bs, bs)")
+    bs = blocks.shape[1]
+    _check_bs("bcsr_spmm", bs)
+    brows = block_offsets.numel() - 1
+    f = x.shape[1] if x.dim() == 2 else 0
+    if (
+        block_cols.numel() != blocks.shape[0] or brows < 0 or f % 128
+        or x.shape[0] % bs or y.shape != (brows * bs, f)
+    ):
+        raise ValueError("bcsr_spmm: shapes disagree with (nnzb, bs, brows, F)")
+    if brows == 0 or f == 0:
+        return
+    _run("bcsr_spmm", dev, _library().spmx_bcsr_spmm, blocks.data_ptr(),
+         block_cols.data_ptr(), block_offsets.data_ptr(), brows, bs, f, x.data_ptr(),
+         y.data_ptr())
+
+
+def launch_block_spgemm(a_blocks, b_blocks, pair_a, pair_b, seg, c) -> None:
+    """``c[q] = sum_{p in [seg[q], seg[q+1])} a_blocks[pair_a[p]] @
+    b_blocks[pair_b[p]]`` for every C block q, in pair order; blocks f32 or
+    bf16 (one type for both), c f32 ``(num_c, bs, bs)``, written whole."""
+    dev = _check("block_spgemm",
+                 dict(a_blocks=_VALS, b_blocks=_VALS, pair_a=torch.int32,
+                      pair_b=torch.int32, seg=torch.int32, c=_F32),
+                 a_blocks=a_blocks, b_blocks=b_blocks, pair_a=pair_a, pair_b=pair_b,
+                 seg=seg, c=c)
+    if a_blocks.dtype != b_blocks.dtype:
+        raise TypeError("block_spgemm: A and B blocks must share one dtype")
+    if a_blocks.dim() != 3 or a_blocks.shape[1] != a_blocks.shape[2]:
+        raise ValueError("block_spgemm: blocks must be (n, bs, bs)")
+    bs = a_blocks.shape[1]
+    _check_bs("block_spgemm", bs)
+    num_c = seg.numel() - 1
+    if (
+        b_blocks.shape[1:] != (bs, bs) or pair_a.numel() != pair_b.numel()
+        or num_c < 0 or c.shape != (num_c, bs, bs)
+    ):
+        raise ValueError("block_spgemm: shapes disagree with (pairs, num_c, bs)")
+    if num_c == 0:
+        return
+    _run("block_spgemm", dev, _library().spmx_block_spgemm, a_blocks.data_ptr(),
+         b_blocks.data_ptr(), int(a_blocks.dtype == torch.bfloat16), pair_a.data_ptr(),
+         pair_b.data_ptr(), seg.data_ptr(), num_c, bs, c.data_ptr())

@@ -1,2 +1,3 @@
-"""Device side of the port: SpMV wrappers (kernel on CUDA, plain PyTorch on
-the CPU) and the planned operator. Import the submodules directly."""
+"""Device side of the port: SpMV, SpMM and block SpGEMM wrappers (kernel on
+CUDA, plain PyTorch on the CPU) and the planned operator. Import the
+submodules directly."""

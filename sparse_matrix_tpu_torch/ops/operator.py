@@ -8,18 +8,16 @@ port's automatic choice equals the reference's ``SpmvOperator(m).format``
 for ``dia``, ``hybrid``, ``aligned``, ``lanepack``, ``bell``, ``stripe``
 and ``ell``, and its stripe plan the reference's ``(mode, L, KW)``.
 
-Not ported:
+:meth:`SpmvOperator.matmat` runs every format, through the SpMM kernels
+where the reference runs its packed SpMM kernels.
 
-* **row and column splits** — the reference shards operators past its
-  VMEM caps (``_VMEM_X_LIMIT``, ``_ROWS_SPLIT_LIMIT``) and row-splits
-  LanePack plans past its 1 MB SMEM budget. The H100 kernels have neither
-  wall, so the port plans such a matrix unsplit, in the format its shards
-  would take: a banded matrix goes to DIA as in the reference, an
-  SMEM-bound LanePack winner is planned as one LanePack plan, and the rest
-  runs the regular dispatch.
-* **the packed LanePack and BELL SpMM kernels** (ROADMAP.md queue B, B7
-  and B8) — :meth:`SpmvOperator.matmat` raises ``NotImplementedError``
-  where the reference would launch them.
+Not ported: **row and column splits** — the reference shards operators
+past its VMEM caps (``_VMEM_X_LIMIT``, ``_ROWS_SPLIT_LIMIT``) and
+row-splits LanePack plans past its 1 MB SMEM budget. The H100 kernels have
+neither wall, so the port plans such a matrix unsplit, in the format its
+shards would take: a banded matrix goes to DIA as in the reference, an
+SMEM-bound LanePack winner is planned as one LanePack plan, and the rest
+runs the regular dispatch.
 """
 
 from __future__ import annotations
@@ -54,15 +52,6 @@ BAND_FILL_THRESHOLD = 0.5
 MIN_BAND_NNZ_FRACTION = 0.3  # hybrid only pays if bands cover enough nnz
 
 _NP_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
-
-LANEPACK_SPMM_NOT_PORTED = (
-    "the packed LanePack SpMM kernel is not ported yet (ROADMAP.md queue B, "
-    "item B7); the reference runs it for K >= 8 or plans under 512 slabs"
-)
-BELL_SPMM_NOT_PORTED = (
-    "the packed BELL SpMM kernel is not ported yet (ROADMAP.md queue B, item "
-    "B8); the reference runs it for K >= 8"
-)
 
 
 def split_bands(
@@ -529,15 +518,16 @@ class SpmvOperator:
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
         """``Y = A @ X`` for ``X`` of shape (cols, K), routed as the
         reference routes it: DIA (and a hybrid's band part) through the DIA
-        SpMM kernel in balanced chunks of at most 16 columns (a chunk of
-        one through the SpMV kernel), aligned through the aligned SpMM
-        kernel, stripe, small-K BELL and large small-K LanePack plans
-        column by column through their SpMV kernels, ELL as a plain
-        gather. Where the reference would launch its packed LanePack or
-        BELL SpMM kernel (not ported: ROADMAP.md B7, B8) this raises
-        ``NotImplementedError``. Iterative multi-RHS solvers should use the
-        packed layouts directly (``dia_matvec_multi``,
-        ``aligned_matvec_multi``) to skip the per-apply relayout."""
+        SpMM kernel, BELL at K >= 8 through the BELL SpMM kernel, both in
+        balanced chunks of at most 16 columns (a DIA chunk of one through
+        the SpMV kernel); BELL below K = 8 column by column through its
+        SpMV kernel; aligned through the aligned SpMM kernel; LanePack (and
+        a hybrid's LanePack part) through the LanePack SpMM kernel, or
+        column by column through its SpMV kernel on large plans at K < 8
+        (``lanepack_spmm_uses_kernel``); stripe column by column; ELL as a
+        plain gather. Iterative multi-RHS solvers should use the packed
+        layouts directly (``dia_matvec_multi``, ``aligned_matvec_multi``,
+        ``lanepack_matvec_multi``) to skip the per-apply relayout."""
         if x.device != self.device:
             raise ValueError(f"x is on {x.device}, the operator on {self.device}")
         if x.dim() != 2 or x.shape[0] != self.cols:
@@ -545,22 +535,30 @@ class SpmvOperator:
         if x.dtype != self.dtype:
             raise TypeError(f"x has dtype {x.dtype}, the operator {self.dtype}")
         k = int(x.shape[1])
-        from .spmm import bell_spmm_viable, lanepack_spmm_uses_kernel
-
-        # refuse before any launch
-        if self._bell is not None and k >= 8 and bell_spmm_viable(self._bell, min(k, 16)):
-            raise NotImplementedError(BELL_SPMM_NOT_PORTED)
-        if self._plan is not None and lanepack_spmm_uses_kernel(self._plan, k):
-            raise NotImplementedError(LANEPACK_SPMM_NOT_PORTED)
 
         def columns(apply):
             return torch.stack([apply(x[:, j]) for j in range(k)], dim=1)
 
+        def chunks16(apply):
+            """``apply`` on balanced column chunks of at most 16."""
+            nchunks = -(-k // 16)
+            base, rem = divmod(k, nchunks)
+            parts, j = [], 0
+            for step in (base + (i < rem) for i in range(nchunks)):
+                parts.append(apply(x[:, j:j + step]))
+                j += step
+            return torch.cat(parts, dim=1)
+
         y = None
         if self._bell is not None:
-            from .spmv_bell import spmv_bell
+            if k >= 8:
+                from .spmm import spmm_bell
 
-            y = columns(lambda v: spmv_bell(self._bell, v, device_arrays=self._bell_arrs))
+                y = chunks16(lambda xs: spmm_bell(self._bell, xs, device_arrays=self._bell_arrs))
+            else:
+                from .spmv_bell import spmv_bell
+
+                y = columns(lambda v: spmv_bell(self._bell, v, device_arrays=self._bell_arrs))
         if self._stripe is not None:
             from .spmv import spmv_stripe
 
@@ -568,26 +566,21 @@ class SpmvOperator:
         if self._dia is not None:
             from .spmv_dia import spmm_dia_stream, spmv_dia
 
-            nchunks = -(-k // 16)
-            base, rem = divmod(k, nchunks)
-            parts, j = [], 0
-            for step in (base + (i < rem) for i in range(nchunks)):
-                xs = x[:, j:j + step]
-                if step >= 2:
-                    parts.append(spmm_dia_stream(self._dia, xs, device_arrays=self._dia_arrs))
-                else:
-                    parts.append(spmv_dia(self._dia, xs[:, 0].contiguous(),
-                                          device_arrays=self._dia_arrs)[:, None])
-                j += step
-            y = torch.cat(parts, dim=1)
+            def dia_part(xs):
+                if xs.shape[1] >= 2:
+                    return spmm_dia_stream(self._dia, xs, device_arrays=self._dia_arrs)
+                return spmv_dia(self._dia, xs[:, 0].contiguous(),
+                                device_arrays=self._dia_arrs)[:, None]
+
+            y = chunks16(dia_part)
         if self._aligned is not None:
             from .spmm import spmm_aligned
 
             y = spmm_aligned(self._aligned, x, device_arrays=self._ali_arrs)
         if self._plan is not None:
-            from .spmv import spmv_lanepack
+            from .spmm import spmm_lanepack
 
-            y2 = columns(lambda v: spmv_lanepack(self._plan, v, device_arrays=self._lp_arrs))
+            y2 = spmm_lanepack(self._plan, x, device_arrays=self._lp_arrs)
             y = y2 if y is None else y + y2
         if self._ell is not None:
             from .spmm import spmm_ell

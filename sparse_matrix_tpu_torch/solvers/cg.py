@@ -222,7 +222,8 @@ def cg_solve_multi(
     ``rhs_axis`` and ``matvec_multi`` maps that layout to itself — the
     (n, K) column layout by default (e.g. ``SpmvOperator.matmat``), or a
     packed layout with ``rhs_axis=1`` (``dia_matvec_multi``,
-    ``aligned_matvec_multi``). Each column runs its own recurrence
+    ``aligned_matvec_multi``, ``lanepack_matvec_multi``; a BELL operator's
+    ``matmat`` serves the column layout). Each column runs its own recurrence
     (per-column alpha and beta); columns iterate in lockstep and a
     converged column freezes until all have converged or ``maxiter`` is
     reached. One host read per iteration tests the stopping rule.

@@ -6,8 +6,10 @@ GPU is visible). Run on a Hopper GPU with
 (``--noconftest``: tests/conftest.py configures JAX, which this file does
 not use). Each kernel, called through its wrapper on CUDA tensors at small
 shapes, is held to its plain PyTorch version on the same device and to the
-float64 bound of ``spmv_f64_bound`` (per column for the SpMM kernels); the
-wrapper's launch count must grow.
+float64 bound of ``spmv_f64_bound`` (per column for the SpMM kernels; for
+the block SpGEMM, ``(n_ij + 2) * u * (|A||B|)_ij`` per entry, plus ``2 *
+2^-8 * (|A||B|)_ij`` with bf16 blocks); the wrapper's launch count must
+grow.
 """
 
 import numpy as np
@@ -17,12 +19,13 @@ torch = pytest.importorskip("torch")
 
 from sparse_matrix_tpu_torch.bench import corpus  # noqa: E402
 from sparse_matrix_tpu_torch.formats.aligned import plan_aligned  # noqa: E402
+from sparse_matrix_tpu_torch.formats.bcsr import BsrMatrix  # noqa: E402
 from sparse_matrix_tpu_torch.formats.bell import plan_bell  # noqa: E402
 from sparse_matrix_tpu_torch.formats.csr import CsrMatrix  # noqa: E402
 from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr  # noqa: E402
 from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack  # noqa: E402
 from sparse_matrix_tpu_torch.formats.stripe import plan_stripe  # noqa: E402
-from sparse_matrix_tpu_torch.ops import spmm, spmv, spmv_bell, spmv_dia  # noqa: E402
+from sparse_matrix_tpu_torch.ops import spgemm_block, spmm, spmv, spmv_bell, spmv_dia  # noqa: E402
 from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -271,7 +274,7 @@ def test_aligned_spmm_kernel(dev, k, name):
                lanepack=() if plan.spill is None else (plan.spill,))
 
 
-@pytest.mark.parametrize("kind", ["dia", "aligned"])
+@pytest.mark.parametrize("kind", ["dia", "aligned", "lanepack"])
 def test_cg_solve_multi_on_card_matches_cpu(dev, kind):
     from sparse_matrix_tpu_torch.solvers.cg import cg_solve_multi
 
@@ -284,11 +287,177 @@ def test_cg_solve_multi_on_card_matches_cpu(dev, kind):
             dia = try_dia_from_csr(a)
             mv, x3 = spmv_dia.dia_matvec_multi(dia, 4, d), spmv_dia.dia_pack_rhs(dia, B.to(d))
             unpack = lambda y3: spmv_dia.dia_unpack_rhs(dia, y3)  # noqa: E731
-        else:
+        elif kind == "aligned":
             plan = plan_aligned(a)
             mv, x3 = spmm.aligned_matvec_multi(plan, 4, d), spmm.pack_rhs(B.to(d), a.cols)
+            unpack = lambda y3: spmm.unpack_rhs(y3, a.rows)  # noqa: E731
+        else:
+            plan = plan_lanepack(a)
+            mv = spmm.lanepack_matvec_multi(plan, 4, d)
+            x3 = spmm.pack_rhs(B.to(d), a.cols, guard=plan.kw)
             unpack = lambda y3: spmm.unpack_rhs(y3, a.rows)  # noqa: E731
         res = cg_solve_multi(mv, x3, tol=1e-5, maxiter=2000, rhs_axis=1)
         out[d.type] = (res.iterations, unpack(res.x).double().cpu())
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 2
     assert torch.linalg.norm(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * torch.linalg.norm(out["cpu"][1])
+
+
+@pytest.mark.parametrize("k", [2, 8, 16])
+@pytest.mark.parametrize("kw", [1, 4])
+@pytest.mark.parametrize("pack", ["dense", "per_rb"])
+def test_lanepack_spmm_kernel(dev, k, kw, pack):
+    m = corpus.power_law_rows(np.random.default_rng(kw), 3000, 12)
+    plan = plan_lanepack(m, kw=kw, pack=pack)
+    arrs = spmv.lanepack_device_arrays(plan, dev)
+    X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
+    X = torch.from_numpy(X_np).to(dev)
+    x3 = spmm.pack_rhs(X, m.cols, guard=plan.kw)
+    _run_multi("lanepack_spmm", m, X_np,
+               lambda: spmm.unpack_rhs(spmm.spmm_lanepack_packed(plan, x3, device_arrays=arrs),
+                                       m.rows),
+               lambda: spmm.unpack_rhs(spmm._lanepack_spmm_torch(arrs, x3, cols=m.cols,
+                                                                  kw=plan.kw), m.rows),
+               lanepack=(plan,))
+
+
+def test_aligned_spmm_spill_is_one_lanepack_spmm_launch(dev):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = corpus.random_local(np.random.default_rng(2), 4096, 16, 1024)
+    plan = plan_aligned(m)
+    assert plan.spill is not None
+    X = torch.ones((m.cols, 8), device=dev)
+    before = dict(kernels.launch_counts)
+    spmm.spmm_aligned(plan, X)
+    torch.cuda.synchronize()
+    got = {k: kernels.launch_counts[k] - before[k] for k in before}
+    assert got["aligned_spmm"] == 1 and got["lanepack_spmm"] == 1 and got["lanepack"] == 0
+
+
+BELL_MATRICES = {
+    "randlocal": lambda: corpus.random_local(np.random.default_rng(2), 4096, 12, 300),
+    "powerlaw_spill": lambda: corpus.power_law_rows(np.random.default_rng(0), 4096, 16),
+}
+
+
+def _bell_bf16_vals(m, plan):
+    """``m``'s values as a bf16-plane BELL operator holds them: bf16-rounded
+    where a plane slot holds the entry, f32 in the LanePack spill."""
+    bias = 128 if plan.span == 128 else 0
+    keys = []
+    for li, d in enumerate(plan.ds):
+        rb, ln = np.nonzero(plan.vals[li])
+        pos = plan.lane[li][rb, ln].astype(np.int64) + bias
+        col = (rb + d + (pos >> 7)) * 128 + (pos & 127)
+        keys.append((rb * 128 + ln) * m.cols + col)
+    held = np.isin(m.row_ids() * m.cols + m.indices.astype(np.int64), np.concatenate(keys))
+    v = m.vals.astype(np.float32)
+    vb = torch.from_numpy(v).to(torch.bfloat16).double().numpy()
+    return np.where(held, vb, v.astype(np.float64))
+
+
+@pytest.mark.parametrize("k", [2, 8, 16])
+@pytest.mark.parametrize("span", [128, 256])
+@pytest.mark.parametrize("vdt", [None, torch.bfloat16])
+@pytest.mark.parametrize("name", list(BELL_MATRICES))
+def test_bell_spmm_kernel(dev, name, span, vdt, k):
+    m = BELL_MATRICES[name]()
+    plan = plan_bell(m, span=span)
+    assert min(plan.ds) < 0 < max(plan.ds)
+    arrs = spmv_bell.bell_device_arrays(plan, dev, values_dtype=vdt)
+    X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
+    X = torch.from_numpy(X_np).to(dev)
+    vals = None if vdt is None else _bell_bf16_vals(m, plan)
+
+    def plain():
+        y3 = spmm._bell_spmm_torch(arrs["vals"], arrs["lane"], X, ds=plan.ds, modes=plan.modes,
+                                   span=plan.span, cols=plan.cols)
+        if plan.spill is not None:
+            y3 = y3 + spmm._lanepack_spmm_torch(arrs["spill"], spmm.pack_rhs(X, m.cols),
+                                                cols=m.cols, kw=plan.spill.kw)
+        return spmm.unpack_rhs(y3, m.rows)
+
+    _run_multi("bell_spmm", m, X_np, lambda: spmm.spmm_bell(plan, X, device_arrays=arrs), plain,
+               vals=vals, lanepack=() if plan.spill is None else (plan.spill,))
+
+
+def _with_empty_block_rows(rows, cols, seed):
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, rows - 96, 4000)
+    r = np.where(r >= 64, r + 96, r)
+    c = rng.integers(0, cols, 4000)
+    return CsrMatrix.from_coo(rows, cols, r, c, rng.standard_normal(4000).astype(np.float32))
+
+
+@pytest.mark.parametrize("f", [1, 130])
+@pytest.mark.parametrize("bs", [32, 128])
+def test_bcsr_spmm_kernel(dev, bs, f):
+    m = _with_empty_block_rows(700, 650, bs)
+    b = BsrMatrix.from_csr(m, bs)
+    arrs = spmm.bcsr_device_arrays(b, dev)
+    X_np = np.random.default_rng(f).standard_normal((m.cols, f)).astype(np.float32)
+    X = torch.from_numpy(X_np).to(dev)
+
+    def plain():
+        fpad = -(-f // 128) * 128
+        xf = torch.zeros((b.bcols * bs, fpad), device=dev)
+        xf[: m.cols, :f] = X
+        y = spmm._bcsr_torch(arrs, xf.reshape(b.bcols, bs, fpad), brows=b.brows)
+        return y.reshape(-1, fpad)[: m.rows, :f]
+
+    _run_multi("bcsr_spmm", m, X_np, lambda: spmm.spmm_bcsr(b, X, device_arrays=arrs), plain)
+    assert int(torch.count_nonzero(spmm.spmm_bcsr(b, X, device_arrays=arrs)[64:160])) == 0
+
+
+def _spgemm_bounded(a, b, c, *, bf16=False):
+    assert spgemm_block.spgemm_err_over_bound(a, b, c, bf16=bf16) <= 1.0
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("bs", [32, 128])
+def test_block_spgemm_kernel(dev, bs, storage):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    u = corpus.random_uniform(np.random.default_rng(bs), 700, 0.01)
+    u = CsrMatrix(u.rows, u.cols, u.vals.astype(np.float32), u.indices, u.offsets,
+                  is_sorted=True)
+    eng = spgemm_block.BlockSpgemm(u, u, device=dev, bs=bs, storage=storage)
+    before = kernels.launch_counts["block_spgemm"]
+    c_dev = eng.multiply_device()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["block_spgemm"] == before + 1
+    c_plain = spgemm_block._block_numeric_torch(eng.a_blocks, eng.b_blocks, eng.pair_a,
+                                                eng.pair_b, eng.pair_c,
+                                                num_c=len(eng.c_keys), bs=bs)
+    scale = float(c_plain.abs().max())
+    assert float((c_dev - c_plain).abs().max()) <= 2e-5 * max(1.0, scale)
+    _spgemm_bounded(u, u, eng.multiply(), bf16=storage == "bf16")
+    _spgemm_bounded(u, u, spgemm_block.spgemm_block_device(u, u, device=dev, bs=bs))
+
+
+def test_block_spgemm_empty_pairs_launches_nothing(dev):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    a = CsrMatrix.from_coo(64, 64, [0, 5], [40, 41], np.ones(2, np.float32))
+    b = CsrMatrix.from_coo(64, 64, [1, 2], [3, 4], np.ones(2, np.float32))
+    before = kernels.launch_counts["block_spgemm"]
+    assert spgemm_block.spgemm_block_device(a, b, device=dev, bs=32).nnz() == 0
+    assert spgemm_block.BlockSpgemm(a, b, device=dev, bs=32).multiply().nnz() == 0
+    assert kernels.launch_counts["block_spgemm"] == before
+
+
+@pytest.mark.parametrize("force", ["bell", "lanepack", "hybrid"])
+def test_matmat_on_card_matches_cpu(dev, force):
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+
+    a = poisson_2d_csr(48, dtype=np.float32)
+    if force == "hybrid":
+        rng = np.random.default_rng(6)
+        r = np.r_[a.row_ids(), rng.integers(0, a.rows, 300)]
+        c = np.r_[a.indices.astype(np.int64), rng.integers(0, a.cols, 300)]
+        a = CsrMatrix.from_coo(a.rows, a.cols, r, c,
+                               np.r_[a.vals, rng.standard_normal(300).astype(np.float32)])
+    X = torch.from_numpy(np.random.default_rng(7).standard_normal((a.cols, 8)).astype(np.float32))
+    y_gpu = SpmvOperator(a, device=dev, force=force).matmat(X.to(dev)).cpu()
+    y_cpu = SpmvOperator(a, device="cpu", force=force).matmat(X)
+    assert torch.max(torch.abs(y_gpu - y_cpu)) <= 2e-5 * max(1.0, float(y_cpu.abs().max()))

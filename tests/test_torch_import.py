@@ -2,8 +2,9 @@
 
 * With every ``jax*`` import and the JAX package ``sparse_matrix_tpu``
   itself blocked, the port imports every module and chip_smoke.py, plans a
-  Poisson 32^2 operator on the CPU and runs three CG iterations; importing
-  the package itself loads neither torch nor the CUDA toolchain.
+  Poisson 32^2 operator on the CPU and runs three CG iterations, and
+  squares a small matrix with ``BlockSpgemm``; importing the package
+  itself loads neither torch nor the CUDA toolchain.
 * No module of the port, nor chip_smoke.py, imports jax or anything of
   ``sparse_matrix_tpu``.
 * The capability rules of tests/test_capability_discipline.py, applied to
@@ -60,11 +61,16 @@ import numpy as np, torch, pkgutil, importlib
 for mod in pkgutil.walk_packages(spt.__path__, "sparse_matrix_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+from sparse_matrix_tpu_torch.formats import bcsr
+from sparse_matrix_tpu_torch.ops import device_sorted, spgemm_block
 a = spt.poisson_2d_csr(32, dtype=np.float32)
 op = spt.SpmvOperator(a, device="cpu")
 b = torch.from_numpy(np.random.default_rng(0).standard_normal(a.rows).astype(np.float32))
 res = spt.cg_solve(op, b, maxiter=3)
 assert res.iterations == 3 and bool(torch.isfinite(res.x).all())
+c = spgemm_block.BlockSpgemm(a, a, device="cpu", bs=64).multiply()
+want = a.to_dense() @ a.to_dense()
+assert c.nnz() == np.count_nonzero(want) and np.allclose(c.to_dense(), want)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 assert not any(m == "sparse_matrix_tpu" or m.startswith("sparse_matrix_tpu.")
                for m in sys.modules)
@@ -146,7 +152,8 @@ def test_cuda_device_without_gpu_raises():
 
 
 @pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell", "stripe",
-                                    "dia_spmm", "aligned_spmm"])
+                                    "dia_spmm", "aligned_spmm", "lanepack_spmm",
+                                    "bell_spmm", "bcsr_spmm", "block_spgemm"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     from sparse_matrix_tpu_torch.native import kernels
 
@@ -154,6 +161,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
     i8 = torch.zeros(128, dtype=torch.int8)
     i16 = torch.zeros(128, dtype=torch.int16)
     i32 = torch.zeros(1, dtype=torch.int32)
+    blk = torch.zeros(1, 16, 16)
     calls = {
         "dia": lambda: kernels.launch_dia(f32[None], i32, f32, f32, rows=128, cols=128),
         "aligned": lambda: kernels.launch_aligned(f32, i8, i32, i32, f32, f32),
@@ -165,6 +173,15 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                     rows=128, cols=128, x_lo=0, y_lo=0),
         "aligned_spmm": lambda: kernels.launch_aligned_spmm(f32, i8, i32, i32, f32[None, None],
                                                             f32[None, None], cols=128),
+        "lanepack_spmm": lambda: kernels.launch_lanepack_spmm(
+            f32, i16, i8, i8, i32, i32, f32[None, None], f32[None, None], cols=128),
+        "bell_spmm": lambda: kernels.launch_bell_spmm(f32[None, None], i8[None, None], i32,
+                                                      f32[None, None], f32[None, None],
+                                                      bias=128, cols=128),
+        "bcsr_spmm": lambda: kernels.launch_bcsr_spmm(blk, i32, i32.repeat(2), f32[:, None],
+                                                      f32[:, None]),
+        "block_spgemm": lambda: kernels.launch_block_spgemm(blk, blk, i32, i32,
+                                                            i32.repeat(2), blk),
     }
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="needs CUDA"):
