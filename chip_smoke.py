@@ -32,7 +32,7 @@ Phases, each of which ends the run with an exception on failure:
    cores, 989 TFLOP/s of bf16 tensor cores for bf16 blocks). The dense-
    block work the block kernels do (2*bs^2*F per stored block, 2*bs^3 per
    pair) is logged beside it as ``block_flops``. TF32 must be off.
-3. Main path, in five parts, each with every launch count set to 0 just
+3. Main path, in six parts, each with every launch count set to 0 just
    before it and read just after:
    a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
       dispatched to DIA), the same with bf16 band planes through
@@ -52,10 +52,26 @@ Phases, each of which ends the run with an exception on failure:
       operator's ``matmat`` (Poisson 512^2), at K=8;
    e. block sparse: ``BlockSpgemm(U, U).multiply()`` for U uniform 8192^2
       at 0.2 % in f32 and bf16 block storage, ``spgemm_block_device`` and
-      ``spmm_bcsr`` on the block-tridiagonal 65536^2 matrix.
+      ``spmm_bcsr`` on the block-tridiagonal 65536^2 matrix;
+   f. SpGEMM (slice 4): ``A @ A`` (``spgemm_auto`` on the card, the engine
+      taken and its cost estimates logged) on Poisson 2048^2,
+      femlike_262k and uniform 8192, with the time of every other engine
+      that fits; ``EscSpgemm(reduce="sort")`` on femlike_262k and
+      randlocal_262k with its phases (expansion, sort, run reduce) and a
+      re-multiply with fresh values; ``EscSpgemm`` with the SpMV reduction
+      and ``FixedSideSpgemm`` on uniform 8192; the hyper-sparse cell
+      (uniform 16384 at 0.015 %): ``EscSpgemm`` against ``BlockSpgemm``
+      against ``torch.sparse.mm``; ``transpose_device`` and ``add_device``
+      on femlike_262k against the host forms.
    Solves are checked for convergence and for their true residual (per
-   column for the multi-RHS solves), products against float64.
+   column for the multi-RHS solves), products against float64: SpGEMM
+   results per entry of the union of both patterns (in part f from
+   three scipy float64 products), SpMV reductions against the SpMV bound
+   of their selection matrix as well (ROADMAP C14).
 4. Launch counts: every kernel of a part must have run in that part.
+5. The ESC expansion kernel against its plain version on the plans part
+   f built, bit-equal on the real slots, with its times (beside the
+   reference gather engine's expansion as the yardstick) and its bound.
 
 The last two lines are the kernels' JSON record and the result line. The
 script imports nothing of JAX or of the JAX package. Without a CUDA device
@@ -97,6 +113,8 @@ REPLACES = {
                   "sparse_matrix_tpu/ops/spmm.py:61"),
     "block_spgemm": ("sparse_matrix_tpu_torch/csrc/spgemm_block.cu",
                      "sparse_matrix_tpu/ops/spgemm_block.py:72"),
+    "esc_expand": ("sparse_matrix_tpu_torch/csrc/esc_expand.cu",
+                   "sparse_matrix_tpu/ops/esc_expand.py:158"),
 }
 # the kernels each part of the main path must launch
 PARTS = {
@@ -105,6 +123,7 @@ PARTS = {
     "multi_rhs": ("dia_spmm", "aligned_spmm"),
     "general_multi_rhs": ("lanepack_spmm", "bell_spmm"),
     "block_sparse": ("bcsr_spmm", "block_spgemm"),
+    "spgemm": ("esc_expand", "block_spgemm"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -113,6 +132,7 @@ CG_TOL = 1e-5
 # inner iterations ended at 2.2e-5); its target sits above that floor
 IR_TOL = 1e-4
 EPS_F32 = 2.0 ** -23
+U_F32 = 2.0 ** -24  # unit roundoff of float32
 K_RHS = 8
 # H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak and dense
 # bf16 tensor-core peak
@@ -1039,6 +1059,382 @@ def part_block_sparse(torch, dev, mats, ops):
         f"(upload, kernel, readback) {t2 - t1:.3f} s")
 
 
+
+class F64Product:
+    """The float64 product of two float32 operands, for holding a SpGEMM
+    result to it entry by entry on the union of both patterns with the
+    bound ``(n_ij + 2) * u * (|A||B|)_ij``. ``C64``, ``|A||B|`` and the
+    product counts ``n_ij`` come from three ``scipy.sparse`` float64
+    products (the structural pattern is that of ``n_ij``: scipy drops the
+    exact zeros of ``C64``, the counts are never zero)."""
+
+    def __init__(self, lhs, rhs):
+        import scipy.sparse as sp
+
+        def s(m, v):
+            return sp.csr_matrix((v, m.indices.astype(np.int64), m.offsets.astype(np.int64)),
+                                 shape=(m.rows, m.cols))
+
+        a = lhs.vals.astype(np.float32).astype(np.float64)
+        b = rhs.vals.astype(np.float32).astype(np.float64)
+        n = s(lhs, np.ones_like(a)) @ s(rhs, np.ones_like(b))
+        self.cols = rhs.cols
+        self.keys = self._keys(n)
+        self.count = n.data
+        self.c64 = self._on_keys(s(lhs, a) @ s(rhs, b))
+        self.mag = self._on_keys(s(lhs, np.abs(a)) @ s(rhs, np.abs(b)))
+
+    def _keys(self, mat):
+        mat.sort_indices()
+        return (np.repeat(np.arange(mat.shape[0], dtype=np.int64), np.diff(mat.indptr))
+                * self.cols + mat.indices)
+
+    def _on_keys(self, mat):
+        out = np.zeros(self.keys.size)
+        out[np.searchsorted(self.keys, self._keys(mat))] = mat.data
+        return out
+
+    def ratio(self, c) -> float:
+        """The largest error / bound of host CSR ``c`` (inf for an entry
+        outside the structural pattern)."""
+        got_keys = c.row_ids() * c.cols + c.indices.astype(np.int64)
+        got = np.zeros(self.keys.size)
+        if got_keys.size == self.keys.size and np.array_equal(got_keys, self.keys):
+            got[:] = c.vals
+        else:
+            pos = np.searchsorted(self.keys, got_keys)
+            if np.any(pos >= self.keys.size) or np.any(
+                    self.keys[np.minimum(pos, self.keys.size - 1)] != got_keys):
+                return float("inf")
+            got[pos] = c.vals
+        bound = (self.count + 2) * U_F32 * self.mag
+        err = np.abs(got - self.c64)
+        if np.any(err[bound == 0] > 0):
+            return float("inf")
+        return float(np.max(err / np.where(bound == 0, 1.0, bound), initial=0.0))
+
+    def check(self, c, tag: str) -> float:
+        ratio = self.ratio(c)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{tag}: off the f64 oracle (max err/bound {ratio})")
+        return ratio
+
+
+def _with_vals(m, vals):
+    from sparse_matrix_tpu_torch.formats.csr import CsrMatrix
+
+    return CsrMatrix(m.rows, m.cols, vals, m.indices, m.offsets, is_sorted=m.is_sorted)
+
+
+def _f32(m):
+    return _with_vals(m, m.vals.astype(np.float32))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def block_bytes_estimate(m, bs=128) -> int:
+    """Bytes of the dense f32 blocks of ``m`` at block size ``bs``."""
+    keys = m.row_ids() // bs * (-(-m.cols // bs)) + m.indices.astype(np.int64) // bs
+    return int(np.unique(keys).size) * bs * bs * 4
+
+
+def time_engines(torch, dev, name, m, oracle, skip=()):
+    """Host seconds of each SpGEMM engine that fits this product (the data
+    for an H100 calibration of spgemm_auto), each result checked: the host
+    stand-in once, band convolution where banded, the dense matmul to 16384
+    rows, the dense-block engine to 4 GB of blocks, the ESC sort engine."""
+    from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
+    from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm
+    from sparse_matrix_tpu_torch.ops.spgemm_block import spgemm_block_device, spgemm_dense
+    from sparse_matrix_tpu_torch.ops.spgemm_dia import spgemm_dia
+    from sparse_matrix_tpu_torch.ops.spgemm_host import spgemm_hash_host
+
+    products = int(np.diff(m.offsets)[m.indices].sum())
+    engines = {"host": lambda: spgemm_hash_host(m, m)}
+    d = try_dia_from_csr(m)
+    if d is not None:
+        engines["dia"] = lambda: spgemm_dia(d, d, device=dev).to_csr()
+    if m.rows <= 16384:
+        engines["dense"] = lambda: spgemm_dense(m, m, device=dev)
+    if 2 * block_bytes_estimate(m) <= 4 << 30:
+        engines["mxu"] = lambda: spgemm_block_device(m, m, device=dev)
+    engines["esc"] = lambda: EscSpgemm(m, m, device=dev, reduce="sort").multiply()
+    times = {}
+    for eng, fn in engines.items():
+        if eng in skip:
+            continue
+        c, t = _timed(torch, fn)
+        ratio = oracle.check(c, f"{name} {eng}")
+        times[eng] = t
+        log(f"main engine {name} {eng}: {t:.3f} s (plan, upload, product, readback), "
+            f"nnz(C)={c.nnz()}, {products / t / 1e6:.2f} Mprod/s, max err/bound {ratio:.3f}")
+        del c
+        torch.cuda.empty_cache()
+    return times
+
+
+def esc_phases(torch, eng):
+    """CUDA-event ms of EscSpgemm.multiply_device and of its phases:
+    expansion (the ESC expansion kernel), key sort, gather by the sort
+    order and run reduce."""
+    from sparse_matrix_tpu_torch.ops.device_sorted import _packed_run_reduce
+    from sparse_matrix_tpu_torch.ops.esc_expand import expand_products
+
+    xp = eng._xplan
+
+    def expand():
+        return expand_products(xp, eng.lhs_vals_csc, eng.rhs_vals,
+                               device_arrays=eng._expand_arrs)
+
+    p = expand()
+    k_s, order = torch.sort(eng.out_key, stable=True)
+    out = dict(
+        multiply_device_ms=cuda_ms(torch, eng.multiply_device, reps=10, warmup=2),
+        expand_ms=cuda_ms(torch, expand, reps=10, warmup=2),
+        sort_ms=cuda_ms(torch, lambda: torch.sort(eng.out_key, stable=True), reps=10, warmup=2),
+        reduce_ms=cuda_ms(torch, lambda: _packed_run_reduce(k_s, p[order], eng.rows, eng.cols),
+                          reps=10, warmup=2),
+    )
+    del p, k_s, order
+    return out
+
+
+def _check_reduction(engine, x, c, oracle, tag: str) -> float:
+    """An SpMV reduction's host result ``c`` (``ReduceSpmv`` or
+    ``FixedSideSpgemm`` applied to ``x``) within the SpMV bound of its
+    selection matrix, and within the SpGEMM bound too unless that matrix
+    runs a scan-mode or windowed format, whose sums carry their chunk's
+    mass (ROADMAP C14). Returns the SpGEMM err/bound."""
+    from sparse_matrix_tpu_torch.ops.spgemm_spmv import reduce_f64_bound
+
+    y64, bound = reduce_f64_bound(engine, x)
+    if not np.all(np.abs(c.vals - y64) <= bound):
+        raise AssertionError(f"{tag}: off its SpMV bound")
+    if engine.op.format in ("lanepack", "stripe", "bell"):
+        return oracle.ratio(c)
+    return oracle.check(c, tag)
+
+
+def part_spgemm(torch, dev, mats, ops, state):
+    """Part f: the SpGEMM dispatch and engines (slice 4). Keeps the ESC
+    engines it built in ``state`` for the expansion kernel's checks."""
+    from sparse_matrix_tpu_torch.formats.device import DeviceCsr
+    from sparse_matrix_tpu_torch.ops.device_sorted import (
+        EscSpgemm,
+        add_device,
+        padded_to_host,
+        transpose_device,
+    )
+    from sparse_matrix_tpu_torch.ops.spgemm_block import (
+        BlockSpgemm,
+        spgemm_auto_engine,
+        spgemm_cost_estimates,
+    )
+    from sparse_matrix_tpu_torch.ops.esc_expand import expand_products
+    from sparse_matrix_tpu_torch.ops.spgemm_spmv import FixedSideSpgemm
+
+    rng = np.random.default_rng(SEED + 6)
+    esc = state.setdefault("esc", {})
+
+    # 1. A @ A through CsrMatrix.__matmul__ -> spgemm_auto on the card
+    for name in ("poisson2048", "femlike_262k", "uniform8192"):
+        m = _f32(mats[name])
+        t0 = time.perf_counter()
+        oracle = F64Product(m, m)
+        log(f"main oracle {name}: scipy float64 products {time.perf_counter() - t0:.2f} s")
+        engine = spgemm_auto_engine(m, m)
+        costs = spgemm_cost_estimates(m, m)
+        c, t = _timed(torch, lambda: m @ m)
+        ratio = oracle.check(c, f"{name} A @ A")
+        log(f"main A @ A {name}: engine={engine} costs(s)={json.dumps(costs)} {t:.3f} s, "
+            f"nnz(C)={c.nnz()}, max err/bound {ratio:.3f}")
+        del c
+        skip = {engine} | ({"esc"} if name == "femlike_262k" else set())  # esc: timed in 2
+        times = time_engines(torch, dev, name, m, oracle, skip=skip)
+        times[engine] = t
+        state.setdefault("engine_s", {})[name] = dict(taken=engine, costs=costs, seconds=times)
+        del oracle
+
+    # 2. the ESC sort engine on the 262k classes, re-multiplied with fresh values
+    for name in ("femlike_262k", "randlocal_262k"):
+        m = _f32(mats[name])
+        t0 = time.perf_counter()
+        eng = EscSpgemm(m, m, device=dev, reduce="sort")
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        c, mult_s = _timed(torch, eng.multiply)
+        oracle = F64Product(m, m)
+        ratio = oracle.check(c, f"{name} EscSpgemm")
+        phases = esc_phases(torch, eng)
+        a_t, b_t = library_csr(torch, m, dev), library_csr(torch, m, dev)
+        lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(a_t, b_t), reps=5, warmup=1)
+        del a_t, b_t
+        nv = rng.standard_normal(m.nnz()).astype(np.float32)
+        c2 = padded_to_host(eng.multiply_device(lhs_vals=torch.from_numpy(nv).to(dev)))
+        ratio2 = F64Product(_with_vals(m, nv), m).check(c2, f"{name} EscSpgemm re-multiply")
+        log(f"main EscSpgemm {name} sort: products={eng.num_products} nnz(C)={c.nnz()} "
+            f"plan {plan_s:.3f} s (host), multiply() {mult_s:.3f} s, "
+            f"multiply_device {phases['multiply_device_ms']:.4f} ms (expansion "
+            f"{phases['expand_ms']:.4f}, sort {phases['sort_ms']:.4f}, gather and run reduce "
+            f"{phases['reduce_ms']:.4f} ms), torch.sparse.mm {lib_ms:.4f} ms; "
+            f"{eng.num_products / phases['multiply_device_ms'] / 1e6:.2f} Gprod/s; max "
+            f"err/bound {ratio:.3f}, re-multiply with fresh lhs values {ratio2:.3f}")
+        esc[name] = (m, eng)
+        state.setdefault("esc_rows", []).append(dict(
+            case=name, products=eng.num_products, nnz_c=c.nnz(), plan_s=plan_s,
+            multiply_s=mult_s, library_ms=lib_ms, **phases))
+        del c, c2, oracle
+        torch.cuda.empty_cache()
+
+    # 3. uniform 8192: the SpMV reduction (reduce="auto") and FixedSideSpgemm
+    u = _f32(mats["uniform8192"])
+    t0 = time.perf_counter()
+    eng = EscSpgemm(u, u, device=dev)
+    plan_s = time.perf_counter() - t0
+    red = eng._rspmv
+    if red is None:
+        raise AssertionError("uniform8192: reduce='auto' did not take the SpMV reduction")
+    p = expand_products(eng._xplan, eng.lhs_vals_csc, eng.rhs_vals,
+                        device_arrays=eng._expand_arrs).cpu().numpy()
+    oracle = F64Product(u, u)
+    ratio = _check_reduction(red, p, eng.multiply(), oracle, "uniform8192 EscSpgemm spmv")
+    ms = cuda_ms(torch, eng.multiply_device, reps=10, warmup=2)
+    log(f"main EscSpgemm uniform8192 auto: reduce=spmv selection {red.op.format} "
+        f"{red.selection.rows}x{red.selection.cols} nnz={red.selection.nnz()}, plan "
+        f"{plan_s:.3f} s, multiply_device {ms:.4f} ms, within the SpMV bound; SpGEMM "
+        f"err/bound {ratio:.3g} (C14)")
+    esc["uniform8192"] = (u, eng)
+    t0 = time.perf_counter()
+    fs = FixedSideSpgemm(u, u, device=dev, fixed="lhs")
+    plan_s = time.perf_counter() - t0
+    ratio = _check_reduction(fs, u.vals, fs.multiply(), oracle, "uniform8192 FixedSideSpgemm")
+    ms = cuda_ms(torch, fs.multiply_device, reps=10, warmup=2)
+    log(f"main FixedSideSpgemm uniform8192 lhs: selection {fs.op.format} nnz="
+        f"{fs.selection.nnz()}, plan {plan_s:.3f} s, multiply_device {ms:.4f} ms, within "
+        f"the SpMV bound; SpGEMM err/bound {ratio:.3g}")
+    del fs, p, oracle
+
+    # 4. the hyper-sparse open cell: uniform 16384 at 0.015 %
+    h = _f32(mats["uniform16384"])
+    oracle = F64Product(h, h)
+    t0 = time.perf_counter()
+    eng = EscSpgemm(h, h, device=dev, reduce="sort")
+    esc_plan = time.perf_counter() - t0
+    c, esc_mult = _timed(torch, eng.multiply)
+    ratio_e = oracle.check(c, "uniform16384 EscSpgemm")
+    esc_ms = cuda_ms(torch, eng.multiply_device, reps=10, warmup=2)
+    esc["uniform16384"] = (h, eng)
+    t0 = time.perf_counter()
+    blk = BlockSpgemm(h, h, device=dev)
+    torch.cuda.synchronize()
+    blk_plan = time.perf_counter() - t0
+    cb, blk_mult = _timed(torch, blk.multiply)
+    ratio_b = oracle.check(cb, "uniform16384 BlockSpgemm")
+    blk_ms = cuda_ms(torch, blk.multiply_device, reps=2, warmup=1)
+    a_t = library_csr(torch, h, dev)
+    lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(a_t, a_t), reps=10, warmup=2)
+    cell = dict(products=eng.num_products, pairs=blk.num_pairs, nnz_c=c.nnz(),
+                esc_plan_s=esc_plan, esc_multiply_s=esc_mult, esc_multiply_device_ms=esc_ms,
+                block_plan_s=blk_plan, block_multiply_s=blk_mult,
+                block_multiply_device_ms=blk_ms, library_ms=lib_ms)
+    state["hyper_sparse"] = cell
+    log(f"main open cell uniform16384 0.015%: products={eng.num_products} "
+        f"pairs={blk.num_pairs} nnz(C)={c.nnz()}; EscSpgemm plan {esc_plan:.3f} s, "
+        f"multiply() {esc_mult:.3f} s, multiply_device {esc_ms:.4f} ms (err/bound "
+        f"{ratio_e:.3f}); BlockSpgemm plan {blk_plan:.3f} s, multiply() {blk_mult:.3f} s, "
+        f"multiply_device {blk_ms:.4f} ms (err/bound {ratio_b:.3f}); torch.sparse.mm "
+        f"{lib_ms:.4f} ms")
+    del blk, cb, c, a_t, oracle
+    torch.cuda.empty_cache()
+
+    # 5. device transpose and add on femlike_262k, equal to the host forms
+    m = _f32(mats["femlike_262k"])
+    d = DeviceCsr.from_host(m, device=dev)
+    dt = transpose_device(d)
+    t_host = m.transpose()
+    got_t = dt.to_host()
+    s = padded_to_host(add_device(d, dt))
+    want_s = m + t_host
+    for tag, got, want in (("transpose_device", got_t, t_host), ("add_device", s, want_s)):
+        for f in ("offsets", "indices", "vals"):
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"femlike_262k {tag}: {f} differs from the host form")
+    t_ms = cuda_ms(torch, lambda: transpose_device(d), reps=10, warmup=2)
+    a_ms = cuda_ms(torch, lambda: add_device(d, dt), reps=10, warmup=2)
+    log(f"main device ops femlike_262k: transpose_device {t_ms:.4f} ms, add_device "
+        f"(A + A^T, nnz {s.nnz()}) {a_ms:.4f} ms, both equal to the host forms")
+
+
+def phase_esc_kernel(torch, dev, chk, mats, state):
+    """The ESC expansion kernel (B12) against its plain version on the
+    card, bit-equal on the real slots, on the plans part f built (planned
+    here where part f did not): times of the kernel, the plain version
+    and the reference gather engine's expansion (``lhs_vals[src] *
+    rhs_vals[q]``, two torch gathers and a multiply: the yardstick, no
+    single PyTorch call computes the expansion), and the bound: A and B
+    once in CSR (f32 values, int32 indices and offsets) and 4 bytes per
+    product written, over 3.35 TB/s."""
+    from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm, expand_plan
+    from sparse_matrix_tpu_torch.ops.esc_expand import _expand_torch, expand_products
+
+    for name in ("femlike_262k", "randlocal_262k", "uniform8192", "uniform16384"):
+        if name in state["esc"]:
+            m, eng = state["esc"][name]
+        else:
+            m = _f32(mats[name])
+            eng = EscSpgemm(m, m, device=dev, reduce="sort")
+        xp, arrs = eng._xplan, eng._expand_arrs
+        lv, rv = eng.lhs_vals_csc, eng.rhs_vals
+        n = xp.num_products
+
+        def kernel(xp=xp, arrs=arrs, lv=lv, rv=rv):
+            return expand_products(xp, lv, rv, device_arrays=arrs)
+
+        def plain(xp=xp, arrs=arrs, lv=lv, rv=rv):
+            return _expand_torch(lv, rv, arrs["lv_lane"], arrs["rv_lane"], arrs["lv_off"],
+                                 arrs["rv_off"], num_products=xp.num_products)
+
+        pk, pp = kernel(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(pk[:n], pp[:n]) and not bool(pk[n:].any())):
+            raise AssertionError(f"esc_expand/{name}: kernel and plain version differ")
+        max_abs = float((pk - pp).abs().max())
+        del pk, pp
+        src, q, _ = expand_plan(m, m)
+        src = torch.from_numpy(src).to(dev).long()
+        q = torch.from_numpy(q).to(dev).long()
+        lvals = torch.from_numpy(m.vals).to(dev)
+        ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, plain)
+        yard_ms = cuda_ms(torch, lambda: lvals[src] * rv[q])
+        del src, q, lvals
+        nbytes = 2 * (m.nnz() * 8 + (m.rows + 1) * 4) + 4 * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n / F32_FLOP_PER_S * 1e3
+        row = dict(case=name, rows=m.rows, nnz=m.nnz(), products=n, slabs=xp.num_slabs,
+                   kw_lv=xp.kw_lv, kw_rv=xp.kw_rv, max_abs_err=max_abs, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, yardstick_ms=yard_ms,
+                   yardstick="the gather engine's expansion lhs_vals[src] * rhs_vals[q]: two "
+                             "torch gathers and a multiply (no single PyTorch call)",
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=int(nbytes), flops=float(n))
+        chk.cases["esc_expand"].append(row)
+        log(f"kernel esc_expand   {name:34s} rows={m.rows} nnz={m.nnz()} products={n} "
+            f"kw={xp.kw_lv}/{xp.kw_rv} bit-equal to plain, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, gather yardstick {yard_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s), {n / ms / 1e6:.2f} "
+            f"Gprod/s")
+    state["esc"].clear()
+    torch.cuda.empty_cache()
+
+
 def plan_operators(dev, mats):
     """The main path's operators, planned on the host with their times;
     the three classes must take the reference's formats."""
@@ -1110,6 +1506,8 @@ def main() -> int:
     mats["uniform2048"] = random_uniform(np.random.default_rng(SEED), 2048, 0.01)
     mats["blocked65536"] = blocked(np.random.default_rng(SEED), 65536, 64, 0.05)
     mats["blocked2048"] = blocked(np.random.default_rng(SEED), 2048, 64, 0.05)
+    # the hyper-sparse SpGEMM cell
+    mats["uniform16384"] = random_uniform(np.random.default_rng(SEED), 16384, 0.00015)
     log(f"matrices: {time.perf_counter() - t0:.2f} s")
     ops = plan_operators(dev, mats)
 
@@ -1118,10 +1516,12 @@ def main() -> int:
     phase_kernels_slice3(torch, dev, chk, mats, ops)
 
     counts = {k: 0 for k in REPLACES}
+    state = {"esc": {}}
     for part, fn in (("slice1", part_slice1), ("classes", part_classes),
                      ("multi_rhs", part_multi_rhs),
                      ("general_multi_rhs", part_general_multi_rhs),
-                     ("block_sparse", part_block_sparse)):
+                     ("block_sparse", part_block_sparse),
+                     ("spgemm", lambda *a: part_spgemm(*a, state))):
         kernels.reset_launch_counts()
         fn(torch, dev, mats, ops)
         torch.cuda.synchronize()
@@ -1133,6 +1533,8 @@ def main() -> int:
         for k, v in got.items():
             counts[k] += v
     log(f"launch counts (main path): {counts}")
+    phase_esc_kernel(torch, dev, chk, mats, state)
+    log(f"spgemm record: {json.dumps({k: state[k] for k in ('engine_s', 'esc_rows', 'hyper_sparse')})}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

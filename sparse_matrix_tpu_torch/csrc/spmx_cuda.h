@@ -117,3 +117,14 @@ SPMX_API int spmx_block_spgemm(int device, const void* a_blocks,
                                const int32_t* pair_a, const int32_t* pair_b,
                                const int32_t* seg, int64_t num_c, int bs,
                                float* c, void* stream);
+
+// ESC k-major expansion, per slot s of chunk c = s >> 7:
+// p[s] = lv[lv_off[c]*128 + lv_lane[s]] * rv[rv_off[c]*128 + rv_lane[s]] for
+// s < num_products (positions past n_lv / n_rv read 0), p[s] = 0 for
+// num_products <= s < num_slots; every element of p (num_slots,) is written
+SPMX_API int spmx_esc_expand(int device, const float* lv, int64_t n_lv,
+                             const float* rv, int64_t n_rv,
+                             const int16_t* lv_lane, const int16_t* rv_lane,
+                             const int32_t* lv_off, const int32_t* rv_off,
+                             int64_t num_products, int64_t num_slots, float* p,
+                             void* stream);

@@ -5,16 +5,39 @@ PyTorch version by the device of the tensor they are given (replacing the
 reference's ``_interpret()`` backend probe): a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. Nothing falls back
 from CUDA to the CPU.
+
+Entry points take an explicit ``device``. The one exception is
+``spgemm_auto`` (and through it ``CsrMatrix.__matmul__``), which, given
+none, runs on :func:`default_device`: ``"cuda"`` unless the caller has
+set another with :func:`set_default_device`. It is the counterpart of the
+JAX backend the reference's ``spgemm_auto`` consults, so ``A @ B`` on a
+machine without a Hopper card raises unless ``"cpu"`` was set.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["require_device", "on_cuda"]
+__all__ = ["require_device", "on_cuda", "default_device", "set_default_device"]
 
 # the kernels are built for sm_90a (Hopper)
 MIN_CAPABILITY = (9, 0)
+
+_DEFAULT = "cuda"
+
+
+def default_device() -> torch.device:
+    """The device of an ``A @ B`` that names none, validated by
+    :func:`require_device` at each call."""
+    return require_device(_DEFAULT)
+
+
+def set_default_device(dev) -> None:
+    """Set the device ``A @ B`` and ``spgemm_auto(device=None)`` run on
+    (validated now and at each use)."""
+    global _DEFAULT
+    require_device(dev)
+    _DEFAULT = str(torch.device(dev))
 
 
 def require_device(device) -> torch.device:

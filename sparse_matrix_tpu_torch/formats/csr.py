@@ -1,10 +1,12 @@
 """Host CSR matrix: the subset of ``sparse_matrix_tpu/formats/csr.py`` that
-the planners, the operator's dispatch, the block SpGEMM and the tests use.
+the planners, the operator's dispatch, the SpGEMM engines and the tests
+use.
 
 Same arrays and conventions as the reference: ``vals``, ``indices``
 (uint32), ``offsets`` (int64, ``rows + 1``), an ``is_sorted`` flag, and a
 ``_cache`` dict in which the planners memoize structure analyses (row ids,
-slab counts, DIA probes, row-band samples).
+slab counts, DIA probes, row-band samples, the transpose). ``A @ B`` runs
+``spgemm_auto`` on the port's default device (``device.default_device``).
 """
 
 from __future__ import annotations
@@ -77,6 +79,12 @@ class CsrMatrix:
             is_sorted=is_sorted,
         )
 
+    @classmethod
+    def identity(cls, n: int, *, dtype=np.float64, is_sorted: bool = True) -> "CsrMatrix":
+        """The ``n x n`` identity."""
+        return cls(n, n, np.ones(n, dtype=dtype), np.arange(n, dtype=INDEX_DTYPE),
+                   np.arange(n + 1, dtype=OFFSET_DTYPE), is_sorted=is_sorted)
+
     def to_dense(self) -> np.ndarray:
         a = np.zeros((self._rows, self._cols), dtype=self.vals.dtype)
         # duplicate-free by construction (from_coo sums duplicates)
@@ -91,6 +99,10 @@ class CsrMatrix:
     def cols(self) -> int:
         return self._cols
 
+    @property
+    def shape(self):
+        return (self._rows, self._cols)
+
     def nnz(self) -> int:
         return int(self.indices.shape[0])
 
@@ -102,6 +114,84 @@ class CsrMatrix:
             out = np.repeat(np.arange(self._rows, dtype=np.int64), np.diff(self.offsets))
             self._cache["row_ids"] = out
         return out
+
+    # -- structure ------------------------------------------------------------
+    def transpose(self) -> "CsrMatrix":
+        """Transpose by a stable (col, row) sort (the reference's numpy
+        branch): transposed rows come out sorted. Memoized both ways; the
+        port's matrices are not mutated in place, so the memo needs no
+        version stamp."""
+        t = self._cache.get("transpose")
+        if t is None:
+            order = np.lexsort((self.row_ids(), self.indices.astype(np.int64)))
+            offsets = np.zeros(self._cols + 1, dtype=OFFSET_DTYPE)
+            offsets[1:] = np.bincount(self.indices.astype(np.int64), minlength=self._cols)
+            np.cumsum(offsets, out=offsets)
+            t = CsrMatrix(self._cols, self._rows, self.vals[order],
+                          self.row_ids()[order].astype(INDEX_DTYPE), offsets,
+                          is_sorted=self.is_sorted)
+            self._cache["transpose"] = t
+            t._cache["transpose"] = self
+        return t
+
+    @property
+    def T(self) -> "CsrMatrix":
+        return self.transpose()
+
+    # -- arithmetic -------------------------------------------------------------
+    def apply_elementwise(self, rhs: "CsrMatrix", f) -> "CsrMatrix":
+        """Union merge ``f(t1, t2)`` over every position present in either
+        operand, the absent side as zero; cancellation zeros stay explicit
+        (the reference's ``apply_elementwise``). ``f`` is a vectorized
+        binary function."""
+        if self.shape != rhs.shape:
+            raise ValueError("matrices must have identical dimensions")
+        dtype = np.result_type(self.vals.dtype, rhs.vals.dtype)
+        zero = dtype.type(0)
+        r = np.concatenate([self.row_ids(), rhs.row_ids()])
+        c = np.concatenate([self.indices.astype(np.int64), rhs.indices.astype(np.int64)])
+        v = np.concatenate([self.vals.astype(dtype), rhs.vals.astype(dtype)])
+        tag = np.concatenate([np.zeros(self.nnz(), np.int8), np.ones(rhs.nnz(), np.int8)])
+        if self._rows * self._cols < 2**62:
+            # stable on one packed key: lhs before rhs within a position
+            order = np.argsort(r * self._cols + c, kind="stable")
+        else:
+            order = np.lexsort((tag, c, r))
+        r, c, v, tag = r[order], c[order], v[order], tag[order]
+        n = len(r)
+        if n == 0:
+            return CsrMatrix(self._rows, self._cols, v, c.astype(INDEX_DTYPE),
+                             np.zeros(self._rows + 1, dtype=OFFSET_DTYPE), is_sorted=True)
+        head = np.empty(n, dtype=bool)
+        head[0] = True
+        head[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+        both = ~head  # the rhs half of a position both operands hold
+        lhs_v = np.where(tag == 0, v, zero)
+        rhs_v = np.where(tag == 1, v, zero)
+        next_rhs = np.zeros(n, dtype=dtype)
+        next_rhs[:-1] = np.where(both[1:], rhs_v[1:], zero)
+        t1 = np.where(head, lhs_v, zero)
+        t2 = np.where(head, np.where(tag == 0, next_rhs, rhs_v), zero)
+        out_v = f(t1[head], t2[head])
+        r_o, c_o = r[head], c[head]
+        offsets = np.zeros(self._rows + 1, dtype=OFFSET_DTYPE)
+        offsets[1:] = np.bincount(r_o, minlength=self._rows)
+        np.cumsum(offsets, out=offsets)
+        return CsrMatrix(self._rows, self._cols, np.asarray(out_v, dtype=dtype),
+                         c_o.astype(INDEX_DTYPE), offsets, is_sorted=True)
+
+    def __add__(self, rhs: "CsrMatrix") -> "CsrMatrix":
+        return self.apply_elementwise(rhs, np.add)
+
+    def __sub__(self, rhs: "CsrMatrix") -> "CsrMatrix":
+        return self.apply_elementwise(rhs, np.subtract)
+
+    def __matmul__(self, rhs: "CsrMatrix") -> "CsrMatrix":
+        # unsorted output, as the reference's; the engine is picked by
+        # spgemm_auto's cost model on the port's default device
+        from ..ops.spgemm_block import spgemm_auto
+
+        return spgemm_auto(self, rhs, output_sorted=False)
 
 
 def sample_row_bands(m: CsrMatrix, target_nnz: int = 200_000):

@@ -31,6 +31,24 @@ class DiaMatrix:
     def nbands(self) -> int:
         return int(self.data.shape[0])
 
+    def nnz(self) -> int:
+        return int(np.count_nonzero(self.data))
+
+    def to_csr(self) -> CsrMatrix:
+        """Sorted CSR of the nonzero in-shape band slots (exact zeros are
+        dropped)."""
+        rows_l, cols_l, vals_l = [], [], []
+        i = np.arange(self.rows, dtype=np.int64)
+        for b, off in enumerate(self.offsets):
+            j = i + off
+            ok = (j >= 0) & (j < self.cols) & (self.data[b] != 0)
+            rows_l.append(i[ok])
+            cols_l.append(j[ok])
+            vals_l.append(self.data[b][ok])
+        return CsrMatrix.from_coo(self.rows, self.cols, np.concatenate(rows_l),
+                                  np.concatenate(cols_l), np.concatenate(vals_l),
+                                  sum_duplicates=False)
+
 
 def try_dia_from_csr(
     m: CsrMatrix,

@@ -30,10 +30,11 @@ __all__ = [
     "launch_bell_spmm",
     "launch_bcsr_spmm",
     "launch_block_spgemm",
+    "launch_esc_expand",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
-           "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm")
+           "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -91,6 +92,8 @@ def _library() -> ctypes.CDLL:
         lib.spmx_bcsr_spmm.argtypes = [i32, vp, vp, vp, i64, i32, i64, vp, vp, vp]
         lib.spmx_block_spgemm.restype = i32
         lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, vp, vp, i64, i32, vp, vp]
+        lib.spmx_esc_expand.restype = i32
+        lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
         _LIB = lib
     return _LIB
 
@@ -374,3 +377,32 @@ def launch_block_spgemm(a_blocks, b_blocks, pair_a, pair_b, seg, c) -> None:
     _run("block_spgemm", dev, _library().spmx_block_spgemm, a_blocks.data_ptr(),
          b_blocks.data_ptr(), int(a_blocks.dtype == torch.bfloat16), pair_a.data_ptr(),
          pair_b.data_ptr(), seg.data_ptr(), num_c, bs, c.data_ptr())
+
+
+def launch_esc_expand(lv, rv, lv_lane, rv_lane, lv_off, rv_off, p, *, num_products: int) -> None:
+    """``p[s] = lv[lv_off[s >> 7] * 128 + lv_lane[s]] * rv[rv_off[s >> 7] *
+    128 + rv_lane[s]]`` for every slot ``s < num_products`` (operand
+    positions past the end read 0), ``p[s] = 0`` on the rest; lanes
+    ``(S, 8, 128)`` int16, window rows ``(S * 8,)`` int32, values and p
+    f32; writes every element of p."""
+    for key, t in (("lv", lv), ("rv", rv), ("p", p)):
+        if t.dtype != _F32:
+            raise ValueError(f"esc_expand: {key} has dtype {t.dtype}; the kernel takes "
+                             "f32 (torch.float32) values only")
+    dev = _check("esc_expand",
+                 dict(lv=_F32, rv=_F32, lv_lane=torch.int16, rv_lane=torch.int16,
+                      lv_off=torch.int32, rv_off=torch.int32, p=_F32),
+                 lv=lv, rv=rv, lv_lane=lv_lane, rv_lane=rv_lane, lv_off=lv_off,
+                 rv_off=rv_off, p=p)
+    slots = p.numel()
+    if (
+        lv_lane.numel() != slots or rv_lane.numel() != slots or slots % 1024
+        or lv_off.numel() != slots // 128 or rv_off.numel() != slots // 128
+        or not 0 <= num_products <= slots
+    ):
+        raise ValueError("esc_expand: lane, window and product arrays disagree")
+    if slots == 0:
+        return
+    _run("esc_expand", dev, _library().spmx_esc_expand, lv.data_ptr(), lv.numel(),
+         rv.data_ptr(), rv.numel(), lv_lane.data_ptr(), rv_lane.data_ptr(),
+         lv_off.data_ptr(), rv_off.data_ptr(), num_products, slots, p.data_ptr())

@@ -17,22 +17,27 @@ Counterpart of ``sparse_matrix_tpu/ops/spgemm_block.py``:
   its per-entry float32 error bound, which the tests and ``chip_smoke.py``
   hold the engine to.
 
+* :func:`spgemm_cost_estimates` and :func:`spgemm_auto` — the SpGEMM
+  dispatch behind ``CsrMatrix.__matmul__``: host hash engine, band
+  convolution, dense-block engine, one dense matmul or the ESC engine, by
+  the reference's rules and cost model (its v5e constants,
+  ``utils/autotune.py``).
+
 The reference's 64K-pair call segmentation (a TPU SMEM limit) and its
-``precision`` argument are not carried over. ``spgemm_cost_estimates`` and
-``spgemm_auto`` need the host and ESC engines and are not ported yet
-(ROADMAP.md, slice 4).
+``precision`` argument are not carried over.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..device import on_cuda, require_device
+from ..device import default_device, on_cuda, require_device
 from ..formats.bcsr import BLOCK_SIZE, BsrMatrix
-from ..formats.csr import CsrMatrix
+from ..formats.csr import CsrMatrix, sample_row_bands
 from .device_sorted import PaddedCoo, padded_to_host
 from .spmv import U_F32, _t
 
@@ -43,6 +48,9 @@ __all__ = [
     "BlockSpgemm",
     "spgemm_dense",
     "spgemm_err_over_bound",
+    "spgemm_cost_estimates",
+    "spgemm_auto_engine",
+    "spgemm_auto",
 ]
 
 # pairs per step of the plain numeric phase: the gathered operands of all
@@ -223,11 +231,9 @@ def spgemm_err_over_bound(lhs: CsrMatrix, rhs: CsrMatrix, c: CsrMatrix, *,
     (|A||B|)_ij`` for bf16 operands. An entry of ``c`` outside the
     structural pattern gives ``inf``; a float32 evaluation passes at <= 1.
     """
-    a_c = lhs.indices.astype(np.int64)
-    reps = np.diff(rhs.offsets)[a_c]
-    src = np.repeat(np.arange(lhs.nnz(), dtype=np.int64), reps)
-    starts = np.cumsum(reps) - reps
-    q = rhs.offsets[a_c[src]] + np.arange(src.size, dtype=np.int64) - starts[src]
+    from .spgemm_host import _expand_index
+
+    src, q = _expand_index(lhs, rhs)
     prod = (lhs.vals.astype(np.float32).astype(np.float64)[src]
             * rhs.vals.astype(np.float32).astype(np.float64)[q])
     keys, inv = np.unique(lhs.row_ids()[src] * rhs.cols + rhs.indices.astype(np.int64)[q],
@@ -264,3 +270,140 @@ def spgemm_dense(lhs: CsrMatrix, rhs: CsrMatrix, *, device) -> CsrMatrix:
     c = torch.matmul(a, b).cpu().numpy()
     r, cc = np.nonzero(c)
     return CsrMatrix.from_coo(lhs.rows, rhs.cols, r, cc, c[r, cc], sum_duplicates=False)
+
+
+def _host_rate() -> float:
+    """The host engine's products per second: the per-core constant times
+    the cores, as the reference prices its native engine."""
+    from ..utils import autotune
+
+    return autotune.get("spgemm_host_products_per_s") * max(1, os.cpu_count() or 1)
+
+
+def spgemm_cost_estimates(lhs: CsrMatrix, rhs: CsrMatrix, *,
+                          products: Optional[float] = None) -> dict:
+    """Estimated end-to-end seconds of each SpGEMM engine on this input,
+    ``{"host", "mxu", "dense", "esc"}`` (the reference's model and
+    constants). ``products`` (``flops_per_row(lhs, rhs).sum()``) may be
+    passed in when the caller has it."""
+    from ..utils import autotune
+    from .spgemm_host import flops_per_row
+
+    bs = BLOCK_SIZE
+
+    def _blocks(m: CsrMatrix) -> float:
+        # distinct (row block, col block) count, on sampled row bands
+        # above 1.5M entries
+        mm, scale = m, 1.0
+        if m.nnz() > 1_500_000:
+            mm, scale = sample_row_bands(m)
+        bc = -(-mm.cols // bs)
+        keys = mm.row_ids() // bs * bc + mm.indices.astype(np.int64) // bs
+        return len(np.unique(keys)) * scale
+
+    a_blocks = _blocks(lhs)
+    b_blocks = _blocks(rhs)
+    bcols_b = -(-rhs.cols // bs)
+    brows_b = -(-rhs.rows // bs)
+    pair_est = a_blocks * max(1.0, b_blocks / max(1, brows_b))
+    c_blocks_est = min(-(-lhs.rows // bs) * bcols_b, pair_est)
+
+    host_touch = autotune.get("spgemm_host_touch_s_per_byte")
+    mxu_pair = autotune.get("spgemm_mxu_pair_s")
+    dense_rate = autotune.get("spgemm_dense_mac_per_s")
+    esc_rate = autotune.get("spgemm_esc_products_per_s")
+    # every device engine pays the one-shot sync and the first-call compile
+    dev_fixed = autotune.get("device_call_sync_s") + autotune.get("device_oneshot_compile_s")
+    if products is None:
+        products = float(flops_per_row(lhs, rhs).sum())
+    return {
+        "host": products / _host_rate(),
+        "mxu": pair_est * mxu_pair + c_blocks_est * bs * bs * 4 * host_touch + dev_fixed,
+        "dense": (
+            lhs.rows * lhs.cols * rhs.cols * 2 / dense_rate
+            + (lhs.rows * lhs.cols + rhs.rows * rhs.cols + lhs.rows * rhs.cols) * 4 * host_touch
+            + dev_fixed
+        ),
+        # host plan build (3 index streams) + device rate + fixed
+        "esc": products * 12 * host_touch + products / esc_rate + dev_fixed,
+    }
+
+
+def spgemm_auto_engine(lhs: CsrMatrix, rhs: CsrMatrix, *, device=None) -> str:
+    """The engine :func:`spgemm_auto` takes for this product on ``device``
+    (``None``: the default device): ``"host"``, ``"dia"`` (band
+    convolution), ``"dense"``, ``"esc"`` or ``"mxu"`` (the dense-block
+    engine), by the reference's rules in its order: tiny products on the
+    host; banded x banded through band convolution; on a CPU device the
+    host engine (the reference's test for a TPU backend); products below
+    the device floor (sync plus one-shot compile) on the host; else the
+    cheapest of :func:`spgemm_cost_estimates`.
+
+    The reference first sends an rhs with at most one entry per row to its
+    native column-relabel engine; the port has no native runtime and falls
+    through, as the reference does without its library (the values agree
+    within the float32 bound; the pattern may differ by cancellation
+    zeros).
+    """
+    dev = default_device() if device is None else require_device(device)
+    return _choose_engine(lhs, rhs, dev)[0]
+
+
+def _choose_engine(lhs: CsrMatrix, rhs: CsrMatrix, dev: torch.device):
+    """``(engine, (dia_lhs, dia_rhs))`` for :func:`spgemm_auto_engine`; the
+    DIA forms are the band engine's operands (None for other engines)."""
+    from ..formats.dia import try_dia_from_csr
+    from ..utils import autotune
+    from .spgemm_host import flops_per_row
+
+    # dims first: the estimators gather rhs row counts through lhs columns
+    if lhs.cols != rhs.rows:
+        raise ValueError("LHS cols != RHS rows")
+    # tiny products: every device engine pays at least the one-shot sync
+    products = float(flops_per_row(lhs, rhs).sum())
+    if products / _host_rate() <= autotune.get("device_call_sync_s"):
+        return "host", None
+    # banded x banded: band convolution is the closed-form product
+    da = try_dia_from_csr(lhs)
+    if da is not None:
+        db = try_dia_from_csr(rhs)
+        if db is not None and da.nbands * db.nbands <= 4096:
+            return "dia", (da, db)
+    if dev.type == "cpu":
+        return "host", None
+    # below the device floor the block estimators are not worth their host time
+    dev_floor = autotune.get("device_call_sync_s") + autotune.get("device_oneshot_compile_s")
+    if products / _host_rate() <= dev_floor:
+        return "host", None
+    costs = spgemm_cost_estimates(lhs, rhs, products=products)
+    return min(costs, key=costs.get), None
+
+
+def spgemm_auto(lhs: CsrMatrix, rhs: CsrMatrix, *, output_sorted: bool = True,
+                device=None) -> CsrMatrix:
+    """``C = A @ B`` through the engine :func:`spgemm_auto_engine` picks:
+    :func:`~.spgemm_host.spgemm_hash_host`,
+    :func:`~.spgemm_dia.spgemm_dia`, :func:`spgemm_dense`,
+    ``EscSpgemm(reduce="sort")`` or :func:`spgemm_block_device`, on
+    ``device`` (``None``: :func:`~..device.default_device`)."""
+    from .spgemm_host import spgemm_hash_host
+
+    dev = default_device() if device is None else require_device(device)
+    engine, dia_pair = _choose_engine(lhs, rhs, dev)
+    if engine == "host":
+        return spgemm_hash_host(lhs, rhs, output_sorted=output_sorted)
+    if engine == "dia":
+        from .spgemm_dia import spgemm_dia
+
+        out = spgemm_dia(*dia_pair, device=dev).to_csr()
+    elif engine == "dense":
+        out = spgemm_dense(lhs, rhs, device=dev)
+    elif engine == "esc":
+        from .device_sorted import EscSpgemm
+
+        # one-shot: the SpMV-reduce plan costs host time only re-multiplies recover
+        out = EscSpgemm(lhs, rhs, device=dev, reduce="sort").multiply()
+    else:
+        out = spgemm_block_device(lhs, rhs, device=dev)
+    return CsrMatrix(out.rows, out.cols, out.vals, out.indices, out.offsets,
+                     is_sorted=output_sorted)

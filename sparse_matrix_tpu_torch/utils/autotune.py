@@ -1,12 +1,15 @@
-"""Cost-model constants of the SpMV format dispatch.
+"""Cost-model constants of the SpMV format dispatch and the SpGEMM
+dispatch.
 
 Counterpart of ``sparse_matrix_tpu/utils/autotune.py``: its ``DEFAULTS``
-(the constants the reference measured on a TPU v5e) for the SpMV planners
-and ``SpmvOperator``'s dispatch, and :func:`get`. With the same constants
-the port picks the same formats and plans as the reference. They are not
-H100 times: the H100 calibration that replaces them is ROADMAP.md queue A
-item 16. There is no calibration cache file here; tests that need other
-constants patch ``DEFAULTS``.
+(the constants the reference measured on a TPU v5e) for the SpMV planners,
+``SpmvOperator``'s dispatch and ``spgemm_auto``, and :func:`get`. With the
+same constants the port picks the same formats, plans and SpGEMM engines
+as the reference. They are the reference's v5e values, not H100 times:
+the host rate is the reference's native engine's, and the one-shot
+compile term is a TPU cost. The H100 calibration that replaces them is
+ROADMAP.md queue A item 16. There is no calibration cache file here;
+tests that need other constants patch ``DEFAULTS``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,16 @@ DEFAULTS: Dict[str, float] = {
     "stripe_sel_lvl_ns": 4.51,
     # ELL x-gather per element (prices the hyper-sparse ELL shortcut)
     "ell_gather_ns": 7.1,
+    # spgemm_auto rates
+    "spgemm_host_products_per_s": 5e7,  # per core
+    "spgemm_host_touch_s_per_byte": 4e-9,  # numpy densify/sparsify passes
+    "spgemm_mxu_pair_s": 4.5e-7,  # per 128x128 block pair
+    "spgemm_dense_mac_per_s": 2e13,
+    "spgemm_esc_products_per_s": 1.7e8,  # device ESC engine
+    # one-shot device-call overhead (upload, dispatch, readback sync)
+    "device_call_sync_s": 0.03,
+    # first-call compile of a device engine at a new shape (a TPU cost)
+    "device_oneshot_compile_s": 40.0,
 }
 
 

@@ -461,3 +461,101 @@ def test_matmat_on_card_matches_cpu(dev, force):
     y_gpu = SpmvOperator(a, device=dev, force=force).matmat(X.to(dev)).cpu()
     y_cpu = SpmvOperator(a, device="cpu", force=force).matmat(X)
     assert torch.max(torch.abs(y_gpu - y_cpu)) <= 2e-5 * max(1.0, float(y_cpu.abs().max()))
+
+
+def _f32(m):
+    return CsrMatrix(m.rows, m.cols, m.vals.astype(np.float32), m.indices, m.offsets,
+                     is_sorted=m.is_sorted)
+
+
+def _expand_cases():
+    """A padded plan (random uniform squared) and an unpadded one (64 x 1
+    times 1 x 32: 2,048 products, two whole slabs)."""
+    u = _f32(corpus.random_uniform(np.random.default_rng(11), 700, 0.01))
+    rng = np.random.default_rng(12)
+    col = CsrMatrix.from_coo(64, 1, np.arange(64), np.zeros(64, np.int64),
+                             rng.standard_normal(64).astype(np.float32))
+    row = CsrMatrix.from_coo(1, 32, np.zeros(32, np.int64), np.arange(32),
+                             rng.standard_normal(32).astype(np.float32))
+    return {"padded": (u, u), "unpadded": (col, row)}
+
+
+@pytest.mark.parametrize("case", ["padded", "unpadded"])
+def test_esc_expand_kernel(dev, case):
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import esc_expand
+
+    a, b = _expand_cases()[case]
+    plan = esc_expand.plan_expand_kmajor(a, b)
+    assert (plan.num_slabs * 1024 > plan.num_products) == (case == "padded")
+    arrs = esc_expand.expand_device_arrays(plan, dev)
+    lv = torch.from_numpy(a.vals[plan.perm_csc]).to(dev)
+    rv = torch.from_numpy(b.vals).to(dev)
+    before = kernels.launch_counts["esc_expand"]
+    p = esc_expand.expand_products(plan, lv, rv, device_arrays=arrs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["esc_expand"] == before + 1
+    plain = esc_expand._expand_torch(lv, rv, arrs["lv_lane"], arrs["rv_lane"], arrs["lv_off"],
+                                     arrs["rv_off"], num_products=plan.num_products)
+    n = plan.num_products
+    assert p.shape == plain.shape == (plan.num_slabs * 1024,)
+    assert torch.equal(p[:n], plain[:n]) and not p[n:].any()
+    cpu = esc_expand.expand_products(plan, lv.cpu(), rv.cpu())
+    assert torch.equal(p.cpu(), cpu)
+    with pytest.raises(ValueError, match="f32"):
+        esc_expand.expand_products(plan, lv.double(), rv.double(), device_arrays=arrs)
+
+
+@pytest.mark.parametrize("reduce", ["sort", "spmv"])
+@pytest.mark.parametrize("engine", ["pallas", "xla"])
+def test_esc_spgemm_on_card_matches_cpu(dev, engine, reduce):
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm
+
+    u = _expand_cases()["padded"][0]
+    before = kernels.launch_counts["esc_expand"]
+    eng = EscSpgemm(u, u, device=dev, engine=engine, reduce=reduce)
+    c = eng.multiply()
+    assert (kernels.launch_counts["esc_expand"] > before) == (engine == "pallas")
+    want = EscSpgemm(u, u, device="cpu", engine=engine, reduce=reduce).multiply()
+    assert np.array_equal(c.offsets, want.offsets) and np.array_equal(c.indices, want.indices)
+    _spgemm_bounded(u, u, c)
+    nv = np.random.default_rng(13).standard_normal(u.nnz()).astype(np.float32)
+    u2 = CsrMatrix(u.rows, u.cols, nv, u.indices, u.offsets, is_sorted=True)
+    from sparse_matrix_tpu_torch.ops.device_sorted import padded_to_host
+
+    _spgemm_bounded(u2, u, padded_to_host(eng.multiply_device(lhs_vals=torch.from_numpy(nv))))
+
+
+def test_device_ops_on_card_match_host(dev):
+    from sparse_matrix_tpu_torch.formats.device import DeviceCsr
+    from sparse_matrix_tpu_torch.ops.device_sorted import add_device, padded_to_host, sub_device
+    from sparse_matrix_tpu_torch.ops.device_sorted import transpose_device
+
+    a = _f32(corpus.random_uniform(np.random.default_rng(14), 500, 0.02))
+    b = _f32(corpus.random_uniform(np.random.default_rng(15), 500, 0.02))
+    da, db = DeviceCsr.from_host(a, device=dev), DeviceCsr.from_host(b, device=dev)
+    for got, want in ((transpose_device(da).to_host(), a.transpose()),
+                      (padded_to_host(add_device(da, db)), a + b),
+                      (padded_to_host(sub_device(da, db)), a - b)):
+        for f in ("offsets", "indices", "vals"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_spgemm_auto_on_card_takes_band_convolution(dev, monkeypatch):
+    from sparse_matrix_tpu_torch.ops import spgemm_dia
+    from sparse_matrix_tpu_torch.utils import autotune
+
+    monkeypatch.setitem(autotune.DEFAULTS, "device_call_sync_s", 0.0)
+    called = []
+    real = spgemm_dia.spgemm_dia
+
+    def spy(a, b, *, device):
+        called.append(device)
+        return real(a, b, device=device)
+
+    monkeypatch.setattr(spgemm_dia, "spgemm_dia", spy)
+    a = poisson_2d_csr(64, dtype=np.float32)
+    c = spgemm_block.spgemm_auto(a, a, device=dev)
+    assert called and called[0].type == "cuda"
+    _spgemm_bounded(a, a, c)

@@ -2,9 +2,10 @@
 
 * With every ``jax*`` import and the JAX package ``sparse_matrix_tpu``
   itself blocked, the port imports every module and chip_smoke.py, plans a
-  Poisson 32^2 operator on the CPU and runs three CG iterations, and
-  squares a small matrix with ``BlockSpgemm``; importing the package
-  itself loads neither torch nor the CUDA toolchain.
+  Poisson 32^2 operator on the CPU and runs three CG iterations, squares
+  a small matrix with ``BlockSpgemm`` and with ``EscSpgemm``, and, with
+  the default device set to the CPU, with ``A @ A``; importing the
+  package itself loads neither torch nor the CUDA toolchain.
 * No module of the port, nor chip_smoke.py, imports jax or anything of
   ``sparse_matrix_tpu``.
 * The capability rules of tests/test_capability_discipline.py, applied to
@@ -71,6 +72,10 @@ assert res.iterations == 3 and bool(torch.isfinite(res.x).all())
 c = spgemm_block.BlockSpgemm(a, a, device="cpu", bs=64).multiply()
 want = a.to_dense() @ a.to_dense()
 assert c.nnz() == np.count_nonzero(want) and np.allclose(c.to_dense(), want)
+e = spt.EscSpgemm(a, a, device="cpu", reduce="sort")
+assert e.engine == "pallas" and np.allclose(e.multiply().to_dense(), want)
+spt.set_default_device("cpu")
+assert np.allclose((a @ a).to_dense(), want)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 assert not any(m == "sparse_matrix_tpu" or m.startswith("sparse_matrix_tpu.")
                for m in sys.modules)
@@ -153,7 +158,8 @@ def test_cuda_device_without_gpu_raises():
 
 @pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell", "stripe",
                                     "dia_spmm", "aligned_spmm", "lanepack_spmm",
-                                    "bell_spmm", "bcsr_spmm", "block_spgemm"])
+                                    "bell_spmm", "bcsr_spmm", "block_spgemm",
+                                    "esc_expand"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     from sparse_matrix_tpu_torch.native import kernels
 
@@ -182,6 +188,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                       f32[:, None]),
         "block_spgemm": lambda: kernels.launch_block_spgemm(blk, blk, i32, i32,
                                                             i32.repeat(2), blk),
+        "esc_expand": lambda: kernels.launch_esc_expand(f32, f32, i16, i16, i32, i32,
+                                                        torch.zeros(1024), num_products=5),
     }
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="needs CUDA"):

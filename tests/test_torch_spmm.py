@@ -229,10 +229,9 @@ def test_matmat_matches_reference(fmt, k):
     _bounded(m, X, Y, **kw)
 
 
-def test_matmat_raises_where_the_reference_runs_b7_or_b8():
-    # the B7 and B8 kernels are ported (their results are held to the
-    # reference by test_matmat_matches_reference): on those operators
-    # matmat raises only on a malformed X
+def test_matmat_raises_valueerror_on_malformed_x():
+    # on the BELL and LanePack operators (B8, B7) matmat raises a
+    # ValueError that names the expected (cols, K) shape
     bell_op = SpmvOperator(corpus.fem_like(np.random.default_rng(0), 40, 2), device="cpu",
                            force="bell")
     with pytest.raises(ValueError, match=rf"\({bell_op.cols}, K\)"):
