@@ -10,7 +10,8 @@ per-column spill loop against its one LanePack SpMM launch).
 Phases, each of which ends the run with an exception on failure:
 
 1. Device and build: the card's name and power limit (nvidia-smi), its
-   compute capability, and the parallel nvcc build of ``csrc/*.cu``.
+   compute capability, the parallel nvcc build of ``csrc/*.cu`` and the
+   g++ build of the host library (``native/src/spmx_host.cpp``).
 2. Kernels: each CUDA kernel against its plain PyTorch version on the card
    and against a float64 oracle at the main path's shapes. The SpMV and
    SpMM kernels are held to the per-row float32 bound of
@@ -32,7 +33,7 @@ Phases, each of which ends the run with an exception on failure:
    cores, 989 TFLOP/s of bf16 tensor cores for bf16 blocks). The dense-
    block work the block kernels do (2*bs^2*F per stored block, 2*bs^3 per
    pair) is logged beside it as ``block_flops``. TF32 must be off.
-3. Main path, in six parts, each with every launch count set to 0 just
+3. Main path, in seven parts, each with every launch count set to 0 just
    before it and read just after:
    a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
       dispatched to DIA), the same with bf16 band planes through
@@ -63,8 +64,16 @@ Phases, each of which ends the run with an exception on failure:
       (uniform 16384 at 0.015 %): ``EscSpgemm`` against ``BlockSpgemm``
       against ``torch.sparse.mm``; ``transpose_device`` and ``add_device``
       on femlike_262k against the host forms.
+   g. IC/ILU (slice 5): ``ic0`` of Poisson 2048^2 in the host library
+      (seconds logged), ``pcg_solve`` with ``ic_preconditioner`` fused
+      (the trisweep kernel) and in the loop form (DIA SpMVs) at sweeps 1,
+      2 and 4, beside part a's plain CG; on femlike_262k made strictly
+      diagonally dominant (``with_dominant_diagonal``), ``bicgstab_solve``
+      and ``gmres_solve(restart=30)`` with and without the fused
+      ``ilu_preconditioner``, and BiCGSTAB with ``ilut_preconditioner``.
    Solves are checked for convergence and for their true residual (per
-   column for the multi-RHS solves), products against float64: SpGEMM
+   column for the multi-RHS solves; the ILU solves within 10 tol |b|, the
+   reference tests' acceptance), products against float64: SpGEMM
    results per entry of the union of both patterns (in part f from
    three scipy float64 products), SpMV reductions against the SpMV bound
    of their selection matrix as well (ROADMAP C14).
@@ -72,6 +81,16 @@ Phases, each of which ends the run with an exception on failure:
 5. The ESC expansion kernel against its plain version on the plans part
    f built, bit-equal on the real slots, with its times (beside the
    reference gather engine's expansion as the yardstick) and its bound.
+6. The trisweep kernel at sweeps = 4 on part g's factors (L and L^T of
+   Poisson 2048^2's IC(0), L and U of femlike's ILU(0)): bit-equal to its
+   plain version, within the float64 running bound of
+   ``trisweep_f64_bound``, with its times beside the loop form (the
+   reference's default ``TriangularJacobi.__call__``: the yardstick, no
+   single PyTorch call computes Jacobi sweeps), beside the exact solve of
+   one ``torch.triangular_solve`` on the factor as a CSR tensor (a second
+   yardstick, checked against the host solve) and its bound (the planes,
+   b and dinv read once and y written once over 3.35 TB/s); and on
+   Poisson 64^2, depth(L) - 1 = 126 sweeps equal to the exact host solve.
 
 The last two lines are the kernels' JSON record and the result line. The
 script imports nothing of JAX or of the JAX package. Without a CUDA device
@@ -80,6 +99,7 @@ it exits with 1 and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -115,6 +135,8 @@ REPLACES = {
                      "sparse_matrix_tpu/ops/spgemm_block.py:72"),
     "esc_expand": ("sparse_matrix_tpu_torch/csrc/esc_expand.cu",
                    "sparse_matrix_tpu/ops/esc_expand.py:158"),
+    "trisweep": ("sparse_matrix_tpu_torch/csrc/trisweep.cu",
+                 "sparse_matrix_tpu/ops/trisweep.py:88"),
 }
 # the kernels each part of the main path must launch
 PARTS = {
@@ -124,6 +146,7 @@ PARTS = {
     "general_multi_rhs": ("lanepack_spmm", "bell_spmm"),
     "block_sparse": ("bcsr_spmm", "block_spgemm"),
     "spgemm": ("esc_expand", "block_spgemm"),
+    "ilu": ("trisweep", "dia"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -134,6 +157,8 @@ IR_TOL = 1e-4
 EPS_F32 = 2.0 ** -23
 U_F32 = 2.0 ** -24  # unit roundoff of float32
 K_RHS = 8
+ILU_TOL = 1e-6  # the unsymmetric ILU solves of part g
+TRISWEEP_SWEEPS = 4  # the kernel phase's sweep count (the reference's default)
 # H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak and dense
 # bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -738,8 +763,9 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
 def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, wall, step):
     """Log iterations, residuals, wall and device ms per iteration and the
     host's share of the wall time (``rec``, ``true_res``, ``bound_true``
-    relative to |b|, worst column for multi-RHS solves). ``step`` runs one
-    iteration of the solver's own step function, without its host read."""
+    relative to |b|, worst column for multi-RHS solves), and return them.
+    ``step`` runs one iteration of the solver's own step function, without
+    its host read."""
     dev_ms = device_ms_per_call(torch, step)
     it = max(iterations, 1)
     ms_it = wall * 1e3 / it
@@ -748,13 +774,16 @@ def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, w
         f"(f32 bound eps*cond={bound_true:.3e}) wall {wall:.3f} s, "
         f"{ms_it:.4f} ms/iter, device {dev_ms:.4f} ms/iter, "
         f"host share {max(0.0, 1 - dev_ms / ms_it):.3f}")
+    return dict(iterations=iterations, rec=rec, true_res=true_res, wall_s=wall,
+                ms_per_iter=ms_it, device_ms_per_iter=dev_ms)
 
 
-def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False):
+def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False, precond=None):
     """Run ``solve(b)``, check convergence and the true residual, print
     iterations, ms/iteration and the host's share of the wall time; the
     device time is that of ``cg_solve``'s iteration over ``op`` (of
-    ``cg_solve_ir``'s inner iteration where ``ir``)."""
+    ``cg_solve_ir``'s inner iteration where ``ir``, of ``pcg_solve``'s
+    with ``precond``). Returns the result and the logged numbers."""
     from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
     from sparse_matrix_tpu_torch.solvers import cg
 
@@ -776,18 +805,26 @@ def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False):
           and true_res <= bound_true)
     # device time of one iteration: the solver's step, with the host out of
     # the way (device_ms_per_call)
-    step_fn = cg._ir_inner_step if ir else cg._cg_step
-    state = (torch.zeros_like(b), b.clone(), b.clone(), torch.dot(b, b))
+    if precond is not None:
+        z = precond(b)
+        state = (torch.zeros_like(b), b.clone(), z, torch.dot(b, z))
 
-    def step():
-        nonlocal state
-        state = step_fn(op, *state)
+        def step():
+            nonlocal state
+            state = cg._pcg_step(op, precond, *state)[:4]
+    else:
+        step_fn = cg._ir_inner_step if ir else cg._cg_step
+        state = (torch.zeros_like(b), b.clone(), b.clone(), torch.dot(b, b))
 
-    _report_solve(torch, tag, op.format, tol, res.iterations, rec / bnorm, true_res / bnorm,
-                  bound_true / bnorm, wall, step)
+        def step():
+            nonlocal state
+            state = step_fn(op, *state)
+
+    nums = _report_solve(torch, tag, op.format, tol, res.iterations, rec / bnorm,
+                         true_res / bnorm, bound_true / bnorm, wall, step)
     if not ok:
         raise AssertionError(f"{tag}: CG did not converge within the bounds")
-    return res
+    return res, nums
 
 
 def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack, rhs_axis=1):
@@ -833,15 +870,16 @@ def solve_multi_and_check(torch, dev, tag, fmt, a, n, mv, pack, unpack, rhs_axis
                              f"(|r|/|b| {rec}, true {true_res})")
 
 
-def part_slice1(torch, dev, mats, ops):
+def part_slice1(torch, dev, mats, ops, state):
     from sparse_matrix_tpu_torch.entry import entry
     from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
     from sparse_matrix_tpu_torch.solvers.cg import cg_solve, cg_solve_ir
 
     a2 = mats["poisson2048"]
     op = ops["poisson2048"]
-    solve_and_check(torch, dev, "cg poisson2048 dia f32", a2, 2048,
-                    lambda b: cg_solve(op, b, tol=CG_TOL, maxiter=20000), op)
+    _, state["cg_poisson2048"] = solve_and_check(
+        torch, dev, "cg poisson2048 dia f32", a2, 2048,
+        lambda b: cg_solve(op, b, tol=CG_TOL, maxiter=20000), op)
 
     op_lo = SpmvOperator(a2, device=dev, values_dtype=torch.bfloat16)
     if op_lo.format != "dia":
@@ -1435,6 +1473,198 @@ def phase_esc_kernel(torch, dev, chk, mats, state):
     torch.cuda.empty_cache()
 
 
+def ilu_solve_and_check(torch, dev, tag, a, solve, *, setup_s=None):
+    """Run ``solve(b)`` (an unsymmetric solver on part g's system): the
+    recursive residual must reach ILU_TOL and the true residual, against
+    the float64 product, lie within 10 ILU_TOL |b| (the reference tests'
+    acceptance, tests/test_ilu.py:222); logs iterations, seconds and
+    ms/iteration."""
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+
+    b_np = np.random.default_rng(SEED).standard_normal(a.rows).astype(np.float32)
+    b = torch.from_numpy(b_np).to(dev)
+    res, wall = _timed(torch, lambda: solve(b))
+    x_np = res.x.double().cpu().numpy()
+    bnorm = float(np.linalg.norm(b_np.astype(np.float64)))
+    true_res = float(np.linalg.norm(b_np - spmv_f64_bound(a, x_np)[0])) / bnorm
+    rec = float(res.residual_norm) / bnorm
+    it = max(res.iterations, 1)
+    log(f"main {tag}: iterations={res.iterations} |r|/|b|={rec:.3e} true |b-Ax|/|b|="
+        f"{true_res:.3e} (limit {10 * ILU_TOL:g}) wall {wall:.3f} s, {wall * 1e3 / it:.4f} "
+        f"ms/iter" + ("" if setup_s is None else f", preconditioner setup {setup_s:.3f} s"))
+    if not (np.all(np.isfinite(x_np)) and rec <= ILU_TOL * (1 + 1e-6)
+            and true_res <= 10 * ILU_TOL):
+        raise AssertionError(f"{tag}: did not converge within the bounds")
+    return dict(iterations=res.iterations, rec=rec, true_res=true_res, wall_s=wall,
+                ms_per_iter=wall * 1e3 / it, setup_s=setup_s)
+
+
+def part_ilu(torch, dev, mats, ops, state):
+    """Part g: IC(0)-PCG on Poisson 2048^2 at sweeps 1, 2 and 4, fused and
+    in the loop form, and the ILU-preconditioned BiCGSTAB and GMRES on the
+    dominant femlike_262k system. Keeps the factors in ``state`` for the
+    trisweep kernel's checks."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers import bicgstab, gmres, ilu
+    from sparse_matrix_tpu_torch.solvers.cg import pcg_solve
+
+    a2 = mats["poisson2048"]
+    op = ops["poisson2048"]
+    t0 = time.perf_counter()
+    lc = ilu.ic0(a2)
+    ic_s = time.perf_counter() - t0
+    log(f"main ic0 poisson2048: rows={a2.rows} nnz(L)={lc.nnz()} {ic_s:.3f} s (host library)")
+    rec = state.setdefault("ilu", {"ic0_s": ic_s, "ic_pcg": []})
+    base = state["cg_poisson2048"]
+    for sweeps in (1, 2, 4):
+        for fused in (True, None):
+            form = "fused" if fused else "loop"
+            t0 = time.perf_counter()
+            m_inv = ilu.ic_preconditioner(a2, device=dev, sweeps=sweeps, fused=fused)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            _, nums = solve_and_check(
+                torch, dev, f"ic_pcg poisson2048 sweeps={sweeps} {form}", a2, 2048,
+                lambda b, m_inv=m_inv: pcg_solve(op, b, m_inv, tol=CG_TOL, maxiter=20000),
+                op, precond=m_inv)
+            nums.update(sweeps=sweeps, form=form, setup_s=setup_s)
+            rec["ic_pcg"].append(nums)
+            log(f"main ic_pcg poisson2048 sweeps={sweeps} {form}: preconditioner setup "
+                f"{setup_s:.3f} s; against plain CG ({base['iterations']} iterations, "
+                f"{base['wall_s']:.3f} s): iterations x{nums['iterations'] / base['iterations']:.3f}"
+                f", wall x{nums['wall_s'] / base['wall_s']:.3f}, device ms/iter "
+                f"x{nums['device_ms_per_iter'] / base['device_ms_per_iter']:.3f}")
+            del m_inv
+    state["ic_factor"] = lc
+
+    fem = mats["femlike_dominant"]
+    opf = SpmvOperator(fem, device=dev)
+    t0 = time.perf_counter()
+    f = ilu.ilu0(fem)
+    ilu_s = time.perf_counter() - t0
+    log(f"main ilu0 femlike_262k dominant: format={opf.format} nnz(L)={f.l.nnz()} "
+        f"nnz(U)={f.u.nnz()} {ilu_s:.3f} s (host library)")
+    rec["ilu0_s"] = ilu_s
+    state["ilu_factors"] = f
+    t0 = time.perf_counter()
+    m_ilu = ilu.ilu_preconditioner(fem, device=dev, fused=True)
+    torch.cuda.synchronize()
+    ilu_setup = time.perf_counter() - t0
+    runs = rec.setdefault("unsymmetric", {})
+    for name, solve in (
+        ("bicgstab", lambda b, m=None: bicgstab.bicgstab_solve(opf, b, tol=ILU_TOL,
+                                                               maxiter=2000, m_inv=m)),
+        ("gmres30", lambda b, m=None: gmres.gmres_solve(opf, b, restart=30, tol=ILU_TOL,
+                                                        maxiter=6000, m_inv=m)),
+    ):
+        runs[name] = ilu_solve_and_check(torch, dev, f"{name} femlike_262k dominant", fem,
+                                         solve)
+        runs[name + "_ilu0_fused"] = ilu_solve_and_check(
+            torch, dev, f"{name} + ilu_preconditioner(fused) femlike_262k dominant", fem,
+            lambda b, solve=solve: solve(b, m_ilu), setup_s=ilu_setup)
+    t0 = time.perf_counter()
+    m_ilut = ilu.ilut_preconditioner(fem, device=dev)
+    torch.cuda.synchronize()
+    runs["bicgstab_ilut"] = ilu_solve_and_check(
+        torch, dev, "bicgstab + ilut_preconditioner femlike_262k dominant", fem,
+        lambda b: bicgstab.bicgstab_solve(opf, b, tol=ILU_TOL, maxiter=2000, m_inv=m_ilut),
+        setup_s=time.perf_counter() - t0)
+    del m_ilu, m_ilut
+    torch.cuda.empty_cache()
+
+
+def phase_trisweep_kernel(torch, dev, chk, state):
+    """The trisweep kernel (B13) at TRISWEEP_SWEEPS sweeps on part g's
+    factors: bit-equal to its plain version on the card, within the
+    float64 running bound, timed beside the plain version and the loop
+    form; then the nilpotency check on Poisson 64^2."""
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+    from sparse_matrix_tpu_torch.solvers import ilu
+    from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr
+
+    lc, f = state.pop("ic_factor"), state.pop("ilu_factors")
+    rng = np.random.default_rng(SEED + 7)
+    s = TRISWEEP_SWEEPS
+    for case, t in (("poisson2048_L", lc), ("poisson2048_LT", lc.transpose()),
+                    ("femlike_262k_L", f.l), ("femlike_262k_U", f.u)):
+        sj = ilu.TriangularJacobi(t, device=dev, sweeps=s, fused=True)
+        # the loop form of the same factor (its planned N and dinv), without
+        # planning the operator again
+        loop = copy.copy(sj)
+        loop._fused = None
+        plan, dinv = sj._fused, sj.dinv
+        b = torch.from_numpy(rng.standard_normal(t.rows).astype(np.float32)).to(dev)
+
+        def kernel(plan=plan, b=b, dinv=dinv):
+            return tw.trisweep(plan, b, dinv, sweeps=s)
+
+        def plain(plan=plan, b=b, dinv=dinv):
+            return tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets,
+                                      rows=plan.rows, sweeps=s)
+
+        yk, yp = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(yk, yp):
+            raise AssertionError(f"trisweep/{case}: kernel and plain version differ")
+        x64, bound = tw.trisweep_f64_bound(plan, b, dinv, sweeps=s)
+        err = (yk.double() - x64).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"trisweep/{case}: off the float64 running bound")
+        ratio = float((err / bound.clamp(min=1e-300)).max())
+        del x64, bound, err
+        ms = cuda_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, plain)
+        loop_ms = cuda_ms(torch, lambda loop=loop, b=b: loop(b))
+        # the exact solve of T x = b by one library call (cuSPARSE through
+        # torch.triangular_solve on a CSR tensor): a second yardstick
+        upper = case.endswith(("_LT", "_U"))
+        t_csr = library_csr(torch, t, dev)
+
+        def exact(t_csr=t_csr, b=b, upper=upper):
+            return torch.triangular_solve(b[:, None], t_csr, upper=upper).solution
+
+        x_exact = exact()[:, 0].double().cpu().numpy()
+        x_host = ilu.trisolve_host(t, b.double().cpu().numpy(), lower=not upper)
+        exact_err = float(np.linalg.norm(x_exact - x_host) / np.linalg.norm(x_host))
+        if not exact_err <= 1e-4:
+            raise AssertionError(f"trisweep/{case}: the library's exact solve is off by "
+                                 f"{exact_err:.3e}")
+        exact_ms = cuda_ms(torch, exact, reps=10, warmup=2)
+        del t_csr
+        nb, rows = len(plan.offsets), plan.rows
+        nbytes = nb * rows * 4 + nb * 4 + 3 * rows * 4
+        flops = float((s * (2 * nb + 2) + 1) * rows)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        row = dict(case=case, rows=rows, nb=nb, sweeps=s, max_abs_err=float((yk - yp).abs().max()),
+                   max_err_over_bound=ratio, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   yardstick_ms=loop_ms,
+                   yardstick="the loop form TriangularJacobi.__call__ (1 + sweeps DIA SpMV "
+                             "launches and their elementwise updates; no single PyTorch call)",
+                   exact_solve_ms=exact_ms, exact_solve_rel_err=exact_err,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=int(nbytes), flops=flops)
+        chk.cases["trisweep"].append(row)
+        log(f"kernel trisweep     {case:34s} rows={rows} nb={nb} sweeps={s} bit-equal to plain, "
+            f"max err/bound={ratio:.3f} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, loop form "
+            f"{loop_ms:.4f} ms, exact solve (torch.triangular_solve, CSR) {exact_ms:.4f} ms "
+            f"(rel err {exact_err:.2e}), bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; "
+            f"{flops:.4g} flop / 67 TFLOP/s), {ms / row['bound_ms']:.2f}x the bound")
+        del sj, loop, yk, yp
+    torch.cuda.empty_cache()
+
+    # nilpotency: depth(L) - 1 sweeps are the exact solve
+    l64 = ilu.ic0(poisson_2d_csr(64, dtype=np.float32))
+    sj = ilu.TriangularJacobi(l64, device=dev, sweeps=2 * 64 - 2, fused=True)
+    b_np = rng.standard_normal(l64.rows).astype(np.float32)
+    x = sj(torch.from_numpy(b_np).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(x, ilu.trisolve_host(l64, b_np.astype(np.float64), lower=True),
+                               rtol=2e-4, atol=2e-5)
+    log(f"kernel trisweep     poisson64_L sweeps={sj.sweeps}: equal to the exact host solve "
+        f"(rtol 2e-4, atol 2e-5)")
+
+
 def plan_operators(dev, mats):
     """The main path's operators, planned on the host with their times;
     the three classes must take the reference's formats."""
@@ -1476,9 +1706,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
 
-    from sparse_matrix_tpu_torch.bench.corpus import bench_classes, blocked, random_uniform
+    from sparse_matrix_tpu_torch.bench.corpus import (
+        bench_classes,
+        blocked,
+        random_uniform,
+        with_dominant_diagonal,
+    )
     from sparse_matrix_tpu_torch.device import require_device
-    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.native import host, kernels
     from sparse_matrix_tpu_torch.native.build import build
     from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr
 
@@ -1495,6 +1730,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build(verbose=True)
     log(f"build {lib}: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lib = host.build()
+    log(f"build {lib} (g++): {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     mats = {f"poisson{n}": poisson_2d_csr(n, dtype=np.float32) for n in (512, 1024, 2048)}
@@ -1508,6 +1746,8 @@ def main() -> int:
     mats["blocked2048"] = blocked(np.random.default_rng(SEED), 2048, 64, 0.05)
     # the hyper-sparse SpGEMM cell
     mats["uniform16384"] = random_uniform(np.random.default_rng(SEED), 16384, 0.00015)
+    # part g's unsymmetric system
+    mats["femlike_dominant"] = _f32(with_dominant_diagonal(mats["femlike_262k"]))
     log(f"matrices: {time.perf_counter() - t0:.2f} s")
     ops = plan_operators(dev, mats)
 
@@ -1517,11 +1757,12 @@ def main() -> int:
 
     counts = {k: 0 for k in REPLACES}
     state = {"esc": {}}
-    for part, fn in (("slice1", part_slice1), ("classes", part_classes),
+    for part, fn in (("slice1", lambda *a: part_slice1(*a, state)), ("classes", part_classes),
                      ("multi_rhs", part_multi_rhs),
                      ("general_multi_rhs", part_general_multi_rhs),
                      ("block_sparse", part_block_sparse),
-                     ("spgemm", lambda *a: part_spgemm(*a, state))):
+                     ("spgemm", lambda *a: part_spgemm(*a, state)),
+                     ("ilu", lambda *a: part_ilu(*a, state))):
         kernels.reset_launch_counts()
         fn(torch, dev, mats, ops)
         torch.cuda.synchronize()
@@ -1535,6 +1776,8 @@ def main() -> int:
     log(f"launch counts (main path): {counts}")
     phase_esc_kernel(torch, dev, chk, mats, state)
     log(f"spgemm record: {json.dumps({k: state[k] for k in ('engine_s', 'esc_rows', 'hyper_sparse')})}")
+    phase_trisweep_kernel(torch, dev, chk, state)
+    log(f"ilu record: {json.dumps(state['ilu'])}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

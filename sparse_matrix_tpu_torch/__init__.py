@@ -2,15 +2,17 @@
 
 The package imports nothing of the JAX package: it keeps its own numpy
 copies of the host planners (``formats/``, ``utils/autotune.py``; the
-reference's native C++ runtime is not copied) and rebuilds the device side
-for an NVIDIA Hopper GPU. Its modules mirror the reference's names:
+reference's native C++ runtime is not copied, apart from the three
+routines of the incomplete factorizations) and rebuilds the device side for
+an NVIDIA Hopper GPU. Its modules mirror the reference's names:
 
     device.py           require_device, default_device (the device of
                         A @ B); CPU tensors take plain versions
     formats/            CsrMatrix and the DIA, LanePack, aligned, BELL,
                         stripe and BCSR planners (numpy), DeviceCsr
     utils/autotune.py   the dispatch cost-model constants
-    native/             nvcc build and ctypes bindings of csrc/*.cu
+    native/             nvcc build and ctypes bindings of csrc/*.cu; the
+                        host runtime (native/src/spmx_host.cpp, g++)
     ops/spmv_dia.py     DIA SpMV and SpMM (csrc/spmv_dia.cu,
                         csrc/spmm_dia.cu)
     ops/spmv.py         LanePack, aligned, stripe (csrc/spmv_lanepack.cu,
@@ -24,7 +26,11 @@ for an NVIDIA Hopper GPU. Its modules mirror the reference's names:
                         selection-matrix SpMV engines, spgemm_auto
     ops/esc_expand.py   ESC expansion plan and kernel (csrc/esc_expand.cu)
     ops/device_sorted.py  EscSpgemm, device transpose, add and sub
+    ops/trisweep.py     fused triangular Jacobi sweeps (csrc/trisweep.cu)
     solvers/cg.py       CG, PCG, mixed-precision CG, multi-RHS CG and PCG
+    solvers/ilu.py      ILU(0), IC(0), ILUT (host), TriangularJacobi and
+                        the ILU/IC preconditioners, IC-PCG
+    solvers/bicgstab.py, solvers/gmres.py  BiCGSTAB and GMRES(m)
     solvers/poisson.py  the 2-D Poisson model problem
     bench/corpus.py     the bench's 262k-row matrix classes
     entry.py            one CG step through the aligned kernel
@@ -63,6 +69,20 @@ _EXPORTS = {
     "pcg_solve_multi": "solvers.cg",
     "CsrMatrix": "formats.csr",
     "jacobi_preconditioner": "solvers.cg",
+    "bicgstab_solve": "solvers.bicgstab",
+    "gmres_solve": "solvers.gmres",
+    "IluFactors": "solvers.ilu",
+    "ilu0": "solvers.ilu",
+    "ic0": "solvers.ilu",
+    "ilut": "solvers.ilu",
+    "trisolve_host": "solvers.ilu",
+    "TriangularJacobi": "solvers.ilu",
+    "ilu_preconditioner": "solvers.ilu",
+    "ic_preconditioner": "solvers.ilu",
+    "ilut_preconditioner": "solvers.ilu",
+    "ic_pcg_solve": "solvers.ilu",
+    "save_ilu_factors": "solvers.ilu",
+    "load_ilu_factors": "solvers.ilu",
     "poisson_2d_csr": "solvers.poisson",
 }
 

@@ -2,6 +2,8 @@
 
 Copies of five generators of ``sparse_matrix_tpu/bench/corpus.py``. The
 same ``numpy.random.Generator`` state gives the same matrices.
+:func:`with_dominant_diagonal` makes the unsymmetric systems of the ILU
+path from any of them.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import numpy as np
 from ..formats.csr import CsrMatrix
 
 __all__ = ["random_uniform", "power_law_rows", "blocked", "random_local", "fem_like",
-           "bench_classes"]
+           "bench_classes", "with_dominant_diagonal"]
 
 
 def random_uniform(rng, n, density) -> CsrMatrix:
@@ -82,3 +84,19 @@ def bench_classes(seed: int = 0):
         ("randlocal_262k", "scatter", random_local(rng, 1 << 18, 16, 4096)),
         ("powerlaw_262k", "skew", power_law_rows(rng, 1 << 18, 16)),
     ]
+
+
+def with_dominant_diagonal(m: CsrMatrix, shift: float = 2.0) -> CsrMatrix:
+    """``m``'s pattern and values with every diagonal entry (added where
+    the pattern lacks it) set to its row's absolute sum plus ``shift``: the
+    reference tests' strictly diagonally dominant unsymmetric system
+    (``np.fill_diagonal(d, np.abs(d).sum(axis=1) + shift)``,
+    ``tests/test_ilu.py``)."""
+    r = m.row_ids()
+    c = m.indices.astype(np.int64)
+    diag = np.abs(m.vals).astype(np.float64)
+    diag = np.bincount(r, weights=diag, minlength=m.rows) + shift
+    off = r != c
+    ar = np.arange(m.rows, dtype=np.int64)
+    return CsrMatrix.from_coo(m.rows, m.cols, np.r_[r[off], ar], np.r_[c[off], ar],
+                              np.r_[m.vals[off], diag.astype(m.vals.dtype)])

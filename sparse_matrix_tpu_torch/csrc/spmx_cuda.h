@@ -128,3 +128,13 @@ SPMX_API int spmx_esc_expand(int device, const float* lv, int64_t n_lv,
                              const int32_t* lv_off, const int32_t* rv_off,
                              int64_t num_products, int64_t num_slots, float* p,
                              void* stream);
+
+// fused banded triangular Jacobi sweeps, one cooperative launch:
+// x_0 = dinv * b, x_{k+1} = dinv * (b - N x_k) for k < sweeps, y = x_sweeps,
+// with N x = sum_b data[b, i] * x[i + offsets[b]] (x outside [0, rows) reads
+// 0); data (nb, rows); scratch (rows,) is a second iterate buffer; y and
+// scratch must not alias b, dinv or each other
+SPMX_API int spmx_trisweep(int device, const float* data,
+                           const int32_t* offsets, int nb, int64_t rows,
+                           const float* b, const float* dinv, int sweeps,
+                           float* scratch, float* y, void* stream);

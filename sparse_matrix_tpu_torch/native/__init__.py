@@ -1,3 +1,5 @@
-"""CUDA kernel library of the port: ``build`` compiles ``csrc/*.cu`` with
-nvcc, ``kernels`` binds the result with ctypes and counts launches. Neither
-is imported by the package until a kernel is launched."""
+"""Native libraries of the port: ``build`` compiles ``csrc/*.cu`` with
+nvcc and ``kernels`` binds the result with ctypes and counts launches;
+``host`` compiles ``src/spmx_host.cpp`` (the factorizations of
+``solvers/ilu.py``) with g++ and binds it. Nothing is built or loaded until
+first use."""

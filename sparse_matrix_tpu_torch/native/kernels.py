@@ -31,10 +31,12 @@ __all__ = [
     "launch_bcsr_spmm",
     "launch_block_spgemm",
     "launch_esc_expand",
+    "launch_trisweep",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
-           "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand")
+           "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand",
+           "trisweep")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -94,6 +96,8 @@ def _library() -> ctypes.CDLL:
         lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, vp, vp, i64, i32, vp, vp]
         lib.spmx_esc_expand.restype = i32
         lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
+        lib.spmx_trisweep.restype = i32
+        lib.spmx_trisweep.argtypes = [i32, vp, vp, i32, i64, vp, vp, i32, vp, vp, vp]
         _LIB = lib
     return _LIB
 
@@ -406,3 +410,26 @@ def launch_esc_expand(lv, rv, lv_lane, rv_lane, lv_off, rv_off, p, *, num_produc
     _run("esc_expand", dev, _library().spmx_esc_expand, lv.data_ptr(), lv.numel(),
          rv.data_ptr(), rv.numel(), lv_lane.data_ptr(), rv_lane.data_ptr(),
          lv_off.data_ptr(), rv_off.data_ptr(), num_products, slots, p.data_ptr())
+
+
+def launch_trisweep(data, offsets, b, dinv, scratch, y, *, sweeps: int) -> None:
+    """``y = x_sweeps`` of the Jacobi sweeps ``x_0 = dinv * b``, ``x_{k+1} =
+    dinv * (b - N x_k)`` with ``N = DIA(data, offsets)`` (data ``(nb,
+    rows)``), all in one cooperative launch; ``scratch`` ``(rows,)`` holds
+    every other iterate. y and scratch must be distinct from b, dinv and
+    each other."""
+    dev = _check("trisweep",
+                 dict(data=_F32, offsets=torch.int32, b=_F32, dinv=_F32, scratch=_F32, y=_F32),
+                 data=data, offsets=offsets, b=b, dinv=dinv, scratch=scratch, y=y)
+    nb, rows = offsets.numel(), b.numel()
+    if data.shape != (nb, rows) or any(t.numel() != rows for t in (dinv, scratch, y)):
+        raise ValueError("trisweep: shapes disagree with (nb, rows)")
+    if len({b.data_ptr(), dinv.data_ptr(), scratch.data_ptr(), y.data_ptr()}) < 4:
+        raise ValueError("trisweep: y and scratch must not alias b, dinv or each other")
+    if not 0 <= sweeps < 2 ** 31:
+        raise ValueError("trisweep: sweeps must be in [0, 2^31)")
+    if rows == 0:
+        return
+    _run("trisweep", dev, _library().spmx_trisweep, data.data_ptr(), offsets.data_ptr(),
+         nb, rows, b.data_ptr(), dinv.data_ptr(), int(sweeps), scratch.data_ptr(),
+         y.data_ptr())

@@ -1,2 +1,7 @@
-"""Solvers of the port: CG family (``cg``) and the Poisson model problem
-(``poisson``). Import the submodules directly."""
+"""Solvers of the port: the CG family (``cg``), BiCGSTAB (``bicgstab``),
+restarted GMRES (``gmres``), the incomplete factorizations and their
+preconditioners (``ilu``: ``ilu0``, ``ic0``, ``ilut``, ``TriangularJacobi``,
+``ilu_preconditioner``, ``ic_preconditioner``, ``ilut_preconditioner``,
+``ic_pcg_solve``, ``trisolve_host``, ``save_ilu_factors``,
+``load_ilu_factors``) and the Poisson model problem (``poisson``). Import
+the submodules directly, or the names from the package."""

@@ -180,17 +180,22 @@ def pcg_solve(
     tol2 = _tol2(tol, torch.dot(b, b))
     k = 0
     while k < maxiter and float(rr) > tol2:
-        ap = matvec(p)
-        alpha = rz / torch.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = torch.dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        rr = torch.dot(r, r)
+        x, r, p, rz, rr = _pcg_step(matvec, precond, x, r, p, rz)
         k += 1
     return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
+
+
+def _pcg_step(matvec, precond, x, r, p, rz):
+    """One iteration of :func:`pcg_solve` (its device work; the stopping
+    test's host read stays in the loop): the next ``(x, r, p, rz, rr)``."""
+    ap = matvec(p)
+    alpha = rz / torch.dot(p, ap)
+    x = x + alpha * p
+    r = r - alpha * ap
+    z = precond(r)
+    rz_new = torch.dot(r, z)
+    p = z + (rz_new / rz) * p
+    return x, r, p, rz_new, torch.dot(r, r)
 
 
 def _rhs_layout(b: torch.Tensor, rhs_axis: int):

@@ -559,3 +559,107 @@ def test_spgemm_auto_on_card_takes_band_convolution(dev, monkeypatch):
     c = spgemm_block.spgemm_auto(a, a, device=dev)
     assert called and called[0].type == "cuda"
     _spgemm_bounded(a, a, c)
+
+
+def _trisweep_case(case):
+    """A triangular factor: L or L^T of Poisson 48^2's IC(0), or L or U of
+    the ILU(0) of a dominant fem-like matrix (1,600 rows, 10 bands)."""
+    from sparse_matrix_tpu_torch.solvers import ilu
+
+    if case.startswith("poisson"):
+        lc = ilu.ic0(poisson_2d_csr(48, dtype=np.float32))
+        return lc if case == "poisson_L" else lc.transpose()
+    m = corpus.with_dominant_diagonal(_f32(corpus.fem_like(np.random.default_rng(16), 40, 2)))
+    f = ilu.ilu0(m)
+    return f.l if case == "fem_L" else f.u
+
+
+def _trisweep_inputs(t, dev, seed=17):
+    """(plan, b, dinv) of the fused solve on ``t`` on ``dev``."""
+    from sparse_matrix_tpu_torch.solvers.ilu import TriangularJacobi
+
+    sj = TriangularJacobi(t, device=dev, fused=True)
+    assert sj._fused is not None
+    b = torch.from_numpy(np.random.default_rng(seed).standard_normal(t.rows).astype(np.float32))
+    return sj._fused, b.to(dev), sj.dinv
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 4, 7])
+@pytest.mark.parametrize("case", ["poisson_L", "poisson_LT", "fem_L", "fem_U"])
+def test_trisweep_kernel(dev, case, sweeps):
+    """Bit-equal to the plain version on the card and to the CPU, one
+    launch per solve, within the float64 running bound."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+
+    plan, b, dinv = _trisweep_inputs(_trisweep_case(case), dev)
+    before = kernels.launch_counts["trisweep"]
+    y = tw.trisweep(plan, b, dinv, sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["trisweep"] == before + 1
+    plain = tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets, rows=plan.rows,
+                               sweeps=sweeps)
+    assert torch.equal(y, plain)
+    cpu = tw._trisweep_torch(plan.data.cpu(), b.cpu(), dinv.cpu(), offsets=plan.offsets,
+                             rows=plan.rows, sweeps=sweeps)
+    assert torch.equal(y.cpu(), cpu)
+    x64, bound = tw.trisweep_f64_bound(plan, b, dinv, sweeps=sweeps)
+    assert bool(((y.double() - x64).abs() <= bound).all())
+
+
+def test_trisweep_kernel_exact_after_depth_sweeps(dev):
+    """Nilpotency on Poisson 64^2's IC(0) factor: depth(L) - 1 = 126 sweeps
+    reproduce the exact host solve (rtol 2e-4, atol 2e-5, as
+    tests/test_ilu.py)."""
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+    from sparse_matrix_tpu_torch.solvers import ilu
+
+    lc = ilu.ic0(poisson_2d_csr(64, dtype=np.float32))
+    plan, b, dinv = _trisweep_inputs(lc, dev)
+    x = tw.trisweep(plan, b, dinv, sweeps=126).cpu().numpy()
+    want = ilu.trisolve_host(lc, b.cpu().numpy().astype(np.float64), lower=True)
+    np.testing.assert_allclose(x, want, rtol=2e-4, atol=2e-5)
+
+
+def test_trisweep_kernel_zero_rhs(dev):
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+
+    plan, b, dinv = _trisweep_inputs(_trisweep_case("fem_U"), dev)
+    y = tw.trisweep(plan, torch.zeros_like(b), dinv, sweeps=4)
+    assert y.shape == b.shape and not bool(y.any())
+
+
+@pytest.mark.parametrize("solver", ["ic_pcg", "bicgstab", "gmres"])
+def test_ilu_solvers_on_card_match_cpu(dev, solver):
+    """The ILU path on the card against the CPU run: iterations within +-2,
+    ``|x_gpu - x_cpu| <= 1e-4 |x_cpu|`` (the DIA SpMV kernel may round
+    differently from the plain version)."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers import bicgstab, cg, gmres, ilu
+
+    if solver == "ic_pcg":
+        a = poisson_2d_csr(48, dtype=np.float32)
+        make = ilu.ic_preconditioner
+    else:
+        a = corpus.with_dominant_diagonal(_f32(corpus.fem_like(np.random.default_rng(16), 40, 2)))
+        make = ilu.ilu_preconditioner
+    b = torch.from_numpy(np.random.default_rng(18).standard_normal(a.rows).astype(np.float32))
+    out = {}
+    for d in (dev, "cpu"):
+        op = SpmvOperator(a, device=d)
+        m_inv = make(a, device=d, sweeps=3, fused=True)
+        before = kernels.launch_counts["trisweep"]
+        if solver == "ic_pcg":
+            res = cg.pcg_solve(op, b.to(d), m_inv, tol=1e-5, maxiter=2000)
+        elif solver == "bicgstab":
+            res = bicgstab.bicgstab_solve(op, b.to(d), m_inv=m_inv, tol=1e-6, maxiter=500)
+        else:
+            res = gmres.gmres_solve(op, b.to(d), m_inv=m_inv, restart=10, tol=1e-6,
+                                    maxiter=500)
+        assert (kernels.launch_counts["trisweep"] > before) == (d == dev)
+        out[str(d)] = res
+    gpu, cpu = out[str(dev)], out["cpu"]
+    assert abs(gpu.iterations - cpu.iterations) <= 2
+    x, xc = gpu.x.cpu().double(), cpu.x.double()
+    assert float(torch.linalg.norm(x - xc)) <= 1e-4 * float(torch.linalg.norm(xc))

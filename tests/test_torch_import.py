@@ -2,7 +2,8 @@
 
 * With every ``jax*`` import and the JAX package ``sparse_matrix_tpu``
   itself blocked, the port imports every module and chip_smoke.py, plans a
-  Poisson 32^2 operator on the CPU and runs three CG iterations, squares
+  Poisson 32^2 operator on the CPU and runs three CG iterations and three
+  IC-PCG iterations (the host factorization library included), squares
   a small matrix with ``BlockSpgemm`` and with ``EscSpgemm``, and, with
   the default device set to the CPU, with ``A @ A``; importing the
   package itself loads neither torch nor the CUDA toolchain.
@@ -69,6 +70,8 @@ op = spt.SpmvOperator(a, device="cpu")
 b = torch.from_numpy(np.random.default_rng(0).standard_normal(a.rows).astype(np.float32))
 res = spt.cg_solve(op, b, maxiter=3)
 assert res.iterations == 3 and bool(torch.isfinite(res.x).all())
+ic = spt.ic_pcg_solve(a, b, device="cpu", maxiter=3)
+assert ic.iterations == 3 and bool(torch.isfinite(ic.x).all())
 c = spgemm_block.BlockSpgemm(a, a, device="cpu", bs=64).multiply()
 want = a.to_dense() @ a.to_dense()
 assert c.nnz() == np.count_nonzero(want) and np.allclose(c.to_dense(), want)
@@ -159,7 +162,7 @@ def test_cuda_device_without_gpu_raises():
 @pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell", "stripe",
                                     "dia_spmm", "aligned_spmm", "lanepack_spmm",
                                     "bell_spmm", "bcsr_spmm", "block_spgemm",
-                                    "esc_expand"])
+                                    "esc_expand", "trisweep"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     from sparse_matrix_tpu_torch.native import kernels
 
@@ -190,6 +193,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                             i32.repeat(2), blk),
         "esc_expand": lambda: kernels.launch_esc_expand(f32, f32, i16, i16, i32, i32,
                                                         torch.zeros(1024), num_products=5),
+        "trisweep": lambda: kernels.launch_trisweep(f32[None], i32, f32, f32.clone(),
+                                                    f32.clone(), f32.clone(), sweeps=2),
     }
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="needs CUDA"):
