@@ -3,7 +3,8 @@
 Copies of five generators of ``sparse_matrix_tpu/bench/corpus.py``. The
 same ``numpy.random.Generator`` state gives the same matrices.
 :func:`with_dominant_diagonal` makes the unsymmetric systems of the ILU
-path from any of them.
+path from any of them; :func:`dense_block_tridiagonal` is the block
+kernels' dense-block case.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 from ..formats.csr import CsrMatrix
 
 __all__ = ["random_uniform", "power_law_rows", "blocked", "random_local", "fem_like",
-           "bench_classes", "with_dominant_diagonal"]
+           "bench_classes", "with_dominant_diagonal", "dense_block_tridiagonal"]
 
 
 def random_uniform(rng, n, density) -> CsrMatrix:
@@ -42,6 +43,23 @@ def blocked(rng, n, block, density_in_block) -> CsrMatrix:
     return CsrMatrix.from_coo(
         n, n, np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
     )
+
+
+def dense_block_tridiagonal(rng, n, block) -> CsrMatrix:
+    """Block-tridiagonal with every entry of its ``block x block`` tiles
+    stored (random normal float32 values): the block kernels' dense-block
+    case, where every depth index of every block product is live."""
+    nb = n // block
+    bi = np.repeat(np.arange(nb), 3)
+    bj = bi + np.tile([-1, 0, 1], nb)
+    keep = (bj >= 0) & (bj < nb)
+    bi, bj = bi[keep], bj[keep]
+    r = (bi[:, None] * block + np.arange(block)[None, :])[:, :, None]
+    c = (bj[:, None] * block + np.arange(block)[None, :])[:, None, :]
+    rows = np.broadcast_to(r, (bi.size, block, block)).ravel()
+    cols = np.broadcast_to(c, (bi.size, block, block)).ravel()
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return CsrMatrix.from_coo(n, n, rows, cols, vals)
 
 
 def power_law_rows(rng, n, avg_nnz, alpha: float = 1.5) -> CsrMatrix:

@@ -99,24 +99,41 @@ SPMX_API int spmx_bell_spmm(int device, const void* vals, int values_bf16,
                             int64_t cols, int k, const float* x3, float* y3,
                             void* stream);
 
-// BCSR SpMM: y[br*bs + i, n] = sum_{p in block row br} sum_j
-// blocks[p, i, j] * x[block_cols[p]*bs + j, n]; x (bcols*bs, f), y (brows*bs, f)
-// row-major, f a multiple of 128, bs a multiple of 16 in [16, 128]; every
-// element of y is written (block rows with no block get 0)
-SPMX_API int spmx_bcsr_spmm(int device, const float* blocks,
-                            const int32_t* block_cols,
-                            const int32_t* block_offsets, int64_t brows, int bs,
-                            int64_t f, const float* x, float* y, void* stream);
+// the output tile edge of the two block kernels (64): their live-depth
+// streams hold one segment per output tile
+SPMX_API int spmx_block_tile(void);
 
-// block SpGEMM numeric phase: c[q] = sum_{p in [seg[q], seg[q+1])}
-// a_blocks[pair_a[p]] @ b_blocks[pair_b[p]] (bs x bs each, f32 or bf16 bits
-// for blocks_bf16 = 1; c f32), summed in pair order in FP32; every element of
-// c (num_c, bs, bs) is written
-SPMX_API int spmx_block_spgemm(int device, const void* a_blocks,
+// BCSR SpMM: y[br*bs + i, n] = sum_{p in block row br} sum_k
+// blocks_t[p, k, i] * x[block_cols[p]*bs + k, n] (blocks_t the transposed
+// blocks, (nnzb, bs, bs) f32, 16-byte aligned like x); x (bcols*bs, f),
+// y (brows*bs, f) row-major (y 8-byte aligned), f a multiple of 128, bs a
+// multiple of 16 in [16, 128]. When the device float *x_sum (the sum of
+// x's elements) is finite, x holds no inf or NaN and only the live-depth
+// stream is walked: for rows
+// [64 t, 64 t + 64) of block row br, rows [stream_offsets[s],
+// stream_offsets[s+1]) of stream (stream_len, 2) int32 pairs (blocks_t row,
+// x row), s = br * ceil(bs / 64) + t; else every column of every block.
+// Summed in f64 on the FP64 tensor cores, rounded to f32 once; every
+// element of y is written (block rows with no block get 0)
+SPMX_API int spmx_bcsr_spmm(int device, const float* blocks_t,
+                            const int32_t* block_cols,
+                            const int32_t* block_offsets, const int32_t* stream,
+                            int64_t stream_len, const int32_t* stream_offsets,
+                            const float* x_sum, int64_t brows, int bs,
+                            int64_t f, const float* x, float* y, void* stream_handle);
+
+// block SpGEMM numeric phase over the live-depth stream: 64 x 64 tile
+// (tm, tn) of c[q] = sum_{e in [offsets[s], offsets[s+1])} outer(a_blocks_t
+// row ia(e), b_blocks row ib(e)) on that tile, s = (q * tiles + tm) * tiles
+// + tn, tiles = ceil(bs / 64); stream (stream_len, 2) int32 pairs (ia, ib) of rows of
+// the transposed A blocks and of the B blocks (bs x bs each, f32 or bf16
+// bits for blocks_bf16 = 1, 16-byte aligned; c 8-byte aligned); summed in f64 on the FP64 tensor cores and
+// rounded to f32 once; every element of c (num_c, bs, bs) is written
+SPMX_API int spmx_block_spgemm(int device, const void* a_blocks_t,
                                const void* b_blocks, int blocks_bf16,
-                               const int32_t* pair_a, const int32_t* pair_b,
-                               const int32_t* seg, int64_t num_c, int bs,
-                               float* c, void* stream);
+                               const int32_t* stream, int64_t stream_len,
+                               const int32_t* offsets, int64_t num_c, int bs,
+                               float* c, void* stream_handle);
 
 // ESC k-major expansion, per slot s of chunk c = s >> 7:
 // p[s] = lv[lv_off[c]*128 + lv_lane[s]] * rv[rv_off[c]*128 + rv_lane[s]] for

@@ -19,6 +19,7 @@ import torch
 __all__ = [
     "launch_counts",
     "reset_launch_counts",
+    "BLOCK_TILE",
     "launch_dia",
     "launch_aligned",
     "launch_lanepack",
@@ -42,6 +43,11 @@ KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
+
+#: the output tile edge of the block kernels (kTile of csrc/block_tile.h,
+#: checked against the library's ``spmx_block_tile`` when it loads): their
+#: live-depth streams have one segment per output tile
+BLOCK_TILE = 64
 
 
 def reset_launch_counts() -> None:
@@ -91,13 +97,20 @@ def _library() -> ctypes.CDLL:
             i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i32, vp, vp, vp,
         ]
         lib.spmx_bcsr_spmm.restype = i32
-        lib.spmx_bcsr_spmm.argtypes = [i32, vp, vp, vp, i64, i32, i64, vp, vp, vp]
+        lib.spmx_bcsr_spmm.argtypes = [
+            i32, vp, vp, vp, vp, i64, vp, vp, i64, i32, i64, vp, vp, vp,
+        ]
         lib.spmx_block_spgemm.restype = i32
-        lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, vp, vp, i64, i32, vp, vp]
+        lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, i32, vp, vp]
         lib.spmx_esc_expand.restype = i32
         lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
         lib.spmx_trisweep.restype = i32
         lib.spmx_trisweep.argtypes = [i32, vp, vp, i32, i64, vp, vp, i32, vp, vp, vp]
+        lib.spmx_block_tile.restype = i32
+        lib.spmx_block_tile.argtypes = []
+        if lib.spmx_block_tile() != BLOCK_TILE:
+            raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
+                               f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
         _LIB = lib
     return _LIB
 
@@ -118,6 +131,17 @@ def _check(name: str, dtypes: dict, **tensors) -> torch.device:
         if t.dtype not in (want if isinstance(want, tuple) else (want,)):
             raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected {want}")
     return dev
+
+
+def _check_aligned(name: str, align: int, **tensors) -> None:
+    """Each tensor's data starts on an ``align``-byte boundary: the block
+    kernels copy their operands in 16-byte pieces and store pairs of
+    floats, which fault (and poison the CUDA context) off their
+    alignment. A fresh allocation always is; a view at an offset may not
+    be."""
+    for key, t in tensors.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} must be {align}-byte aligned")
 
 
 def _run(name: str, dev: torch.device, fn, *args) -> None:
@@ -329,58 +353,98 @@ def _check_bs(name: str, bs: int) -> None:
         raise ValueError(f"{name}: block size {bs} must be a multiple of 16 in [16, 128]")
 
 
-def launch_bcsr_spmm(blocks, block_cols, block_offsets, x, y) -> None:
-    """``y = BCSR(blocks, block_cols, block_offsets) @ x``: x is
-    ``(bcols * bs, F)``, y ``(brows * bs, F)``, F a multiple of 128; writes
-    every element of y (block rows with no block get zeros)."""
+def _check_stream(name: str, stream, offsets, segments: int) -> int:
+    """A live-depth stream: ``(L, 2)`` int32 row pairs, 8-byte aligned
+    (the kernel reads one pair as one int2), ``L < 2^31``, and
+    ``segments + 1`` int32 offsets. Returns L. The offsets' values are the
+    plan's (checked there, not here: that would read the device)."""
+    if stream.dim() != 2 or stream.shape[1] != 2:
+        raise ValueError(f"{name}: the depth stream must be (L, 2) row pairs")
+    _check_aligned(name, 8, stream=stream)
+    if stream.shape[0] >= 1 << 31:
+        raise ValueError(f"{name}: {stream.shape[0]} stream rows; the kernel takes < 2^31")
+    if offsets.dim() != 1 or offsets.numel() != segments + 1:
+        raise ValueError(f"{name}: the stream offsets must be ({segments + 1},)")
+    return int(stream.shape[0])
+
+
+def launch_bcsr_spmm(blocks_t, block_cols, block_offsets, stream, stream_offsets,
+                     x_sum, x, y) -> None:
+    """``y = BCSR(blocks, block_cols, block_offsets) @ x`` with the blocks
+    held transposed (``blocks_t[p] = blocks[p]^T``): x is ``(bcols * bs,
+    F)``, y ``(brows * bs, F)``, F a multiple of 128; writes every element
+    of y (block rows with no block get zeros). ``stream``/``stream_offsets``
+    are the A-side live-depth stream (``ops.spmm.bcsr_depth_stream``, one
+    segment per block row and 64-row tile), walked when the one-element
+    f32 device tensor ``x_sum``, the sum of x (``x.sum()``), is finite;
+    else the kernel takes every column of every block. blocks_t and x must
+    be 16-byte aligned, y 8-byte aligned."""
     dev = _check("bcsr_spmm",
-                 dict(blocks=_F32, block_cols=torch.int32, block_offsets=torch.int32,
+                 dict(blocks_t=_F32, block_cols=torch.int32, block_offsets=torch.int32,
+                      stream=torch.int32, stream_offsets=torch.int32, x_sum=_F32,
                       x=_F32, y=_F32),
-                 blocks=blocks, block_cols=block_cols, block_offsets=block_offsets, x=x, y=y)
-    if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
+                 blocks_t=blocks_t, block_cols=block_cols, block_offsets=block_offsets,
+                 stream=stream, stream_offsets=stream_offsets, x_sum=x_sum, x=x, y=y)
+    _check_aligned("bcsr_spmm", 16, blocks_t=blocks_t, x=x)
+    _check_aligned("bcsr_spmm", 8, y=y)
+    if blocks_t.dim() != 3 or blocks_t.shape[1] != blocks_t.shape[2]:
         raise ValueError("bcsr_spmm: blocks must be (nnzb, bs, bs)")
-    bs = blocks.shape[1]
+    bs = blocks_t.shape[1]
     _check_bs("bcsr_spmm", bs)
     brows = block_offsets.numel() - 1
     f = x.shape[1] if x.dim() == 2 else 0
     if (
-        block_cols.numel() != blocks.shape[0] or brows < 0 or f % 128
-        or x.shape[0] % bs or y.shape != (brows * bs, f)
+        block_cols.numel() != blocks_t.shape[0] or brows < 0 or f % 128
+        or x.shape[0] % bs or y.shape != (brows * bs, f) or x_sum.numel() != 1
     ):
         raise ValueError("bcsr_spmm: shapes disagree with (nnzb, bs, brows, F)")
+    if blocks_t.shape[0] * bs >= 1 << 31 or x.shape[0] >= 1 << 31:
+        raise ValueError("bcsr_spmm: the kernel indexes block and x rows with int32")
+    length = _check_stream("bcsr_spmm", stream, stream_offsets,
+                           max(brows, 0) * -(-bs // BLOCK_TILE))
     if brows == 0 or f == 0:
         return
-    _run("bcsr_spmm", dev, _library().spmx_bcsr_spmm, blocks.data_ptr(),
-         block_cols.data_ptr(), block_offsets.data_ptr(), brows, bs, f, x.data_ptr(),
+    _run("bcsr_spmm", dev, _library().spmx_bcsr_spmm, blocks_t.data_ptr(),
+         block_cols.data_ptr(), block_offsets.data_ptr(), stream.data_ptr(), length,
+         stream_offsets.data_ptr(), x_sum.data_ptr(), brows, bs, f, x.data_ptr(),
          y.data_ptr())
 
 
-def launch_block_spgemm(a_blocks, b_blocks, pair_a, pair_b, seg, c) -> None:
-    """``c[q] = sum_{p in [seg[q], seg[q+1])} a_blocks[pair_a[p]] @
-    b_blocks[pair_b[p]]`` for every C block q, in pair order; blocks f32 or
-    bf16 (one type for both), c f32 ``(num_c, bs, bs)``, written whole."""
+def launch_block_spgemm(a_blocks_t, b_blocks, stream, offsets, c) -> None:
+    """Tile (tm, tn) of ``c[q]`` is the sum over ``e in [offsets[s],
+    offsets[s+1])``, ``s = (q * tiles + tm) * tiles + tn``, of ``outer(
+    a_blocks_t row stream[e, 0], b_blocks row stream[e, 1])`` on the tile,
+    in stream order (rows of the ``(n * bs, bs)`` views; 64 x 64 tiles,
+    ``tiles = ceil(bs / 64)``): the block products over the live-depth
+    stream of ``ops.spgemm_block.block_depth_stream``, A held transposed
+    (``a_blocks_t[i] = A_blocks[i]^T``). Blocks f32 or bf16 (one type for
+    both, 16-byte aligned), c f32 ``(num_c, bs, bs)`` (8-byte aligned),
+    written whole."""
     dev = _check("block_spgemm",
-                 dict(a_blocks=_VALS, b_blocks=_VALS, pair_a=torch.int32,
-                      pair_b=torch.int32, seg=torch.int32, c=_F32),
-                 a_blocks=a_blocks, b_blocks=b_blocks, pair_a=pair_a, pair_b=pair_b,
-                 seg=seg, c=c)
-    if a_blocks.dtype != b_blocks.dtype:
+                 dict(a_blocks_t=_VALS, b_blocks=_VALS, stream=torch.int32,
+                      offsets=torch.int32, c=_F32),
+                 a_blocks_t=a_blocks_t, b_blocks=b_blocks, stream=stream, offsets=offsets,
+                 c=c)
+    _check_aligned("block_spgemm", 16, a_blocks_t=a_blocks_t, b_blocks=b_blocks)
+    _check_aligned("block_spgemm", 8, c=c)
+    if a_blocks_t.dtype != b_blocks.dtype:
         raise TypeError("block_spgemm: A and B blocks must share one dtype")
-    if a_blocks.dim() != 3 or a_blocks.shape[1] != a_blocks.shape[2]:
+    if a_blocks_t.dim() != 3 or a_blocks_t.shape[1] != a_blocks_t.shape[2]:
         raise ValueError("block_spgemm: blocks must be (n, bs, bs)")
-    bs = a_blocks.shape[1]
+    bs = a_blocks_t.shape[1]
     _check_bs("block_spgemm", bs)
-    num_c = seg.numel() - 1
-    if (
-        b_blocks.shape[1:] != (bs, bs) or pair_a.numel() != pair_b.numel()
-        or num_c < 0 or c.shape != (num_c, bs, bs)
-    ):
-        raise ValueError("block_spgemm: shapes disagree with (pairs, num_c, bs)")
+    if (b_blocks.dim() != 3 or b_blocks.shape[1:] != (bs, bs)
+            or c.dim() != 3 or c.shape[1:] != (bs, bs)):
+        raise ValueError("block_spgemm: shapes disagree with (num_c, bs)")
+    if max(a_blocks_t.shape[0], b_blocks.shape[0]) * bs >= 1 << 31:
+        raise ValueError("block_spgemm: the kernel indexes block rows with int32")
+    num_c = c.shape[0]
+    length = _check_stream("block_spgemm", stream, offsets, num_c * (-(-bs // BLOCK_TILE)) ** 2)
     if num_c == 0:
         return
-    _run("block_spgemm", dev, _library().spmx_block_spgemm, a_blocks.data_ptr(),
-         b_blocks.data_ptr(), int(a_blocks.dtype == torch.bfloat16), pair_a.data_ptr(),
-         pair_b.data_ptr(), seg.data_ptr(), num_c, bs, c.data_ptr())
+    _run("block_spgemm", dev, _library().spmx_block_spgemm, a_blocks_t.data_ptr(),
+         b_blocks.data_ptr(), int(a_blocks_t.dtype == torch.bfloat16), stream.data_ptr(),
+         length, offsets.data_ptr(), num_c, bs, c.data_ptr())
 
 
 def launch_esc_expand(lv, rv, lv_lane, rv_lane, lv_off, rv_off, p, *, num_products: int) -> None:

@@ -5,11 +5,16 @@ Counterpart of ``sparse_matrix_tpu/ops/spgemm_block.py``:
 * **symbolic phase** (host, numpy): :func:`block_pairs_plan` lists every
   (A block, B block) pair that contributes to a C block, sorted by C block
   (array-equal to the reference's);
+* **live-depth stream** (device, built once per :class:`BlockSpgemm`):
+  :func:`block_depth_stream` lists, per C block and output tile, the (A^T
+  row, B row) pairs of the depth indices that can contribute;
 * **numeric phase** (device): ``C[c] += A[a] @ B[b]`` per pair through the
-  block SpGEMM kernel (``csrc/spgemm_block.cu``) on CUDA tensors, the plain
-  :func:`_block_numeric_torch` on CPU ones. FP32 throughout, no TF32
-  (ROADMAP.md C5); bf16 block storage is widened, products accumulate in
-  f32;
+  block SpGEMM kernel (``csrc/spgemm_block.cu``, over the stream, FP64
+  tensor cores) on CUDA tensors, the plain :func:`_block_numeric_torch`
+  (dense float64 einsums) on CPU ones. Every product of f32 or bf16
+  operands is exact in f64, sums run in f64 and C is rounded to f32 once:
+  no TF32 (ROADMAP.md C5); :func:`_stream_numeric_torch` evaluates the
+  stream itself, for the tests;
 * C comes back as dense blocks, sparsified on the device by
   :func:`_sparsify_blocks` (exact zeros, cancellation zeros among them,
   are dropped, as in the reference); only the live prefix is read back;
@@ -39,10 +44,12 @@ from ..device import default_device, on_cuda, require_device
 from ..formats.bcsr import BLOCK_SIZE, BsrMatrix
 from ..formats.csr import CsrMatrix, sample_row_bands
 from .device_sorted import PaddedCoo, padded_to_host
+from .spmm import _segment_offsets, tile_occupancy, tile_ranges
 from .spmv import U_F32, _t
 
 __all__ = [
     "block_pairs_plan",
+    "block_depth_stream",
     "spgemm_block_pad_device",
     "spgemm_block_device",
     "BlockSpgemm",
@@ -56,6 +63,12 @@ __all__ = [
 # pairs per step of the plain numeric phase: the gathered operands of all
 # pairs at once would not fit (262,144 pairs of 64 KB blocks are 17 GB)
 _TORCH_PAIR_CHUNK = 4096
+# pairs per step of the depth-stream plan: its keep mask and gathered
+# occupancies take about 2.5 KB a pair at bs 128 (40 MB a step), where all
+# pairs at once took gigabytes on the hyper-sparse cells
+_STREAM_PAIR_CHUNK = 1 << 14
+# float64 outer-product values per step of a plain stream evaluation (32 MB)
+_STREAM_CHUNK_VALUES = 1 << 22
 
 
 def block_pairs_plan(a: BsrMatrix, b: BsrMatrix) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -88,42 +101,87 @@ def block_pairs_plan(a: BsrMatrix, b: BsrMatrix) -> Tuple[np.ndarray, np.ndarray
     )
 
 
-def _pair_segments(pair_c: torch.Tensor, num_c: int) -> torch.Tensor:
-    """(num_c + 1,) int32 offsets of each C block's pairs (``pair_c`` is
-    sorted): the kernel's per-block loop bounds."""
-    seg = torch.zeros(num_c + 1, dtype=torch.int64, device=pair_c.device)
-    seg[1:] = torch.cumsum(torch.bincount(pair_c.long(), minlength=num_c), 0)
-    return seg.to(torch.int32)
+def block_depth_stream(a_blocks_t, b_blocks, pair_a, pair_b, pair_c, num_c: int):
+    """The live-depth stream of the block SpGEMM kernel, built on the
+    blocks' device from their stored values.
+
+    A C block's pairs form one product whose depth is all the pairs' depth
+    laid end to end, ``C[q] = [A_p1 A_p2 ...] @ [B_p1; B_p2; ...]``. For
+    each C block and each of its ``BLOCK_TILE x BLOCK_TILE`` output tiles
+    (tm, tn) (:func:`~.spmm.tile_ranges`), in pair order and then depth
+    order, the stream keeps the rows ``(ia, ib) = (pair_a * bs + k,
+    pair_b * bs + k)`` of the transposed A blocks ``a_blocks_t`` and of
+    ``b_blocks`` (viewed as ``(n * bs, bs)``) for every depth index k that
+    can contribute to that tile. Index k is dropped only when every term it
+    adds to the tile is an exact zero: column k of A is all zero on the
+    tile's rows and row k of B is all finite on its columns, or the
+    reverse. So the stream's product is the dense block product, inf and
+    NaN included (``0 * inf`` is kept).
+
+    Returns ``(stream, offsets)``: ``(L, 2)`` int32 row pairs and ``(num_c
+    * tiles**2 + 1,)`` int32 offsets of the rows of each segment ``(q *
+    tiles + tm) * tiles + tn`` (tiles = ``len(tile_ranges(bs))``).
+    """
+    bs = b_blocks.shape[-1]
+    tiles = len(tile_ranges(bs))
+    a_nz, a_nf = tile_occupancy(a_blocks_t)  # (n_a, bs, tiles of C's rows)
+    b_nz, b_nf = tile_occupancy(b_blocks)  # (n_b, bs, tiles of C's columns)
+    pa, pb, pc = pair_a.long(), pair_b.long(), pair_c.long()
+    segments, rows = [], []
+    # _STREAM_PAIR_CHUNK pairs at a time, in pair order (the stable sort
+    # below then keeps pair, then depth order within a segment)
+    for s in range(0, max(1, pa.numel()), _STREAM_PAIR_CHUNK):
+        ca, cb = pa[s:s + _STREAM_PAIR_CHUNK], pb[s:s + _STREAM_PAIR_CHUNK]
+        keep = ((a_nz[ca][..., :, None] | b_nf[cb][..., None, :])
+                & (b_nz[cb][..., None, :] | a_nf[ca][..., :, None]))  # (pairs, bs, tm, tn)
+        p, k, tm, tn = torch.nonzero(keep, as_tuple=True)  # row-major: pair, depth, tile
+        del keep
+        segments.append((pc[s + p] * tiles + tm) * tiles + tn)
+        rows.append(torch.stack((ca[p] * bs + k, cb[p] * bs + k), 1).to(torch.int32))
+    segment, order = torch.sort(torch.cat(segments), stable=True)
+    return torch.cat(rows)[order], _segment_offsets(segment, num_c * tiles * tiles)
 
 
 def _block_numeric_torch(a_blocks, b_blocks, pair_a, pair_b, pair_c, *, num_c: int, bs: int):
     """Plain PyTorch numeric phase: the counterpart of the reference's CPU
-    branch (gathered block products, einsum in f32, scatter-added into C),
-    ``_TORCH_PAIR_CHUNK`` pairs at a time in pair order."""
-    c = torch.zeros((num_c, bs, bs), dtype=torch.float32, device=a_blocks.device)
+    branch (gathered dense block products, scatter-added into C),
+    ``_TORCH_PAIR_CHUNK`` pairs at a time in pair order, in float64 and
+    rounded to f32 once, as the kernel does."""
+    c = torch.zeros((num_c, bs, bs), dtype=torch.float64, device=a_blocks.device)
     for s in range(0, pair_a.shape[0], _TORCH_PAIR_CHUNK):
         sl = slice(s, s + _TORCH_PAIR_CHUNK)
-        prods = torch.einsum("pij,pjk->pik", a_blocks[pair_a[sl].long()].float(),
-                             b_blocks[pair_b[sl].long()].float())
+        prods = torch.einsum("pij,pjk->pik", a_blocks[pair_a[sl].long()].double(),
+                             b_blocks[pair_b[sl].long()].double())
         c.index_add_(0, pair_c[sl].long(), prods)
-    return c
+    return c.float()
 
 
-def _block_numeric(a_blocks, b_blocks, pair_a, pair_b, pair_c, *, num_c: int, bs: int,
-                   seg=None):
-    """Dense C blocks (num_c, bs, bs) f32: the block SpGEMM kernel on CUDA
-    tensors (``seg``: :func:`_pair_segments`, computed when None), the
-    plain version on CPU ones."""
-    if not on_cuda(a_blocks):
-        return _block_numeric_torch(a_blocks, b_blocks, pair_a, pair_b, pair_c,
-                                    num_c=num_c, bs=bs)
-    from ..native.kernels import launch_block_spgemm
-
-    if seg is None:
-        seg = _pair_segments(pair_c, num_c)
-    c = torch.empty((num_c, bs, bs), dtype=torch.float32, device=a_blocks.device)
-    launch_block_spgemm(a_blocks, b_blocks, pair_a, pair_b, seg, c)
-    return c
+def _stream_numeric_torch(a_blocks_t, b_blocks, stream, offsets, *, num_c: int, bs: int):
+    """Plain evaluation of a depth stream (:func:`block_depth_stream`):
+    tile (tm, tn) of C block q is the sum of ``outer(A^T row ia, B row
+    ib)``, restricted to the tile, over its segment's rows, in float64,
+    rounded to f32 once. The tests hold the stream to the dense
+    :func:`_block_numeric_torch` with it; the main path never calls it."""
+    a_rows = a_blocks_t.reshape(-1, bs)
+    b_rows = b_blocks.reshape(-1, bs)
+    dev = b_blocks.device
+    ranges = tile_ranges(bs)
+    tiles = len(ranges)
+    segment = torch.repeat_interleave(torch.arange(num_c * tiles * tiles, device=dev),
+                                      torch.diff(offsets.long()))
+    c = torch.zeros((num_c, bs, bs), dtype=torch.float64, device=dev)
+    step = max(1, _STREAM_CHUNK_VALUES // (bs * bs))
+    for tm, (m0, m1) in enumerate(ranges):
+        for tn, (n0, n1) in enumerate(ranges):
+            sel = segment % (tiles * tiles) == tm * tiles + tn
+            rows, owner = stream[sel].long(), segment[sel] // (tiles * tiles)
+            out = c[:, m0:m1, n0:n1]
+            for s in range(0, rows.shape[0], step):
+                r = rows[s:s + step]
+                out.index_add_(0, owner[s:s + step],
+                               a_rows[r[:, 0], m0:m1].double()[:, :, None]
+                               * b_rows[r[:, 1], n0:n1].double()[:, None, :])
+    return c.float()
 
 
 def _sparsify_blocks(c_blocks, c_brows, c_bcols, *, rows: int, cols: int, bs: int):
@@ -169,9 +227,14 @@ class BlockSpgemm:
     reusable across repeated multiplies of the same operands.
 
     ``storage="bf16"`` keeps the A and B blocks in bfloat16, halving their
-    bytes, at bf16 operand precision (each product of two bf16 values is
-    exact in f32); C accumulates in f32 either way. ``storage="f32"`` keeps
-    f32 operands.
+    bytes, at bf16 operand precision; C accumulates in f64 and is rounded
+    to f32 once either way. ``storage="f32"`` keeps f32 operands.
+
+    The A blocks are kept transposed (``a_blocks_t``, so that column k of
+    a block is a contiguous row; ``a_blocks`` is its row-major view), and
+    the live-depth stream (``depth_stream``, ``depth_offsets``;
+    :func:`block_depth_stream`) is built here, once, from the stored
+    values.
     """
 
     def __init__(self, lhs: CsrMatrix, rhs: CsrMatrix, *, device, bs: int = BLOCK_SIZE,
@@ -188,22 +251,42 @@ class BlockSpgemm:
         pair_a, pair_b, pair_c, self.c_keys = block_pairs_plan(a, b)
         self.num_pairs = len(pair_a)
         block_dtype = torch.bfloat16 if storage == "bf16" else torch.float32
-        self.a_blocks = _t(a.blocks, self.device).to(block_dtype)
+        self.a_blocks_t = _t(a.blocks, self.device).to(block_dtype).transpose(1, 2).contiguous()
+        self.a_blocks = self.a_blocks_t.transpose(1, 2)
         self.b_blocks = _t(b.blocks, self.device).to(block_dtype)
         self.pair_a = _t(pair_a, self.device)
         self.pair_b = _t(pair_b, self.device)
         self.pair_c = _t(pair_c, self.device)
-        self.pair_seg = _pair_segments(self.pair_c, len(self.c_keys))
+        self.depth_stream, self.depth_offsets = block_depth_stream(
+            self.a_blocks_t, self.b_blocks, self.pair_a, self.pair_b, self.pair_c,
+            len(self.c_keys))
         bcols_c = -(-rhs.cols // bs)
         self.c_brows = _t((self.c_keys // bcols_c).astype(np.int32), self.device)
         self.c_bcols = _t((self.c_keys % bcols_c).astype(np.int32), self.device)
 
     def multiply_device(self) -> torch.Tensor:
         """The numeric phase: dense C blocks (num_c, bs, bs) f32 on the
-        device, in ``c_keys`` order."""
-        return _block_numeric(self.a_blocks, self.b_blocks, self.pair_a, self.pair_b,
-                              self.pair_c, num_c=len(self.c_keys), bs=self.bs,
-                              seg=self.pair_seg)
+        device, in ``c_keys`` order: the block SpGEMM kernel over the
+        depth stream on CUDA, :func:`_block_numeric_torch` on the CPU."""
+        num_c = len(self.c_keys)
+        if not on_cuda(self.b_blocks):
+            return _block_numeric_torch(self.a_blocks, self.b_blocks, self.pair_a, self.pair_b,
+                                        self.pair_c, num_c=num_c, bs=self.bs)
+        from ..native.kernels import launch_block_spgemm
+
+        c = torch.empty((num_c, self.bs, self.bs), dtype=torch.float32, device=self.device)
+        launch_block_spgemm(self.a_blocks_t, self.b_blocks, self.depth_stream,
+                            self.depth_offsets, c)
+        return c
+
+    def live_flops(self) -> float:
+        """The work the kernel does over the depth stream: ``2 * m * n``
+        flops per stream row of an m x n output tile (the dense block
+        products would do ``2 * bs^3`` per pair)."""
+        ext = [hi - lo for lo, hi in tile_ranges(self.bs)]
+        t = len(ext)
+        rows = self.depth_offsets.diff().long().reshape(-1, t * t).sum(0).tolist()
+        return 2.0 * sum(r * ext[i // t] * ext[i % t] for i, r in enumerate(rows))
 
     def multiply_coo(self, c_blocks: torch.Tensor) -> PaddedCoo:
         """Dense C blocks (``multiply_device``) as row-sorted padded COO on

@@ -18,7 +18,8 @@ columns:
   ``BellPlan`` for 2 <= K <= 16 (:func:`bell_spmm_viable`), plus the
   LanePack SpMM kernel on its spill;
 * :func:`spmm_bcsr` — the BCSR SpMM kernel (``csrc/spmm_bcsr.cu``) on a
-  ``BsrMatrix``: one dense block product per stored block;
+  ``BsrMatrix``: the stored blocks' products over the A-side live-depth
+  stream of :func:`bcsr_depth_stream`, on the FP64 tensor cores;
 * :func:`spmm_ell` — the padded-ELL gather, in plain PyTorch on every
   device (the reference leaves it to XLA).
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import on_cuda
+from ..native.kernels import BLOCK_TILE
 from .spmv import _t, aligned_device_arrays, lanepack_device_arrays, spmv_lanepack
 
 __all__ = [
@@ -49,6 +51,10 @@ __all__ = [
     "lanepack_spmm_uses_kernel",
     "spmm_bell",
     "bell_spmm_viable",
+    "tile_ranges",
+    "tile_occupancy",
+    "bcsr_depth_stream",
+    "bcsr_live_flops",
     "bcsr_device_arrays",
     "spmm_bcsr",
     "spmm_ell",
@@ -345,50 +351,174 @@ def spmm_bell(plan, x, *, device_arrays=None):
 BCSR_COL_TILE = 128
 
 
+def tile_ranges(bs: int) -> list:
+    """The ``[lo, hi)`` ranges of a block's BLOCK_TILE-wide output tiles."""
+    return [(t, min(t + BLOCK_TILE, bs)) for t in range(0, bs, BLOCK_TILE)]
+
+
+def tile_occupancy(blocks: torch.Tensor):
+    """``(nonzero, nonfinite)``, each ``(n, bs, tiles)`` bool: whether row
+    k of block i holds a nonzero value (an inf or NaN is one), and whether
+    it holds an inf or NaN, within each output tile's columns
+    (:func:`tile_ranges`)."""
+    ranges = tile_ranges(blocks.shape[-1])
+    return (torch.stack([(blocks[..., a:b] != 0).any(-1) for a, b in ranges], -1),
+            torch.stack([~torch.isfinite(blocks[..., a:b]).all(-1) for a, b in ranges], -1))
+
+
+def _segment_offsets(segment: torch.Tensor, segments: int) -> torch.Tensor:
+    """(segments + 1,) int32 offsets of the rows of each segment id in the
+    sorted ``segment``."""
+    off = torch.zeros(segments + 1, dtype=torch.int64, device=segment.device)
+    off[1:] = torch.cumsum(torch.bincount(segment, minlength=segments), 0)
+    return off.to(torch.int32)
+
+
+def bcsr_depth_stream(blocks_t, block_cols, block_offsets):
+    """The A-side live-depth stream of the BCSR SpMM kernel, built on the
+    blocks' device from their stored values.
+
+    A block row's depth is its stored blocks' columns laid end to end. For
+    each block row and each output tile of its rows (:data:`BLOCK_TILE`),
+    in block order and then column order, the stream keeps the rows ``(p *
+    bs + k, block_cols[p] * bs + k)`` of the transposed blocks
+    ``blocks_t`` (viewed as ``(nnzb * bs, bs)``) and of X for every column
+    k of block p that holds a nonzero (an inf or NaN is one) in the tile's
+    rows. X arrives with each call, so the kernel takes this stream only
+    when X is finite (``0 * inf`` is NaN), and else every column of every
+    block.
+
+    Returns ``(stream, offsets)``: ``(L, 2)`` int32 row pairs and
+    ``(brows * tiles + 1,)`` int32 offsets of the rows of each (block row,
+    row tile), tiles = ``len(tile_ranges(bs))``.
+    """
+    bs = blocks_t.shape[-1]
+    tiles = len(tile_ranges(bs))
+    brows = block_offsets.numel() - 1
+    live, _ = tile_occupancy(blocks_t)
+    p, k, tm = torch.nonzero(live, as_tuple=True)  # row-major: block, column, tile
+    brow = torch.repeat_interleave(torch.arange(brows, device=live.device),
+                                   torch.diff(block_offsets.long()))
+    segment, order = torch.sort(brow[p] * tiles + tm, stable=True)
+    p, k = p[order], k[order]
+    stream = torch.stack((p * bs + k, block_cols.long()[p] * bs + k), 1).to(torch.int32)
+    return stream, _segment_offsets(segment, brows * tiles)
+
+
+def bcsr_live_flops(arrs, f: int) -> float:
+    """The work the BCSR kernel does over its live stream (``arrs`` from
+    :func:`bcsr_device_arrays`) on F columns: ``2 * m * F`` flops per
+    stream row of an m-row tile."""
+    ext = [hi - lo for lo, hi in tile_ranges(arrs["blocks_t"].shape[-1])]
+    rows = arrs["stream_offsets"].diff().long().reshape(-1, len(ext)).sum(0).tolist()
+    return 2.0 * f * sum(r * e for r, e in zip(rows, ext))
+
+
 def bcsr_device_arrays(m, device) -> dict:
-    """A ``BsrMatrix``'s arrays on ``device``: ``blocks`` (nnzb, bs, bs)
-    f32, ``block_cols`` and ``block_offsets`` int32, ``block_rows``
-    (int64, one per block, for the plain version)."""
+    """A ``BsrMatrix``'s arrays on ``device``: ``blocks_t`` (nnzb, bs, bs)
+    f32, the blocks transposed (the kernel's operand) and ``blocks`` its
+    row-major view; ``block_cols`` and ``block_offsets`` int32;
+    ``block_rows`` (int64, one per block, for the plain version); and the
+    live-depth stream ``stream``/``stream_offsets``
+    (:func:`bcsr_depth_stream`)."""
     if m.nnzb >= 1 << 31:
         raise ValueError(f"{m.nnzb} blocks: the kernel indexes blocks with int32")
-    return dict(
-        blocks=_t(m.blocks.astype(np.float32, copy=False), device),
+    blocks_t = _t(m.blocks.astype(np.float32, copy=False), device).transpose(1, 2).contiguous()
+    arrs = dict(
+        blocks_t=blocks_t,
+        blocks=blocks_t.transpose(1, 2),
         block_cols=_t(m.block_cols.astype(np.int32), device),
         block_offsets=_t(m.block_offsets.astype(np.int32), device),
         block_rows=_t(m.block_rows_expanded(), device),
     )
+    arrs["stream"], arrs["stream_offsets"] = bcsr_depth_stream(
+        blocks_t, arrs["block_cols"], arrs["block_offsets"])
+    return arrs
 
 
 def _bcsr_torch(arrs, x3, *, brows: int):
     """Plain PyTorch BCSR SpMM: the counterpart of the reference's CPU
-    branch (one batched block product per stored block, scatter-added by
-    block row; block rows with no block stay zero). ``x3`` is
-    (bcols, bs, F); returns (brows, bs, F)."""
-    blocks = arrs["blocks"]
-    prods = torch.einsum("pij,pjk->pik", blocks, x3[arrs["block_cols"].long()])
-    y = torch.zeros((brows,) + tuple(x3.shape[1:]), dtype=blocks.dtype, device=x3.device)
-    return y.index_add_(0, arrs["block_rows"], prods)
+    branch (one batched dense block product per stored block,
+    scatter-added by block row; block rows with no block stay zero), in
+    float64 and rounded to f32 once, as the kernel does. ``x3`` is (bcols,
+    bs, F); returns (brows, bs, F)."""
+    prods = torch.einsum("pij,pjk->pik", arrs["blocks"].double(),
+                         x3[arrs["block_cols"].long()].double())
+    y = torch.zeros((brows,) + tuple(x3.shape[1:]), dtype=torch.float64, device=x3.device)
+    return y.index_add_(0, arrs["block_rows"], prods).float()
+
+
+def _bcsr_stream_torch(arrs, xf, *, brows: int, x_finite: bool):
+    """Plain evaluation of the kernel's depth walk on ``xf`` (bcols * bs,
+    F): the live stream when ``x_finite`` (row tile t of block row br sums
+    ``outer(A^T row, X row)`` over its segment's rows, restricted to the
+    tile's rows), else every column of every block for all rows; in
+    float64, rounded to f32 once. Returns (brows * bs, F). The tests hold
+    the stream to :func:`_bcsr_torch` with it; the main path never calls
+    it."""
+    blocks_t = arrs["blocks_t"]
+    nnzb, bs = blocks_t.shape[0], blocks_t.shape[-1]
+    dev = xf.device
+    if x_finite:
+        rows, offsets = arrs["stream"].long(), arrs["stream_offsets"].long()
+        ranges = tile_ranges(bs)
+    else:
+        ia = torch.arange(nnzb * bs, device=dev)
+        rows = torch.stack((ia, arrs["block_cols"].long()[ia // bs] * bs + ia % bs), 1)
+        offsets = arrs["block_offsets"].long() * bs
+        ranges = [(0, bs)]
+    segment = torch.repeat_interleave(torch.arange(offsets.numel() - 1, device=dev),
+                                      torch.diff(offsets))
+    a_rows = blocks_t.reshape(-1, bs).double()
+    y = torch.zeros((brows, bs, xf.shape[1]), dtype=torch.float64, device=dev)
+    step = max(1, (1 << 22) // (bs * xf.shape[1]))  # 32 MB of outer products a step
+    for t, (lo, hi) in enumerate(ranges):
+        sel = segment % len(ranges) == t
+        r, owner = rows[sel], segment[sel] // len(ranges)
+        out = y[:, lo:hi]
+        for s in range(0, r.shape[0], step):
+            rr = r[s:s + step]
+            out.index_add_(0, owner[s:s + step],
+                           a_rows[rr[:, 0], lo:hi][:, :, None] * xf[rr[:, 1]].double()[:, None, :])
+    return y.reshape(brows * bs, -1).float()
+
+
+def _kernel_x(m, x):
+    """X as the BCSR kernel reads it: ``(bcols * bs, F rounded up to``
+    :data:`BCSR_COL_TILE` ``)``, contiguous, its data 16-byte aligned (the
+    kernel copies it in 16-byte pieces). X itself when it already is that,
+    else a zero-padded copy."""
+    f = int(x.shape[1])
+    fpad = max(BCSR_COL_TILE, -(-f // BCSR_COL_TILE) * BCSR_COL_TILE)
+    if x.shape == (m.bcols * m.bs, fpad) and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    xf = torch.zeros((m.bcols * m.bs, fpad), dtype=x.dtype, device=x.device)
+    xf[: m.cols, :f] = x
+    return xf
 
 
 def spmm_bcsr(m, x, *, device_arrays=None):
     """``Y = A @ X`` for a ``BsrMatrix`` and ``X`` (cols, F) float32: the
-    BCSR SpMM kernel (CUDA) or its plain version (CPU), in FP32 (no TF32).
-    X is padded to (bcols * bs, F rounded up to :data:`BCSR_COL_TILE`);
-    block rows with no block give zeros."""
+    BCSR SpMM kernel (CUDA) or its plain version (CPU), summed in float64
+    and rounded to f32 once (no TF32). X is padded to (bcols * bs, F
+    rounded up to :data:`BCSR_COL_TILE`) unless it already has that shape
+    (:func:`_kernel_x`); block rows with no block give zeros. On CUDA one
+    device reduction, the sum of X, tells the kernel whether X is finite
+    (its depth skip holds only then), with no host read."""
     if x.dim() != 2 or x.shape[0] != m.cols:
         raise ValueError(f"x must be ({m.cols}, F), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"x has dtype {x.dtype}, the blocks are float32")
     arrs = device_arrays if device_arrays is not None else bcsr_device_arrays(m, x.device)
     f = int(x.shape[1])
-    fpad = max(BCSR_COL_TILE, -(-f // BCSR_COL_TILE) * BCSR_COL_TILE)
-    xf = torch.zeros((m.bcols * m.bs, fpad), dtype=x.dtype, device=x.device)
-    xf[: m.cols, :f] = x
+    xf = _kernel_x(m, x)
+    fpad = xf.shape[1]
     if on_cuda(x):
         from ..native.kernels import launch_bcsr_spmm
 
         y = torch.empty((m.brows * m.bs, fpad), dtype=x.dtype, device=x.device)
-        launch_bcsr_spmm(arrs["blocks"], arrs["block_cols"], arrs["block_offsets"], xf, y)
+        launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
+                         arrs["stream"], arrs["stream_offsets"], xf.sum(), xf, y)
     else:
         y = _bcsr_torch(arrs, xf.reshape(m.bcols, m.bs, fpad), brows=m.brows)
         y = y.reshape(m.brows * m.bs, fpad)

@@ -446,6 +446,154 @@ def test_block_spgemm_empty_pairs_launches_nothing(dev):
     assert kernels.launch_counts["block_spgemm"] == before
 
 
+# The FP64 tensor-core tiles of B10 and B11 over their live-depth streams:
+# every product of f32 or bf16 operands is exact in f64 and C is rounded
+# once, so the kernels agree with their float64 plain versions within 1 f32
+# ulp per entry (the two f64 sums differ only in order), with NaN exactly
+# where the plain version has one, and a B11 entry of n products is within
+# 1/(n + 2) <= 1/3 of its float32 bound (0.34 below).
+
+
+def _within_ulp(got, want):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert got.shape == want.shape
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = (got == want) | (np.abs(got.astype(np.float64) - want) <= np.spacing(np.abs(want)))
+    assert ok[~np.isnan(want)].all()
+
+
+def _block_case(fill, bs):
+    if fill == "dense":  # 4 dense blocks at bs 128 (256^2), 46 at bs 32
+        return corpus.dense_block_tridiagonal(np.random.default_rng(bs),
+                                              256 if bs == 128 else 512, bs)
+    u = corpus.random_uniform(np.random.default_rng(bs + 1), 700, 0.01)
+    return CsrMatrix(u.rows, u.cols, u.vals.astype(np.float32), u.indices, u.offsets,
+                     is_sorted=True)
+
+
+def _bf16_rounded(m):
+    v = torch.from_numpy(m.vals.astype(np.float32)).to(torch.bfloat16).float().numpy()
+    return CsrMatrix(m.rows, m.cols, v, m.indices, m.offsets, is_sorted=True)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("bs", [32, 128])
+@pytest.mark.parametrize("fill", ["sparse", "dense"])
+def test_block_spgemm_kernel_fp64_exact(dev, fill, bs, storage):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = _block_case(fill, bs)
+    eng = spgemm_block.BlockSpgemm(m, m, device=dev, bs=bs, storage=storage)
+    live = eng.live_flops() / (2.0 * eng.num_pairs * bs ** 3)
+    assert live == 1.0 if fill == "dense" else live < 1.0
+    before = kernels.launch_counts["block_spgemm"]
+    c_dev = eng.multiply_device()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["block_spgemm"] == before + 1
+    c_plain = spgemm_block._block_numeric_torch(eng.a_blocks, eng.b_blocks, eng.pair_a,
+                                                eng.pair_b, eng.pair_c,
+                                                num_c=len(eng.c_keys), bs=bs)
+    _within_ulp(c_dev, c_plain)
+    c = eng.multiply()
+    held = _bf16_rounded(m) if storage == "bf16" else m
+    assert spgemm_block.spgemm_err_over_bound(held, held, c) <= 0.34
+    _spgemm_bounded(m, m, c, bf16=storage == "bf16")
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_block_spgemm_kernel_nonfinite(dev, storage):
+    u = _block_case("sparse", 128)
+    vals = u.vals.copy()
+    rng = np.random.default_rng(3)
+    at = rng.choice(vals.size, 12, replace=False)
+    vals[at[:4]], vals[at[4:8]], vals[at[8:]] = np.inf, -np.inf, np.nan
+    m = CsrMatrix(u.rows, u.cols, vals, u.indices, u.offsets, is_sorted=True)
+    eng = spgemm_block.BlockSpgemm(m, m, device=dev, bs=128, storage=storage)
+    c_dev = eng.multiply_device()
+    c_plain = spgemm_block._block_numeric_torch(eng.a_blocks, eng.b_blocks, eng.pair_a,
+                                                eng.pair_b, eng.pair_c,
+                                                num_c=len(eng.c_keys), bs=128)
+    assert bool(torch.isnan(c_plain).any())
+    _within_ulp(c_dev, c_plain)
+    assert torch.equal(torch.isinf(c_dev), torch.isinf(c_plain))
+
+
+@pytest.mark.parametrize("flag", ["finite", "forced_full", "nonfinite"])
+@pytest.mark.parametrize("bs", [32, 128])
+@pytest.mark.parametrize("fill", ["sparse", "dense"])
+def test_bcsr_spmm_kernel_fp64_exact(dev, fill, bs, flag):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = _with_empty_block_rows(700, 650, bs) if fill == "sparse" else _block_case("dense", bs)
+    b = BsrMatrix.from_csr(m, bs)
+    arrs = spmm.bcsr_device_arrays(b, dev)
+    X_np = np.random.default_rng(bs).standard_normal((m.cols, 130)).astype(np.float32)
+    if flag == "nonfinite":
+        # an inf in an x row that an all-zero block column faces (any row when
+        # every column is live) and a NaN elsewhere
+        dead = torch.nonzero(~(arrs["blocks_t"] != 0).any(-1))
+        p, k = (int(v) for v in dead[0]) if len(dead) else (0, 0)
+        row = min(int(arrs["block_cols"][p]) * bs + k, m.cols - 1)
+        X_np[row, 3], X_np[m.cols // 2, 70] = np.inf, np.nan
+    xf = torch.zeros((b.bcols * bs, 256), device=dev)
+    xf[: m.cols, :130] = torch.from_numpy(X_np).to(dev)
+    plain = spmm._bcsr_torch(arrs, xf.reshape(b.bcols, bs, 256), brows=b.brows)
+    y = torch.empty((b.brows * bs, 256), device=dev)
+    before = kernels.launch_counts["bcsr_spmm"]
+    x_sum = xf.sum()  # finite exactly when every element is, at these values
+    assert bool(torch.isfinite(x_sum)) == (flag != "nonfinite")
+    if flag == "forced_full":
+        x_sum = torch.full((), np.inf, device=dev)
+    kernels.launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
+                             arrs["stream"], arrs["stream_offsets"], x_sum, xf, y)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["bcsr_spmm"] == before + 1
+    _within_ulp(y, plain.reshape(b.brows * bs, 256))
+    if flag == "nonfinite":
+        assert bool(torch.isnan(y).any())
+        return
+    Y = spmm.spmm_bcsr(b, torch.from_numpy(X_np).to(dev), device_arrays=arrs)
+    Yk = Y.double().cpu().numpy()
+    for q in range(0, 130, 13):
+        y64, bound = spmv.spmv_f64_bound(m, X_np[:, q])
+        assert np.all(np.abs(Yk[:, q] - y64) <= bound)
+
+
+def _misaligned(t):
+    """A copy of ``t`` in a view 4 bytes past an allocation's start."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    assert out.data_ptr() % 16 and out.is_contiguous()
+    return out.copy_(t)
+
+
+def test_block_kernels_refuse_misaligned_operands(dev):
+    # the tile's 16-byte cp.async copies fault off a 16-byte boundary (and
+    # poison the context): the wrappers raise instead, and spmm_bcsr copies
+    # such an X into an aligned buffer
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = _block_case("dense", 32)
+    b = BsrMatrix.from_csr(m, 32)
+    arrs = spmm.bcsr_device_arrays(b, dev)
+    X = torch.from_numpy(np.random.default_rng(5).standard_normal((m.cols, 128))
+                         .astype(np.float32)).to(dev)
+    xm = _misaligned(X)
+    y = torch.empty((b.brows * 32, 128), device=dev)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
+                                 arrs["stream"], arrs["stream_offsets"], xm.sum(), xm, y)
+    eng = spgemm_block.BlockSpgemm(m, m, device=dev, bs=32)
+    c = torch.empty((len(eng.c_keys), 32, 32), device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.launch_block_spgemm(eng.a_blocks_t, _misaligned(eng.b_blocks),
+                                    eng.depth_stream, eng.depth_offsets, c)
+    assert kernels.launch_counts == before
+    _within_ulp(spmm.spmm_bcsr(b, xm, device_arrays=arrs),
+                spmm.spmm_bcsr(b, X, device_arrays=arrs))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("force", ["bell", "lanepack", "hybrid"])
 def test_matmat_on_card_matches_cpu(dev, force):
     from sparse_matrix_tpu_torch.ops.operator import SpmvOperator

@@ -187,9 +187,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
         "bell_spmm": lambda: kernels.launch_bell_spmm(f32[None, None], i8[None, None], i32,
                                                       f32[None, None], f32[None, None],
                                                       bias=128, cols=128),
-        "bcsr_spmm": lambda: kernels.launch_bcsr_spmm(blk, i32, i32.repeat(2), f32[:, None],
-                                                      f32[:, None]),
-        "block_spgemm": lambda: kernels.launch_block_spgemm(blk, blk, i32, i32,
+        "bcsr_spmm": lambda: kernels.launch_bcsr_spmm(
+            blk, i32, i32.repeat(2), i32.repeat(1, 2), i32.repeat(2),
+            torch.zeros(1), f32[:, None], f32[:, None]),
+        "block_spgemm": lambda: kernels.launch_block_spgemm(blk, blk, i32.repeat(1, 2),
                                                             i32.repeat(2), blk),
         "esc_expand": lambda: kernels.launch_esc_expand(f32, f32, i16, i16, i32, i32,
                                                         torch.zeros(1024), num_products=5),
