@@ -22,10 +22,13 @@ Phases, each of which ends the run with an exception on failure:
    FP64 tensor cores and round once, are also held within 1 f32 ulp of
    their float64 plain versions per entry, and B11 to err/bound <= 0.34
    against a float64 block oracle of its stored operands on the card
-   (``block_err_over_bound``; 1/(n + 2) <= 1/3 in theory). Each case
-   has CUDA-event times (median of 30 calls, 5 for the block SpGEMM) of
-   the kernel through the wrapper a user calls (``ms``; for B10 also its
-   bare launch, ``launch_ms``), its plain version and one library call on
+   (``block_err_over_bound``; 1/(n + 2) <= 1/3 in theory). The aligned,
+   LanePack and BELL SpMV kernels (B2, B3, B4; BELL on randlocal_262k with
+   a LanePack spill in add mode) must give equal bits on two calls. Each
+   case has CUDA-event times (median of 30 calls, 5 for the block SpGEMM)
+   of the kernel through the wrapper a user calls (``ms``; for B2, B3 and
+   B10 also the bare launch, ``launch_ms``, and its device time with no
+   host gaps, ``device_ms``), its plain version and one library call on
    the same inputs (``torch.sparse`` CSR times X, or CSR times CSR for the
    SpGEMM, with the dense ``torch.matmul`` beside it, and in its place past
    the products cuSPARSE can take; a yardstick used nowhere in the port),
@@ -195,12 +198,16 @@ LIBRARY_SPGEMM_PRODUCTS = 1_000_000_000
 # recurses with the spill kernel's keys)
 READS = {
     "dia": ("data", "offsets"),
-    "aligned": ("vals", "lane", "col_off", "chunk_rb"),
-    "lanepack": ("vals", "lane", "ends", "starts", "col_off", "chunk_rb"),
+    "aligned": ("vals", "lane", "col_off", "segments", "rb_seg"),
+    "lanepack": ("vals", "lane", "ends", "starts", "col_off", "segments", "rb_seg"),
     "bell": ("vals", "lane", "ds"),
     "stripe": ("vals", "lane", "ends", "starts", "stripe_rb", "col_off"),
+    "aligned_spmm": ("vals", "lane", "col_off", "chunk_rb"),
+    "lanepack_spmm": ("vals", "lane", "ends", "starts", "col_off", "chunk_rb"),
+    "bell_spmm": ("vals", "lane", "ds"),
 }
-SPILL_OF = {"aligned": "lanepack", "bell": "lanepack", "stripe": "stripe"}
+SPILL_OF = {"aligned": "lanepack", "bell": "lanepack", "stripe": "stripe",
+            "aligned_spmm": "lanepack_spmm", "bell_spmm": "lanepack_spmm"}
 
 
 def log(*a):
@@ -300,7 +307,8 @@ class KernelChecks:
         self._mbytes = {}
 
     def check(self, kernel, case, m, x_np, run_kernel, run_plain, *, plan_bytes,
-              value_bytes=4, unpack=None, ulp_plain=False, launch=None, **bound_kw):
+              value_bytes=4, unpack=None, ulp_plain=False, launch=None, repeat_bits=False,
+              **bound_kw):
         """``x_np`` is (cols,) or (cols, K); ``unpack`` maps a kernel or
         plain output to (rows,) or (rows, K); ``plan_bytes`` counts the
         bytes of the plan arrays one call of the kernel reads (x and y
@@ -310,13 +318,16 @@ class KernelChecks:
         ``ms`` times ``run_kernel``, the wrapper a user calls, the same
         span as the library call; ``launch``, when given, is the bare
         kernel launch on the inputs the wrapper prepares, timed beside it
-        as ``launch_ms`` and, with no host gaps, ``device_ms``."""
+        as ``launch_ms`` and, with no host gaps, ``device_ms``;
+        ``repeat_bits`` demands equal bits from two more kernel calls."""
         from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
 
         torch = self.torch
         unpack = unpack or (lambda y: y)
         k_out, p_out = unpack(run_kernel()), unpack(run_plain())
         torch.cuda.synchronize()
+        if repeat_bits and not torch.equal(run_kernel(), run_kernel()):
+            raise AssertionError(f"{kernel}/{case}: two calls on one input differ in their bits")
         if ulp_plain and ulp_excess(k_out, p_out):
             raise AssertionError(f"{kernel}/{case}: {ulp_excess(k_out, p_out)} entries more "
                                  "than 1 ulp from the float64 plain version")
@@ -377,6 +388,8 @@ class KernelChecks:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=int(nbytes), matrix_bytes=int(matrix_bytes),
                    plan_bytes=int(plan_bytes), flops=flops, **extra)
+        if repeat_bits:
+            row["bitwise_repeat"] = True
         self.cases[kernel].append(row)
         log(f"kernel {kernel:12s} {case:34s} rows={m.rows} nnz={m.nnz()} K={k} "
             f"max|k-plain|={row['max_abs_err']:.3e} max err/bound={ratio:.3f} "
@@ -620,10 +633,16 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
             return y
 
         tag = name + ("_spill" if plan.spill is not None else "")
+
+        def launch(arrs=arrs, x=x, y=torch.empty(plan.rows, device=dev)):
+            arrs["launch"](x, y)
+            if "spill" in arrs:
+                arrs["spill"]["launch"](x, y, add=True)
+
         chk.check("aligned", tag, m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmv.spmv_aligned(plan, x, device_arrays=arrs),
                   plain, plan_bytes=arrays_bytes("aligned", arrs),
-                  lanepack=spill)
+                  lanepack=spill, launch=launch, repeat_bits=True)
 
         xb_np, xb = xblock(m)
         x3 = spmm.pack_rhs(xb, m.cols)
@@ -638,7 +657,7 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
 
         chk.check("aligned_spmm", f"{tag}_K{K_RHS}", m, xb_np,
                   lambda mv=mv, x3=x3: mv(x3), plain_mm,
-                  plan_bytes=arrays_bytes("aligned", arrs),
+                  plan_bytes=arrays_bytes("aligned_spmm", arrs),
                   unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=spill)
         if c12 and plan.spill is not None:
             time_c12(torch, chk, plan, arrs, mv, x3)
@@ -687,13 +706,22 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
                 lambda plan=plan, arrs=arrs, x=x: spmv._lanepack_torch(
                     arrs, x, rows=plan.rows, cols=plan.cols, kw=plan.kw),
                 plan_bytes=arrays_bytes("lanepack", arrs), lanepack=(plan,),
+                launch=lambda arrs=arrs, x=x, y=torch.empty(plan.rows, device=dev):
+                    arrs["launch"](x, y),
+                repeat_bits=True,
             )
 
-    # BELL: Poisson 1024^2 forced (span 128, int8 lanes) and femlike_262k
-    # (span 256, int16 lanes)
-    for name in ("poisson1024", "femlike_262k"):
+    # BELL: Poisson 1024^2 forced (span 128, int8 lanes), femlike_262k
+    # (span 256, int16 lanes) and randlocal_262k, whose LanePack spill adds
+    # into the rows the BELL kernel wrote
+    for name in ("poisson1024", "femlike_262k", "randlocal_262k"):
         m = mats[name]
+        t0 = time.perf_counter()
         plan = plan_bell(m)
+        log(f"plan {name} bell: span={plan.span} layers={plan.num_layers} spill nnz="
+            f"{0 if plan.spill is None else plan.spill.nnz} {time.perf_counter() - t0:.2f} s")
+        if name == "randlocal_262k" and plan.spill is None:
+            raise AssertionError("the randlocal_262k BELL plan has no spill to add")
         arrs = spmv_bell.bell_device_arrays(plan, dev)
         x_np, x = xvec(m)
 
@@ -706,10 +734,11 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
                                              cols=plan.cols, kw=plan.spill.kw)
             return y
 
-        chk.check("bell", f"{name}_span{plan.span}", m, x_np,
+        tag = f"{name}_span{plan.span}" + ("" if plan.spill is None else "_spill")
+        chk.check("bell", tag, m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
                   plain, plan_bytes=arrays_bytes("bell", arrs),
-                  lanepack=() if plan.spill is None else (plan.spill,))
+                  lanepack=() if plan.spill is None else (plan.spill,), repeat_bits=True)
     chk._csr.clear()
 
 
@@ -720,7 +749,6 @@ def time_c12(torch, chk, plan, arrs, mv, x3):
     ``mv``, whose spill is one LanePack SpMM launch for all K columns;
     timed in turns (before, after, after, before) in this call."""
     from sparse_matrix_tpu_torch.native.kernels import launch_aligned_spmm
-    from sparse_matrix_tpu_torch.ops import spmv
 
     r128, k = plan.r128, x3.shape[1]
 
@@ -731,7 +759,7 @@ def time_c12(torch, chk, plan, arrs, mv, x3):
         for q in range(k):
             xq = x3[:, q, :].reshape(-1)[: plan.cols].contiguous()
             yq = torch.zeros(r128 * 128, dtype=x3.dtype, device=x3.device)
-            spmv._lanepack_cuda(arrs["spill"], xq, yq)
+            arrs["spill"]["launch"](xq, yq[: plan.rows])
             y3[:r128, q, :] += yq.reshape(r128, 128)
         return y3
 
@@ -803,7 +831,7 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
                       plan, x3, device_arrays=arrs),
                   lambda plan=plan, arrs=arrs, x3=x3: spmm._lanepack_spmm_torch(
                       arrs, x3, cols=plan.cols, kw=plan.kw),
-                  plan_bytes=arrays_bytes("lanepack", arrs),
+                  plan_bytes=arrays_bytes("lanepack_spmm", arrs),
                   unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=(plan,))
     del cases, arrs
     # ... and the spill of randlocal's aligned plan in the aligned layout (one
@@ -816,7 +844,7 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
     chk.check("lanepack_spmm", f"randlocal_262k_aligned_spill_kw{sp_plan.kw}_K{K_RHS}", sub, x_np,
               lambda: spmm.spmm_lanepack_packed(sp_plan, x3, device_arrays=sp_arrs),
               lambda: spmm._lanepack_spmm_torch(sp_arrs, x3, cols=sp_plan.cols, kw=sp_plan.kw),
-              plan_bytes=arrays_bytes("lanepack", sp_arrs),
+              plan_bytes=arrays_bytes("lanepack_spmm", sp_arrs),
               unpack=lambda y: spmm.unpack_rhs(y, sub.rows), lanepack=(sp_plan,))
     del sub, x3
 
@@ -844,7 +872,7 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
 
         chk.check("bell_spmm", f"{name}_span{plan.span}_K{k}", m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmm.spmm_bell(plan, x, device_arrays=arrs),
-                  plain, plan_bytes=arrays_bytes("bell", arrs),
+                  plain, plan_bytes=arrays_bytes("bell_spmm", arrs),
                   lanepack=() if plan.spill is None else (plan.spill,))
     del fem_plan, arrs
 

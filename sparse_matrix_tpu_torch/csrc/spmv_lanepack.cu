@@ -1,105 +1,150 @@
-// LanePack segmented-reduce SpMV. Per 128-slot chunk c:
+// LanePack segmented-reduce SpMV. Per 128-slot chunk c of row block rb:
 //   p[s]   = vals[c, s] * x[col_off[c]*128 + lane[c, s]]   (KW*128 window)
 //   incl   = inclusive prefix sum of p over the chunk
-//   y[chunk_rb[c]*128 + l] += incl[ends[c, l]]
-//                             - (starts[c, l] < 0 ? 0 : incl[starts[c, l]])
+//   y[rb*128 + l] gets incl[ends[c, l]] - (starts[c, l] < 0 ? 0 : incl[starts[c, l]])
 //
 // Replaces: sparse_matrix_tpu/ops/spmv.py, _make_lanepack_kernel (called by
 // _spmv_lanepack_jit).
 //
-// Bound on the H100: device-memory bandwidth, about 8 bytes per slot (f32
-// value, int16 lane, int8 end, int8 start) plus 8 bytes of chunk metadata
-// per 128 slots; the KW*128 x window of a chunk is served by L2.
+// Bound on the H100: device-memory bandwidth. The plan streams 8 bytes a
+// slot (f32 value, int16 lane, int8 end, int8 start) and 4 bytes of
+// col_off a chunk; the KW*128 x window of a chunk is served by L1 and L2.
 //
-// First version: one warp per chunk, eight chunks (one slab) per block. The
-// warp stages its 128 products in shared memory with coalesced loads, each
-// thread scans four consecutive products, and a warp-shuffle scan of the
-// thread totals completes the inclusive prefix sum in fp32 on the CUDA
-// cores. The TPU kernel took the scan as a triangular matmul pinned to
-// HIGHEST precision; no tensor core is used here, so no TF32 rounding can
-// enter. Lanes with no run (ends == starts == 0, whose difference is an
-// exact zero) skip their atomic; every other lane adds its run sum to y
-// with one atomicAdd, which replaces the TPU's two-target (rb_a/rb_b/split)
-// accumulation. The scan rounds differently from the reference's and the
-// atomics make a row's sum vary in its last bits from run to run. The
-// caller zeroes y.
+// Design: one warp owns one segment of its row block's chunks (segments.h).
+// It streams them through a ring of kRing stages in shared memory, 1024
+// bytes a chunk (values, lanes, ends, starts), filled by 16-byte cp.async
+// copies, so kRing - 1 chunks are in flight while it computes and no
+// register holds them; lane t of the warp loads the window base of the
+// segment's chunk t once (a segment holds at most 32 chunks). The x values
+// of the next chunk are gathered through L1 before this chunk's arithmetic.
+// Thread t multiplies slots 4t .. 4t+3; the products stay in registers: a
+// scan inside the thread and a warp-shuffle scan of the thread totals give
+// the inclusive prefix sum in fp32 on the CUDA cores (the TPU kernel's
+// triangular matmul at HIGHEST precision; no tensor core, so no TF32
+// rounding can enter). The prefix sums go through 512 bytes of shared
+// memory, from which thread t takes the run differences of lanes 4t ..
+// 4t+3 and adds them to four f32 sums in registers, in plan order. A lane
+// with no run in the chunk (ends == starts == 0) takes incl[0] - incl[0],
+// as the plain version does: an exact zero for finite x. The sums reach y
+// through the segment's single writer (store mode for spmv_lanepack, add
+// mode on the rows the aligned or BELL kernel wrote for a spill): no
+// atomics on y, no zeroing of y, the same bits on every call. Three
+// stages (28 KB a block of eight warps, with the prefix sums) leave room
+// for L1 to hold the x windows; on the H100 deeper rings ran slower
+// (PERF.md §6). The TPU's two-target (rb_a/rb_b/split) accumulation is
+// not carried over.
 #include <cuda_runtime.h>
 
+#include "block_tile.h"
+#include "segments.h"
 #include "spmx_cuda.h"
 
 namespace {
 
-constexpr int kChunksPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kRing = 3;
+constexpr int kWarps = 8;  // segments a thread block
 
-__global__ void lanepack_kernel(const float* __restrict__ vals,
-                                const int16_t* __restrict__ lane,
-                                const int8_t* __restrict__ ends,
-                                const int8_t* __restrict__ starts,
-                                const int32_t* __restrict__ col_off,
-                                const int32_t* __restrict__ chunk_rb,
-                                int64_t num_chunks, int64_t cols,
-                                const float* __restrict__ x,
-                                float* __restrict__ y) {
-  __shared__ float prefix[kChunksPerBlock][128];
+struct Stage {
+  float4 vals[32];    // slots 4t .. 4t+3 at [t]
+  int2 lane[32];      // int16 lanes of slots 4t .. 4t+3, low half first
+  char4 ends[32];     // run ends of lanes 4t .. 4t+3
+  char4 starts[32];
+};
+
+__device__ __forceinline__ float4 gather(const Stage& st, int t, int window,
+                                         const float* __restrict__ x, int64_t cols) {
+  const int2 l = st.lane[t];
+  const int64_t w = (int64_t)window * 128;
+  const int64_t j0 = w + (l.x & 0xffff), j1 = w + ((unsigned)l.x >> 16);
+  const int64_t j2 = w + (l.y & 0xffff), j3 = w + ((unsigned)l.y >> 16);
+  return make_float4(j0 < cols ? __ldg(x + j0) : 0.f, j1 < cols ? __ldg(x + j1) : 0.f,
+                     j2 < cols ? __ldg(x + j2) : 0.f, j3 < cols ? __ldg(x + j3) : 0.f);
+}
+
+__global__ void __launch_bounds__(32 * kWarps, 4)
+lanepack_kernel(const SpmxSegPlan p, const float* __restrict__ x, float* __restrict__ y,
+                int add) {
+  __shared__ Stage ring[kWarps][kRing];
+  __shared__ float4 prefix[kWarps][32];
   const int warp = threadIdx.x >> 5;
   const int t = threadIdx.x & 31;
-  const int64_t c = (int64_t)blockIdx.x * kChunksPerBlock + warp;
-  if (c >= num_chunks) return;  // whole warp leaves; only warp syncs below
-  const int64_t base = c * 128;
-  const int64_t window = (int64_t)__ldg(col_off + c) * 128;
-  float* p = prefix[warp];
+  const int64_t s = (int64_t)blockIdx.x * kWarps + warp;
+  if (s >= p.num_segments) return;  // whole warp leaves; only warp syncs below
+  const spmx::Segment seg = spmx::load_segment(p.segments, s);
+  const int n = seg.count;
+  const int window = t < n ? __ldg(p.col_off + seg.first + t) : 0;
+  Stage* st = ring[warp];
+  const float* pre = reinterpret_cast<const float*>(prefix[warp]);
+  const float4* vals = reinterpret_cast<const float4*>(p.vals);
+  // the second 16-byte piece of thread t: lanes (t < 16), ends (t < 24) or starts
+  const char* src2 = t < 16   ? static_cast<const char*>(p.lane) + 16 * t
+                     : t < 24 ? reinterpret_cast<const char*>(p.ends) + 16 * (t - 16)
+                              : reinterpret_cast<const char*>(p.starts) + 16 * (t - 24);
+  const int64_t stride2 = t < 16 ? 256 : 128;  // bytes a chunk in that array
+  const int off2 = t < 16 ? 16 * t : t < 24 ? 256 + 16 * (t - 16) : 384 + 16 * (t - 24);
 
-  for (int k = 0; k < 4; ++k) {
-    const int s = t + 32 * k;
-    const int64_t j = window + lane[base + s];
-    const float xv = j < cols ? __ldg(x + j) : 0.0f;
-    p[s] = vals[base + s] * xv;
-  }
-  __syncwarp();
+  auto issue = [&](int i) {  // chunk i into stage i % kRing; one group a call
+    if (i < n) {
+      const int64_t c = (int64_t)seg.first + i;
+      Stage& d = st[i % kRing];
+      spmx_tile::copy16(&d.vals[t], vals + c * 32 + t, true);
+      spmx_tile::copy16(reinterpret_cast<char*>(&d.lane[0]) + off2, src2 + c * stride2, true);
+    }
+    spmx_tile::commit();
+  };
 
-  // thread t owns products 4t .. 4t+3
-  const float a0 = p[4 * t];
-  const float a1 = a0 + p[4 * t + 1];
-  const float a2 = a1 + p[4 * t + 2];
-  const float a3 = a2 + p[4 * t + 3];
-  float incl = a3;
-  for (int d = 1; d < 32; d <<= 1) {
-    const float up = __shfl_up_sync(kFullMask, incl, d);
-    if (t >= d) incl += up;
+  for (int i = 0; i < kRing - 1; ++i) issue(i);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 xc = acc;
+  if (n > 0) {
+    spmx_tile::wait_pending<kRing - 2>();  // chunk 0 landed
+    __syncwarp();
+    xc = gather(st[0], t, __shfl_sync(spmx::kFullMask, window, 0), x, p.cols);
   }
-  float excl = __shfl_up_sync(kFullMask, incl, 1);
-  if (t == 0) excl = 0.0f;
-  __syncwarp();
-  p[4 * t] = excl + a0;
-  p[4 * t + 1] = excl + a1;
-  p[4 * t + 2] = excl + a2;
-  p[4 * t + 3] = excl + a3;
-  __syncwarp();
-
-  float* yrow = y + (int64_t)__ldg(chunk_rb + c) * 128;
-  for (int k = 0; k < 4; ++k) {
-    const int s = t + 32 * k;
-    const int e = ends[base + s];
-    const int st = starts[base + s];
-    if (e == 0 && st == 0) continue;
-    atomicAdd(yrow + s, p[e] - (st < 0 ? 0.0f : p[st]));
+  for (int i = 0; i < n; ++i) {
+    issue(i + kRing - 1);
+    spmx_tile::wait_pending<kRing - 2>();  // chunks <= i + 1 landed
+    __syncwarp();
+    float4 xn = xc;
+    if (i + 1 < n)
+      xn = gather(st[(i + 1) % kRing], t, __shfl_sync(spmx::kFullMask, window, i + 1), x,
+                  p.cols);
+    const Stage& cur = st[i % kRing];
+    const float4 v = cur.vals[t];
+    const float a0 = v.x * xc.x;
+    const float a1 = a0 + v.y * xc.y;
+    const float a2 = a1 + v.z * xc.z;
+    const float a3 = a2 + v.w * xc.w;
+    float incl = a3;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float up = __shfl_up_sync(spmx::kFullMask, incl, d);
+      if (t >= d) incl += up;
+    }
+    float excl = __shfl_up_sync(spmx::kFullMask, incl, 1);
+    if (t == 0) excl = 0.f;
+    prefix[warp][t] = make_float4(excl + a0, excl + a1, excl + a2, excl + a3);
+    __syncwarp();
+    const char4 e = cur.ends[t], b = cur.starts[t];
+    acc.x += pre[e.x] - (b.x < 0 ? 0.f : pre[b.x]);
+    acc.y += pre[e.y] - (b.y < 0 ? 0.f : pre[b.y]);
+    acc.z += pre[e.z] - (b.z < 0 ? 0.f : pre[b.z]);
+    acc.w += pre[e.w] - (b.w < 0 ? 0.f : pre[b.w]);
+    xc = xn;
+    __syncwarp();  // prefix and stage i % kRing are rewritten next iteration
   }
+  spmx::finish_segment(p, s, seg, t, acc, y, add);
 }
 
 }  // namespace
 
-SPMX_API int spmx_lanepack(int device, const float* vals, const int16_t* lane,
-                           const int8_t* ends, const int8_t* starts,
-                           const int32_t* col_off, const int32_t* chunk_rb,
-                           int64_t num_chunks, int64_t cols, const float* x,
-                           float* y, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+SPMX_API int spmx_lanepack(const SpmxSegPlan* plan, const float* x, float* y,
+                           int add, void* stream) {
+  cudaError_t err = cudaSetDevice(plan->device);
   if (err != cudaSuccess) return (int)err;
-  if (num_chunks == 0) return 0;
-  const int64_t blocks = (num_chunks + kChunksPerBlock - 1) / kChunksPerBlock;
-  lanepack_kernel<<<(unsigned)blocks, 32 * kChunksPerBlock, 0,
-                    (cudaStream_t)stream>>>(vals, lane, ends, starts, col_off,
-                                            chunk_rb, num_chunks, cols, x, y);
+  if (plan->num_segments == 0) return 0;
+  const int64_t blocks = (plan->num_segments + kWarps - 1) / kWarps;
+  lanepack_kernel<<<(unsigned)blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+      *plan, x, y, add);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,8 @@
 // cudaStream_t passed as void*), never synchronises and allocates nothing:
 // the Python wrapper owns every buffer. The return value is
 // cudaGetLastError() after the launch (0 = launched). Outputs that the
-// kernel accumulates into with atomics (aligned, LanePack, stripe, aligned
-// SpMM, LanePack SpMM) must be zeroed by the caller.
+// kernel accumulates into with atomics (stripe, aligned SpMM, LanePack
+// SpMM) must be zeroed by the caller.
 #pragma once
 
 #include <stdint.h>
@@ -26,19 +26,43 @@ SPMX_API int spmx_dia(int device, const void* data, int values_bf16,
                       const int32_t* offsets, int nb, int64_t rows,
                       int64_t cols, const float* x, float* y, void* stream);
 
-// y[chunk_rb[c]*128 + l] += vals[c, l] * x[col_off[c]*128 + lane[c, l]]
-SPMX_API int spmx_aligned(int device, const float* vals, const int8_t* lane,
-                          const int32_t* col_off, const int32_t* chunk_rb,
-                          int64_t num_chunks, int64_t cols, const float* x,
-                          float* y, void* stream);
+// A plan of the aligned or LanePack SpMV kernel with its segments
+// (segments.h), packed once by the wrapper: `segments` (num_segments, 4)
+// int32 rows (row block, first chunk, chunk count, scratch slot or -1),
+// sorted by row block, every row block holding at least one; `rb_seg`
+// (r128 + 1) int32 offsets of each row block's segments; `scratch` (slots,
+// 128) f32 and `tickets` (r128,) int32 (zero between launches) for row
+// blocks of several segments. `ends`/`starts` are NULL for the aligned
+// kernel. vals 16-byte, lane 4-byte (int8) or 8-byte (int16) aligned.
+typedef struct {
+  const float* vals;
+  const void* lane;
+  const int8_t* ends;
+  const int8_t* starts;
+  const int32_t* col_off;
+  const int32_t* segments;
+  const int32_t* rb_seg;
+  float* scratch;
+  int32_t* tickets;
+  int64_t num_segments;
+  int64_t cols;
+  int64_t rows;
+  int32_t device;
+} SpmxSegPlan;
 
-// per chunk: p = vals * x[col_off*128 + lane]; incl = inclusive scan of p;
-// y[chunk_rb*128 + l] += incl[ends[l]] - (starts[l] < 0 ? 0 : incl[starts[l]])
-SPMX_API int spmx_lanepack(int device, const float* vals, const int16_t* lane,
-                           const int8_t* ends, const int8_t* starts,
-                           const int32_t* col_off, const int32_t* chunk_rb,
-                           int64_t num_chunks, int64_t cols, const float* x,
-                           float* y, void* stream);
+// per row block rb: r[l] = sum over its segments' chunks c, in plan order, of
+// vals[c, l] * x[col_off[c]*128 + lane[c, l]] (lane int8; x past cols reads
+// 0); y[rb*128 + l] = r[l] (add = 0) or y[rb*128 + l] += r[l] (add = 1) for
+// every row < rows; add = 0 writes every row of y[:rows]. y 16-byte aligned
+SPMX_API int spmx_aligned(const SpmxSegPlan* plan, const float* x, float* y,
+                          int add, void* stream);
+
+// the LanePack form of spmx_aligned: per chunk, p = vals * x[col_off*128 +
+// lane] (lane int16), incl = inclusive scan of p over the chunk, and lane l
+// of the chunk's row block gets incl[ends[l]] - (starts[l] < 0 ? 0 :
+// incl[starts[l]])
+SPMX_API int spmx_lanepack(const SpmxSegPlan* plan, const float* x, float* y,
+                           int add, void* stream);
 
 // y[rb*128 + l] = sum_layer vals[layer, rb, l] * x[(rb + ds[layer] + (pos >> 7))*128
 //                                                  + (pos & 127)],

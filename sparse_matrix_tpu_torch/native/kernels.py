@@ -7,6 +7,12 @@ one to ``launch_counts[name]``; with no work (an empty plan) it launches
 and counts nothing. Nothing here synchronises or allocates; the
 callers in ``ops/`` own the outputs. The library is built and loaded at the
 first launch, never at import.
+
+A :class:`PreparedLaunch` splits that work for a kernel called many times
+on one plan: ``prepare_*`` checks the plan's arrays once and packs their
+pointers into the C struct the kernel takes, and each call then checks only
+x and y and makes one ctypes call (the aligned and LanePack SpMV kernels;
+``prepare_aligned``, ``prepare_lanepack``).
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ __all__ = [
     "reset_launch_counts",
     "BLOCK_TILE",
     "launch_dia",
-    "launch_aligned",
-    "launch_lanepack",
+    "PreparedLaunch",
+    "prepare_aligned",
+    "prepare_lanepack",
     "launch_bell",
     "launch_stripe",
     "launch_dia_spmm",
@@ -66,12 +73,9 @@ def _library() -> ctypes.CDLL:
         lib.spmx_cuda_error_string.argtypes = [i32]
         lib.spmx_dia.restype = i32
         lib.spmx_dia.argtypes = [i32, vp, i32, vp, i32, i64, i64, vp, vp, vp]
-        lib.spmx_aligned.restype = i32
-        lib.spmx_aligned.argtypes = [i32, vp, vp, vp, vp, i64, i64, vp, vp, vp]
-        lib.spmx_lanepack.restype = i32
-        lib.spmx_lanepack.argtypes = [
-            i32, vp, vp, vp, vp, vp, vp, i64, i64, vp, vp, vp,
-        ]
+        for fn in (lib.spmx_aligned, lib.spmx_lanepack):
+            fn.restype = i32
+            fn.argtypes = [ctypes.POINTER(SegPlan), vp, vp, i32, vp]
         lib.spmx_bell.restype = i32
         lib.spmx_bell.argtypes = [
             i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i64, vp, vp, vp,
@@ -113,6 +117,131 @@ def _library() -> ctypes.CDLL:
                                f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
         _LIB = lib
     return _LIB
+
+
+class SegPlan(ctypes.Structure):
+    """``SpmxSegPlan`` of ``csrc/spmx_cuda.h``: a segmented SpMV plan's
+    pointers and sizes."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("vals", "lane", "ends", "starts", "col_off",
+                                                 "segments", "rb_seg", "scratch", "tickets")]
+    _fields_ += [("num_segments", ctypes.c_int64), ("cols", ctypes.c_int64),
+                 ("rows", ctypes.c_int64), ("device", ctypes.c_int32)]
+
+
+class PreparedLaunch:
+    """One kernel's launch on one checked plan: ``launch(x, y, add=False)``
+    checks x (a contiguous f32 CUDA vector of ``x_len`` elements on the
+    plan's device) and y (the same, ``y_len`` elements, 16-byte aligned),
+    enqueues the kernel on the current stream with one ctypes call of
+    ``(args, x, y, add, stream)``, raises on a refused launch and adds one
+    to ``launch_counts[name]``. ``args`` is the kernel's C struct, packed
+    once; ``keep`` holds the tensors its pointers name. A plan with no
+    work launches and counts nothing."""
+
+    __slots__ = ("name", "device", "x_len", "y_len", "_cname", "_args", "_ref", "_keep",
+                 "_fn", "_stream", "_empty")
+
+    def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
+                 *, x_len: int, y_len: int, empty: bool, keep: tuple):
+        self.name, self.device, self.x_len, self.y_len = name, device, x_len, y_len
+        self._cname, self._args, self._ref = cname, args, ctypes.byref(args)
+        self._keep, self._empty = keep, empty
+        self._fn = self._stream = None
+
+    def _refuse(self, what: str, t: torch.Tensor, n: int):
+        if t.device != self.device:
+            return ValueError(f"{self.name}: {what} is on {t.device}, the plan on {self.device}")
+        if t.dtype != _F32:
+            return TypeError(f"{self.name}: {what} has dtype {t.dtype}, expected {_F32}")
+        if not t.is_contiguous():
+            return ValueError(f"{self.name}: {what} must be contiguous")
+        if t.numel() != n:
+            return ValueError(f"{self.name}: {what} has {t.numel()} elements, expected {n}")
+        return ValueError(f"{self.name}: {what} must be 16-byte aligned")
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, add: bool = False) -> None:
+        idx = self.device.index
+        if (not x.is_cuda or x.get_device() != idx or x.dtype is not _F32
+                or not x.is_contiguous() or x.numel() != self.x_len):
+            raise self._refuse("x", x, self.x_len)
+        if (not y.is_cuda or y.get_device() != idx or y.dtype is not _F32
+                or not y.is_contiguous() or y.numel() != self.y_len or y.data_ptr() % 16):
+            raise self._refuse("y", y, self.y_len)
+        if self._empty:
+            return
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(_library(), self._cname)
+            raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+            self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+        err = fn(self._ref, x.data_ptr(), y.data_ptr(), int(add), self._stream(idx))
+        if err != 0:
+            msg = _library().spmx_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err} ({msg})")
+        launch_counts[self.name] += 1
+
+
+def _prepare_segmented(name, dtypes, *, cols, rows, **tensors) -> PreparedLaunch:
+    """Check a segmented SpMV plan (``csrc/segments.h``) and pack its
+    launch: slot arrays ``(chunks, 128)``, ``col_off`` ``(chunks,)``,
+    ``segments`` ``(S, 4)``, ``rb_seg`` ``(r128 + 1,)``, ``scratch``
+    ``(slots, 128)`` and ``tickets`` ``(r128,)`` int32 zeros. The segment
+    values are the host's (``ops.spmv.chunk_segments``: at most 32 chunks
+    a segment), not read back here."""
+    dev = _check(name, dtypes, **tensors)
+    vals, seg, rb_seg = tensors["vals"], tensors["segments"], tensors["rb_seg"]
+    chunks = vals.shape[0] if vals.dim() == 2 else -1
+    r128 = -(-rows // 128)
+    if (
+        vals.shape != (chunks, 128)
+        or any(tensors[k].shape != vals.shape for k in ("lane", "ends", "starts") if k in tensors)
+        or tensors["col_off"].numel() < chunks
+        or seg.dim() != 2 or seg.shape[1] != 4 or rb_seg.numel() != r128 + 1
+        or tensors["tickets"].numel() != r128 or tensors["scratch"].dim() != 2
+        or tensors["scratch"].shape[1] != 128
+    ):
+        raise ValueError(f"{name}: slot, chunk and segment arrays disagree with {rows} rows")
+    if chunks >= 1 << 31 or seg.shape[0] >= 1 << 31:
+        raise ValueError(f"{name}: the kernel indexes chunks and segments with int32")
+    # the kernels copy slot rows in 16-byte pieces and read segments as int4
+    _check_aligned(name, 16, **{k: tensors[k] for k in ("vals", "lane", "ends", "starts",
+                                                         "segments", "scratch")
+                                if k in tensors})
+    ptr = {k: t.data_ptr() for k, t in tensors.items()}
+    args = SegPlan(vals=ptr["vals"], lane=ptr["lane"], ends=ptr.get("ends"),
+                   starts=ptr.get("starts"), col_off=ptr["col_off"], segments=ptr["segments"],
+                   rb_seg=ptr["rb_seg"], scratch=ptr["scratch"], tickets=ptr["tickets"],
+                   num_segments=seg.shape[0], cols=cols, rows=rows, device=dev.index)
+    return PreparedLaunch(name, f"spmx_{name}", args, dev, x_len=cols, y_len=rows,
+                          empty=seg.shape[0] == 0, keep=tuple(tensors.values()))
+
+
+_SEG_DTYPES = dict(col_off=torch.int32, segments=torch.int32, rb_seg=torch.int32,
+                   scratch=torch.float32, tickets=torch.int32)
+
+
+def prepare_aligned(vals, lane, col_off, segments, rb_seg, scratch, tickets, *, cols: int,
+                    rows: int) -> PreparedLaunch:
+    """The aligned kernel's launch on one plan (vals f32 and lane int8
+    ``(chunks, 128)``): ``launch(x, y)`` writes ``y = A @ x`` into every
+    row of y, ``launch(x, y, add=True)`` adds it."""
+    return _prepare_segmented("aligned", dict(vals=torch.float32, lane=torch.int8, **_SEG_DTYPES),
+                              cols=cols, rows=rows, vals=vals, lane=lane, col_off=col_off,
+                              segments=segments, rb_seg=rb_seg, scratch=scratch,
+                              tickets=tickets)
+
+
+def prepare_lanepack(vals, lane, ends, starts, col_off, segments, rb_seg, scratch, tickets, *,
+                     cols: int, rows: int) -> PreparedLaunch:
+    """The LanePack kernel's launch on one plan (vals f32, lane int16,
+    ends/starts int8 ``(chunks, 128)``): as :func:`prepare_aligned`."""
+    return _prepare_segmented(
+        "lanepack",
+        dict(vals=torch.float32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
+             **_SEG_DTYPES),
+        cols=cols, rows=rows, vals=vals, lane=lane, ends=ends, starts=starts, col_off=col_off,
+        segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
 
 
 def _check(name: str, dtypes: dict, **tensors) -> torch.device:
@@ -167,44 +296,6 @@ def launch_dia(data, offsets, x, y, *, rows: int, cols: int) -> None:
     _run("dia", dev, _library().spmx_dia, data.data_ptr(),
          int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols,
          x.data_ptr(), y.data_ptr())
-
-
-def launch_aligned(vals, lane, col_off, chunk_rb, x, y) -> None:
-    """``y += aligned(vals, lane, col_off, chunk_rb) @ x``; y is the
-    ``(r128 * 128,)`` accumulator."""
-    dev = _check("aligned", dict(vals=_F32, lane=torch.int8, col_off=torch.int32,
-                                 chunk_rb=torch.int32, x=_F32, y=_F32),
-                 vals=vals, lane=lane, col_off=col_off, chunk_rb=chunk_rb, x=x, y=y)
-    chunks = vals.numel() // 128
-    if lane.numel() != vals.numel() or col_off.numel() < chunks or chunk_rb.numel() < chunks:
-        raise ValueError("aligned: slot and chunk arrays disagree")
-    if chunks == 0:
-        return
-    _run("aligned", dev, _library().spmx_aligned, vals.data_ptr(), lane.data_ptr(),
-         col_off.data_ptr(), chunk_rb.data_ptr(), chunks, x.numel(),
-         x.data_ptr(), y.data_ptr())
-
-
-def launch_lanepack(vals, lane, ends, starts, col_off, chunk_rb, x, y) -> None:
-    """``y += lanepack(...) @ x``; y is the ``(r128 * 128,)`` accumulator."""
-    dev = _check(
-        "lanepack",
-        dict(vals=_F32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
-             col_off=torch.int32, chunk_rb=torch.int32, x=_F32, y=_F32),
-        vals=vals, lane=lane, ends=ends, starts=starts, col_off=col_off,
-        chunk_rb=chunk_rb, x=x, y=y,
-    )
-    chunks = vals.numel() // 128
-    n = vals.numel()
-    if (lane.numel(), ends.numel(), starts.numel()) != (n, n, n) or min(
-        col_off.numel(), chunk_rb.numel()
-    ) < chunks:
-        raise ValueError("lanepack: slot and chunk arrays disagree")
-    if chunks == 0:
-        return
-    _run("lanepack", dev, _library().spmx_lanepack, vals.data_ptr(), lane.data_ptr(),
-         ends.data_ptr(), starts.data_ptr(), col_off.data_ptr(),
-         chunk_rb.data_ptr(), chunks, x.numel(), x.data_ptr(), y.data_ptr())
 
 
 def launch_bell(vals, lane, ds, x, y, *, bias: int, rows: int) -> None:

@@ -37,7 +37,17 @@ from ..formats.lanepack import _cost_constants as _lanepack_cost_constants
 from ..formats.stripe import StripePlan, _mode_cost, _stripe_counts, plan_stripe
 from ..formats.stripe import _cost_constants as _stripe_cost_constants
 from ..utils import autotune
-from .spmv import _TORCH_DTYPES, _t
+from .spmv import (
+    _TORCH_DTYPES,
+    _t,
+    spmv_aligned,
+    spmv_ell,
+    spmv_ell_spill,
+    spmv_lanepack,
+    spmv_stripe,
+)
+from .spmv_bell import spmv_bell
+from .spmv_dia import spmv_dia
 
 __all__ = [
     "SpmvOperator",
@@ -485,29 +495,17 @@ class SpmvOperator:
             raise ValueError(f"x is on {x.device}, the operator on {self.device}")
         y = None
         if self._bell is not None:
-            from .spmv_bell import spmv_bell
-
             y = spmv_bell(self._bell, x, device_arrays=self._bell_arrs)
         if self._aligned is not None:
-            from .spmv import spmv_aligned
-
             y = spmv_aligned(self._aligned, x, device_arrays=self._ali_arrs)
         if self._stripe is not None:
-            from .spmv import spmv_stripe
-
             y = spmv_stripe(self._stripe, x, device_arrays=self._stripe_arrs)
         if self._dia is not None:
-            from .spmv_dia import spmv_dia
-
             y = spmv_dia(self._dia, x, device_arrays=self._dia_arrs)
         if self._plan is not None:
-            from .spmv import spmv_lanepack
-
             y2 = spmv_lanepack(self._plan, x, device_arrays=self._lp_arrs)
             y = y2 if y is None else y + y2
         if self._ell is not None:
-            from .spmv import spmv_ell, spmv_ell_spill
-
             if self._ell_spill is not None:
                 y3 = spmv_ell_spill(*self._ell, *self._ell_spill, x)
             else:

@@ -7,8 +7,8 @@ the port's planners (``formats/``), array-equal to the reference's:
 * :func:`spmv_lanepack` — the segmented-reduce kernel
   (``csrc/spmv_lanepack.cu``) over a ``LanePackPlan``;
 * :func:`spmv_aligned` — the destination-aligned kernel
-  (``csrc/spmv_aligned.cu``), plus the LanePack kernel on the plan's spill
-  sub-plan, both accumulating into one y;
+  (``csrc/spmv_aligned.cu``), which writes y, plus the LanePack kernel on
+  the plan's spill sub-plan in add mode;
 * :func:`spmv_stripe` — the multi-level stripe kernel
   (``csrc/spmv_stripe.cu``) over a ``StripePlan`` and, through the same
   kernel, its scan-mode spill sub-plan;
@@ -20,6 +20,14 @@ the port's planners (``formats/``), array-equal to the reference's:
 
 A CUDA ``x`` launches the kernels; a CPU ``x`` takes the plain versions
 :func:`_lanepack_torch`, :func:`_aligned_torch` and :func:`_stripe_torch`.
+
+The aligned and LanePack kernels give each row block's sum one owner: the
+device arrays carry the plan's chunks cut into segments
+(:func:`chunk_segments`: at most ``SEGMENT_CHUNKS`` consecutive chunks of
+one row block each, in plan order), one warp a segment, and a launch
+record (``native.kernels.PreparedLaunch``) made when the arrays are built,
+so that a call checks only x and y. :func:`_segments_torch` evaluates a
+plan over its segments on any device, in the kernels' order.
 The TPU-only limits of the reference are not carried over: its SMEM and
 VMEM raises, the B-slab padding of ``_pick_b``, the SMEM slab segmentation
 of aligned plans, and the ``rb_a``/``rb_b``/``split`` two-target packing
@@ -37,6 +45,7 @@ import torch
 from ..device import on_cuda
 from ..formats.csr import CsrMatrix
 from ..formats.lanepack import LANES, SUBLANES, LanePackPlan
+from ..native import kernels
 
 __all__ = [
     "lanepack_device_arrays",
@@ -67,8 +76,10 @@ def _cast_x(x, plan_dtype, allow_downcast: bool) -> torch.Tensor:
     """Cast ``x`` to the plan's dtype, refusing silent precision loss (a
     float64 vector reaching a float32 plan raises unless
     ``allow_downcast``)."""
-    x = torch.as_tensor(x)
     out = _TORCH_DTYPES[np.dtype(plan_dtype)]
+    if isinstance(x, torch.Tensor) and x.dtype == out:
+        return x
+    x = torch.as_tensor(x)
     if (
         not allow_downcast
         and x.dtype.is_floating_point
@@ -83,6 +94,150 @@ def _cast_x(x, plan_dtype, allow_downcast: bool) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Segments: row-block ownership in the aligned and LanePack kernels
+# ---------------------------------------------------------------------------
+
+
+#: the most chunks one segment holds: a warp's work in the aligned and
+#: LanePack kernels (csrc/segments.h; at most 32, one window base a lane);
+#: a row block of more chunks is cut into several segments, whose sums its
+#: last warp adds in order
+SEGMENT_CHUNKS = 32
+
+
+def _kept_chunks(chunk_rb, col_off, rb_mask, slot_arrays) -> np.ndarray:
+    """The chunks a kernel must visit: all but slab padding. A padding
+    chunk (row block 0, window 0, every slot array zero) adds ``0 * x[0]``
+    to each row of row block 0 (exactly what ``_aligned_torch`` and
+    ``_lanepack_torch`` add for it: zero, or NaN for a non-finite
+    ``x[0]``), so one of them stands for all, and none where row block 0
+    is masked."""
+    pad = (chunk_rb == 0) & (col_off == 0)
+    cand = np.nonzero(pad)[0]
+    for a in slot_arrays:
+        pad[cand] &= ~np.any(a[cand] != 0, axis=1)
+    keep = ~pad
+    if pad.any() and rb_mask.size and rb_mask[0] > 0:
+        keep[int(np.argmax(pad))] = True
+    return keep
+
+
+def chunk_segments(chunk_rb, keep, r128: int, g: int = SEGMENT_CHUNKS):
+    """Cut the kept chunks into segments, each a run of at most ``g``
+    consecutive chunks of one row block in plan order, sorted by row block
+    (a row block with no chunk gets one empty segment). Returns
+    ``(segments, rb_seg, slots)``: ``segments`` (S, 4) int32 rows (row
+    block, first chunk, chunk count, scratch slot), the slot -1 for a row
+    block's only segment and else numbered in segment order; ``rb_seg``
+    (r128 + 1,) int32, row block r's segments being ``rb_seg[r] ..
+    rb_seg[r + 1]``; ``slots`` the scratch slots used."""
+    if not 1 <= g <= 32:
+        raise ValueError(f"segment length {g} must be in [1, 32]")
+    idx = np.nonzero(keep)[0]
+    rb = chunk_rb[idx].astype(np.int64)
+    order = np.argsort(rb, kind="stable")
+    idx, rb = idx[order], rb[order]
+    brk = np.ones(idx.size, bool)
+    brk[1:] = (rb[1:] != rb[:-1]) | (idx[1:] != idx[:-1] + 1)
+    run_start = np.nonzero(brk)[0]
+    pos = np.arange(idx.size) - run_start[np.cumsum(brk) - 1]
+    heads = np.nonzero(pos % g == 0)[0]
+    empty = np.setdiff1d(np.arange(r128), rb[heads])
+    seg_rb = np.concatenate([rb[heads], empty])
+    first = np.concatenate([idx[heads], np.zeros(empty.size, np.int64)])
+    count = np.concatenate([np.diff(np.append(heads, idx.size)), np.zeros(empty.size, np.int64)])
+    order = np.argsort(seg_rb, kind="stable")
+    seg_rb, first, count = seg_rb[order], first[order], count[order]
+    rb_seg = np.zeros(r128 + 1, np.int64)
+    np.cumsum(np.bincount(seg_rb, minlength=r128), out=rb_seg[1:])
+    multi = np.diff(rb_seg)[seg_rb] > 1
+    slot = np.full(seg_rb.size, -1, np.int64)
+    slot[multi] = np.arange(int(multi.sum()))
+    segments = np.stack([seg_rb, first, count, slot], axis=1).astype(np.int32)
+    return segments, rb_seg.astype(np.int32), int(multi.sum())
+
+
+def _segment_arrays(kind: str, plan, device) -> dict:
+    """``segments``, ``rb_seg`` (on ``device``) and ``seg_slots`` of an
+    aligned (``kind="aligned"``) or LanePack plan."""
+    chunks = plan.num_slabs * SUBLANES
+    names = ("vals", "lane") + (("ends", "starts") if kind == "lanepack" else ())
+    slot_arrays = [getattr(plan, n).reshape(chunks, LANES) for n in names]
+    keep = _kept_chunks(plan.chunk_rb[:chunks], plan.col_off[:chunks], plan.rb_mask,
+                        slot_arrays)
+    segments, rb_seg, slots = chunk_segments(plan.chunk_rb[:chunks], keep, plan.r128,
+                                             SEGMENT_CHUNKS)
+    return dict(segments=_t(segments, device), rb_seg=_t(rb_seg, device),
+                seg_slots=slots)
+
+
+def _prepare_launch(kind: str, arrs: dict, plan) -> kernels.PreparedLaunch:
+    """The kernel's launch record on ``arrs``: its scratch slots
+    (``seg_scratch``) and zeroed tickets (``seg_tickets``) are allocated
+    here, every array checked once."""
+    dev = arrs["vals"].device
+    if "segments" not in arrs:
+        arrs.update(_segment_arrays(kind, plan, dev))
+    arrs["seg_scratch"] = torch.empty((arrs["seg_slots"], LANES), dtype=torch.float32,
+                                      device=dev)
+    arrs["seg_tickets"] = torch.zeros(plan.r128, dtype=torch.int32, device=dev)
+    common = dict(col_off=arrs["col_off"], segments=arrs["segments"], rb_seg=arrs["rb_seg"],
+                  scratch=arrs["seg_scratch"], tickets=arrs["seg_tickets"], cols=plan.cols,
+                  rows=plan.rows)
+    if kind == "aligned":
+        return kernels.prepare_aligned(arrs["vals"], arrs["lane"], **common)
+    return kernels.prepare_lanepack(arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"],
+                                    **common)
+
+
+def _launch_record(kind: str, arrs: dict, plan) -> kernels.PreparedLaunch:
+    """``arrs["launch"]``, made (and the arrays checked) at the first call
+    where the caller built the dict without it."""
+    rec = arrs.get("launch")
+    if rec is None:
+        rec = arrs["launch"] = _prepare_launch(kind, arrs, plan)
+    return rec
+
+
+def _segments_torch(kind: str, arrs, x, *, rows: int, cols: int, kw: int = 1):
+    """Plain PyTorch evaluation of an aligned (``kind="aligned"``) or
+    LanePack plan over its segment arrays, in the kernels' order: per
+    chunk the 128 row contributions (the products, or the run differences
+    of the chunk's prefix sum), added chunk by chunk within each segment,
+    then segment by segment within each row block; rows past ``rows``
+    dropped. The CPU tests hold it to ``_aligned_torch`` and
+    ``_lanepack_torch``; no call path uses it."""
+    vals = arrs["vals"]
+    co = arrs["col_off"].long()
+    c128 = -(-cols // LANES)
+    win = kw if kind == "lanepack" else 1
+    xpad = torch.zeros((c128 + win) * LANES, dtype=x.dtype, device=x.device)
+    xpad[: x.shape[0]] = x
+    x2d = xpad.reshape(c128 + win, LANES)
+    chunks = vals.shape[0]
+    xw = x2d[co[:chunks, None] + torch.arange(win, device=x.device)[None, :]]
+    p = vals * torch.gather(xw.reshape(chunks, win * LANES), 1, arrs["lane"].long())
+    if kind == "lanepack":
+        c = torch.cumsum(p, dim=1)
+        starts = arrs["starts"].long()
+        p = torch.gather(c, 1, arrs["ends"].long()) - torch.where(
+            starts < 0, 0.0, torch.gather(c, 1, starts.clamp(min=0)))
+    seg = arrs["segments"].long()
+    first, count = seg[:, 1], seg[:, 2]
+    acc = torch.zeros(seg.shape[0], LANES, dtype=vals.dtype, device=x.device)
+    for k in range(int(count.max()) if seg.shape[0] else 0):
+        live = count > k
+        acc[live] += p[first[live] + k]
+    rb_seg = arrs["rb_seg"].long()
+    nseg = rb_seg[1:] - rb_seg[:-1]
+    y2d = torch.zeros(nseg.shape[0], LANES, dtype=vals.dtype, device=x.device)
+    for k in range(int(nseg.max()) if nseg.numel() else 0):
+        live = nseg > k
+        y2d[live] += acc[rb_seg[:-1][live] + k]
+    return y2d.reshape(-1)[:rows]
+
+
+# ---------------------------------------------------------------------------
 # LanePack
 # ---------------------------------------------------------------------------
 
@@ -90,9 +245,13 @@ def _cast_x(x, plan_dtype, allow_downcast: bool) -> torch.Tensor:
 def lanepack_device_arrays(plan: LanePackPlan, device) -> dict:
     """A LanePack plan's slot and chunk arrays on ``device``, flattened to
     128-slot chunks: ``vals`` (f32), ``lane`` (int16), ``ends``/``starts``
-    (int8), ``col_off``/``chunk_rb`` (int32, one per chunk), ``rb_mask``."""
+    (int8), ``col_off``/``chunk_rb`` (int32, one per chunk), ``rb_mask``;
+    its segments (``segments``, ``rb_seg``, ``seg_slots``; see
+    :func:`chunk_segments`) and, on CUDA, ``launch``: the kernel's launch
+    record, every array checked, with the ``seg_scratch`` slots and
+    ``seg_tickets`` it owns (one launch at a time)."""
     chunks = plan.num_slabs * plan.vals.shape[1]
-    return dict(
+    arrs = dict(
         vals=_t(plan.vals.reshape(chunks, LANES), device),
         lane=_t(plan.lane.reshape(chunks, LANES), device),
         ends=_t(plan.ends.reshape(chunks, LANES), device),
@@ -100,7 +259,11 @@ def lanepack_device_arrays(plan: LanePackPlan, device) -> dict:
         col_off=_t(plan.col_off[:chunks].astype(np.int32), device),
         chunk_rb=_t(plan.chunk_rb[:chunks].astype(np.int32), device),
         rb_mask=_t(plan.rb_mask, device),
+        **_segment_arrays("lanepack", plan, device),
     )
+    if arrs["vals"].is_cuda:
+        arrs["launch"] = _prepare_launch("lanepack", arrs, plan)
+    return arrs
 
 
 def _lanepack_torch(arrs, x, *, rows: int, cols: int, kw: int):
@@ -130,22 +293,15 @@ def _lanepack_torch(arrs, x, *, rows: int, cols: int, kw: int):
     return y2d.reshape(-1)[:rows]
 
 
-def _lanepack_cuda(arrs, x, y) -> None:
-    from ..native.kernels import launch_lanepack
-
-    launch_lanepack(arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"],
-                    arrs["col_off"], arrs["chunk_rb"], x, y)
-
-
 def spmv_lanepack(plan: LanePackPlan, x, *, device_arrays=None, allow_downcast=False):
-    """``y = A @ x`` through the LanePack kernel (CUDA ``x``) or its plain
-    version (CPU ``x``)."""
+    """``y = A @ x`` through the LanePack kernel (CUDA ``x``: it writes
+    every row of a fresh y) or its plain version (CPU ``x``)."""
     x = _cast_x(x, plan.dtype, allow_downcast)
     arrs = device_arrays if device_arrays is not None else lanepack_device_arrays(plan, x.device)
     if on_cuda(x):
-        y = torch.zeros(plan.r128 * LANES, dtype=x.dtype, device=x.device)
-        _lanepack_cuda(arrs, x.contiguous(), y)
-        return y[: plan.rows]
+        y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
+        _launch_record("lanepack", arrs, plan)(x.contiguous(), y)
+        return y
     return _lanepack_torch(arrs, x, rows=plan.rows, cols=plan.cols, kw=plan.kw)
 
 
@@ -157,7 +313,9 @@ def spmv_lanepack(plan: LanePackPlan, x, *, device_arrays=None, allow_downcast=F
 def aligned_device_arrays(plan, device) -> dict:
     """An ``AlignedPlan``'s arrays on ``device`` (``vals`` f32 and ``lane``
     int8 as ``(chunks, 128)``, ``col_off``/``chunk_rb`` int32, ``rb_mask``),
-    plus ``spill``: the LanePack sub-plan's arrays when the plan has one."""
+    its segments and, on CUDA, its launch record (as
+    :func:`lanepack_device_arrays`), plus ``spill``: the LanePack
+    sub-plan's arrays when the plan has one."""
     chunks = plan.num_slabs * plan.vals.shape[1]
     arrs = dict(
         vals=_t(plan.vals.reshape(chunks, LANES), device),
@@ -165,7 +323,10 @@ def aligned_device_arrays(plan, device) -> dict:
         col_off=_t(plan.col_off[:chunks].astype(np.int32), device),
         chunk_rb=_t(plan.chunk_rb[:chunks].astype(np.int32), device),
         rb_mask=_t(plan.rb_mask, device),
+        **_segment_arrays("aligned", plan, device),
     )
+    if arrs["vals"].is_cuda:
+        arrs["launch"] = _prepare_launch("aligned", arrs, plan)
     if plan.spill is not None:
         arrs["spill"] = lanepack_device_arrays(plan.spill, device)
     return arrs
@@ -189,21 +350,19 @@ def _aligned_torch(arrs, x, *, rows: int, cols: int):
 
 
 def spmv_aligned(plan, x, *, device_arrays=None, allow_downcast=False):
-    """``y = A @ x`` through the aligned kernel plus the LanePack kernel on
-    the spill sub-plan (CUDA ``x``: both accumulate into one y), or through
-    their plain versions (CPU ``x``)."""
+    """``y = A @ x`` through the aligned kernel, which writes every row of
+    a fresh y, and the LanePack kernel on the spill sub-plan in add mode
+    (CUDA ``x``), or through their plain versions (CPU ``x``)."""
     x = _cast_x(x, plan.dtype, allow_downcast)
     arrs = device_arrays if device_arrays is not None else aligned_device_arrays(plan, x.device)
     spill = plan.spill
     if on_cuda(x):
-        from ..native.kernels import launch_aligned
-
         x = x.contiguous()
-        y = torch.zeros(plan.r128 * LANES, dtype=x.dtype, device=x.device)
-        launch_aligned(arrs["vals"], arrs["lane"], arrs["col_off"], arrs["chunk_rb"], x, y)
+        y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
+        _launch_record("aligned", arrs, plan)(x, y)
         if spill is not None:
-            _lanepack_cuda(arrs["spill"], x, y)
-        return y[: plan.rows]
+            _launch_record("lanepack", arrs["spill"], spill)(x, y, add=True)
+        return y
     y = _aligned_torch(arrs, x, rows=plan.rows, cols=plan.cols)
     if spill is not None:
         y = y + _lanepack_torch(arrs["spill"], x, rows=plan.rows, cols=plan.cols, kw=spill.kw)

@@ -4,9 +4,9 @@ Counterpart of ``sparse_matrix_tpu/ops/spmv_bell.py``: a ``BellPlan``
 (``formats/bell.py``) goes to the device as its
 ``(L, r128, 128)`` value and lane planes; a CUDA ``x`` launches the BELL
 kernel (``csrc/spmv_bell.cu``) and then the LanePack kernel on the spill
-sub-plan, a CPU ``x`` takes the plain version :func:`_bell_torch`. The
-``pick_br`` row padding of the reference is a TPU block size and is not
-carried over.
+sub-plan in add mode, a CPU ``x`` takes the plain version
+:func:`_bell_torch`. The ``pick_br`` row padding of the reference is a TPU
+block size and is not carried over.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import torch
 from ..device import on_cuda
 from ..formats.bell import BellPlan
 from ..formats.lanepack import LANES
-from .spmv import _cast_x, _lanepack_cuda, _lanepack_torch, _t, lanepack_device_arrays
+from ..native.kernels import launch_bell
+from .spmv import _cast_x, _lanepack_torch, _launch_record, _t, lanepack_device_arrays
 
 __all__ = ["bell_device_arrays", "spmv_bell"]
 
@@ -80,17 +81,13 @@ def spmv_bell(plan: BellPlan, x, *, device_arrays=None, allow_downcast=False):
     spill = plan.spill
     bias = LANES if plan.span == 128 else 0
     if on_cuda(x):
-        from ..native.kernels import launch_bell
-
         x = x.contiguous()
-        # the BELL kernel writes rows [0, rows); the spill kernel adds into
-        # them (it writes only lanes where a row's run ends, all < rows)
-        y = torch.empty(plan.r128 * LANES, dtype=x.dtype, device=x.device)
-        launch_bell(arrs["vals"], arrs["lane"], arrs["ds"], x, y[: plan.rows],
-                    bias=bias, rows=plan.rows)
+        # the BELL kernel writes every row; the spill kernel adds into them
+        y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
+        launch_bell(arrs["vals"], arrs["lane"], arrs["ds"], x, y, bias=bias, rows=plan.rows)
         if spill is not None:
-            _lanepack_cuda(arrs["spill"], x, y)
-        return y[: plan.rows]
+            _launch_record("lanepack", arrs["spill"], spill)(x, y, add=True)
+        return y
     if plan.num_layers:
         y = _bell_torch(arrs["vals"], arrs["lane"], x, ds=plan.ds, modes=plan.modes,
                         span=plan.span, rows=plan.rows, cols=plan.cols)

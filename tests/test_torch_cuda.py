@@ -119,6 +119,187 @@ def test_lanepack_kernel(dev, kw, pack):
          lanepack=(plan,))
 
 
+# the aligned and LanePack kernels own each row block's sum (one writer a
+# row, csrc/segments.h): plans whose row blocks span several segments, at
+# the default segment length and at 2 chunks a segment
+SEGMENTED = {
+    "poisson_aligned": lambda: (poisson_2d_csr(64, dtype=np.float32), "aligned"),
+    "randlocal_aligned_spill": lambda: (
+        corpus.random_local(np.random.default_rng(2), 4096, 16, 1024), "aligned"),
+    "femlike_per_rb": lambda: (corpus.fem_like(np.random.default_rng(1), 64, 2), "per_rb"),
+    "powerlaw_kw16": lambda: (corpus.power_law_rows(np.random.default_rng(3), 4096, 16), "kw16"),
+}
+
+
+def _segmented(name, dev):
+    m, how = SEGMENTED[name]()
+    if how == "aligned":
+        plan = plan_aligned(m)
+        arrs = spmv.aligned_device_arrays(plan, dev)
+
+        def run(x):
+            return spmv.spmv_aligned(plan, x, device_arrays=arrs)
+
+        def plain(x):
+            y = spmv._aligned_torch(arrs, x, rows=plan.rows, cols=plan.cols)
+            if plan.spill is not None:
+                y = y + spmv._lanepack_torch(arrs["spill"], x, rows=plan.rows,
+                                             cols=plan.cols, kw=plan.spill.kw)
+            return y
+
+        scanned = () if plan.spill is None else (plan.spill,)
+    else:
+        plan = plan_lanepack(m, pack="per_rb") if how == "per_rb" else plan_lanepack(m, kw=16)
+
+        def run(x):
+            return spmv.spmv_lanepack(plan, x, device_arrays=arrs)
+
+        def plain(x):
+            return spmv._lanepack_torch(arrs, x, rows=plan.rows, cols=plan.cols, kw=plan.kw)
+
+        arrs = spmv.lanepack_device_arrays(plan, dev)
+        scanned = (plan,)
+    return m, plan, arrs, run, plain, scanned
+
+
+@pytest.mark.parametrize("g", [2, spmv.SEGMENT_CHUNKS])
+@pytest.mark.parametrize("name", list(SEGMENTED))
+def test_segmented_kernels_repeat_bitwise(dev, name, g, monkeypatch):
+    """Two calls give equal bits; row blocks of more than g chunks (cut into
+    several segments) are summed by their last warp; within the bound."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", g)
+    m, plan, arrs, run, plain, scanned = _segmented(name, dev)
+    seg = arrs["segments"].cpu().numpy()
+    assert seg[:, 3].max() >= 0  # some row block spans several segments
+    x_np, x = _x(m, dev)
+    kernel = "aligned" if name.endswith(("aligned", "spill")) else "lanepack"
+    _run(kernel, m, x_np, dev, lambda: run(x), lambda: plain(x), lanepack=scanned)
+    y1, y2 = run(x), run(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    for a in (arrs, arrs.get("spill", arrs)):
+        assert torch.all(a["seg_tickets"] == 0)  # the last warps reset the tickets
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")])
+@pytest.mark.parametrize("name", ["poisson_aligned", "randlocal_aligned_spill", "femlike_per_rb"])
+def test_segmented_kernels_nonfinite_x(dev, name, value, monkeypatch):
+    """A non-finite x (at x[0], which the slab padding reads, and inside)
+    gives the plain version's NaN and inf rows."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    m, plan, arrs, run, plain, _ = _segmented(name, dev)
+    for where in (0, m.cols // 2 + 3):
+        x_np, x = _x(m, dev)
+        x[where] = value
+        a, b = run(x).cpu().numpy(), plain(x).cpu().numpy()
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        assert np.array_equal(np.isposinf(a), np.isposinf(b))
+        assert np.array_equal(np.isneginf(a), np.isneginf(b))
+        assert not np.all(np.isfinite(b))
+
+
+def test_bell_spill_adds_into_bell_rows(dev):
+    """The BELL kernel writes y, the LanePack spill adds to it in add mode
+    (rows >= rows untouched), one launch each."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = corpus.power_law_rows(np.random.default_rng(0), 4096, 16)
+    plan = plan_bell(m)
+    assert plan.spill is not None
+    arrs = spmv_bell.bell_device_arrays(plan, dev)
+    x_np, x = _x(m, dev)
+    before = dict(kernels.launch_counts)
+
+    def plain():
+        y = spmv_bell._bell_torch(arrs["vals"], arrs["lane"], x, ds=plan.ds, modes=plan.modes,
+                                  span=plan.span, rows=plan.rows, cols=plan.cols)
+        return y + spmv._lanepack_torch(arrs["spill"], x, rows=plan.rows, cols=plan.cols,
+                                        kw=plan.spill.kw)
+
+    _run("bell", m, x_np, dev, lambda: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
+         plain, lanepack=(plan.spill,))
+    assert kernels.launch_counts["lanepack"] - before["lanepack"] == 1
+    y1 = spmv_bell.spmv_bell(plan, x, device_arrays=arrs)
+    assert torch.equal(y1, spmv_bell.spmv_bell(plan, x, device_arrays=arrs))
+
+
+def test_segmented_store_writes_every_row(dev, monkeypatch):
+    """Store mode writes every row of y, masked and empty row blocks 0, into
+    a y full of NaN; add mode adds its result onto y bit for bit."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    rng = np.random.default_rng(7)
+    mask = rng.random((700, 512)) < 0.03
+    for rb in (0, 2, 4):
+        mask[rb * 128: (rb + 1) * 128] = False
+    r, c = np.nonzero(mask)
+    m = CsrMatrix.from_coo(700, 512, r, c, rng.standard_normal(r.size).astype(np.float32))
+    x_np, x = _x(m, dev)
+    lp = plan_lanepack(m, pack="per_rb")
+    al = plan_aligned(m)
+    assert al.spill is not None
+    for arrs, scanned in ((spmv.lanepack_device_arrays(lp, dev), (lp,)),
+                          (spmv.aligned_device_arrays(al, dev), (al.spill,))):
+        y = torch.full((700,), float("nan"), device=dev)
+        arrs["launch"](x, y)
+        if "spill" in arrs:
+            arrs["spill"]["launch"](x, y, add=True)
+        yk = y.double().cpu().numpy()
+        for rb in (0, 2, 4):
+            assert np.all(yk[rb * 128: (rb + 1) * 128] == 0)
+        y64, bound = spmv.spmv_f64_bound(m, x_np, lanepack=scanned)
+        assert np.all(np.abs(yk - y64) <= bound)
+        y_store = torch.full((700,), float("nan"), device=dev)
+        arrs["launch"](x, y_store)
+        y_add = y.clone()
+        arrs["launch"](x, y_add, add=True)
+        assert torch.equal(y_add, y + y_store)
+
+
+def test_segmented_kernels_empty_plan(dev):
+    """A plan with no chunk: every row of y is written 0; add mode launches
+    nothing it would need."""
+    m = CsrMatrix.from_coo(300, 200, np.zeros(0, np.int64), np.zeros(0, np.int64),
+                           np.zeros(0, np.float32))
+    x = torch.ones(200, device=dev)
+    for y in (spmv.spmv_lanepack(plan_lanepack(m), x), spmv.spmv_aligned(plan_aligned(m), x)):
+        torch.cuda.synchronize()
+        assert y.shape == (300,) and torch.all(y == 0)
+
+
+def test_segmented_kernels_refuse_bad_x(dev):
+    """x on the CPU, of another dtype, or of another length is refused
+    before anything launches; so is a misaligned y."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = poisson_2d_csr(32, dtype=np.float32)
+    for plan, build in ((plan_aligned(m), spmv.aligned_device_arrays),
+                        (plan_lanepack(m), spmv.lanepack_device_arrays)):
+        rec = build(plan, dev)["launch"]
+        y = torch.empty(m.rows, device=dev)
+        before = dict(kernels.launch_counts)
+        with pytest.raises(ValueError, match="is on cpu"):
+            rec(torch.zeros(m.cols), y)
+        with pytest.raises(TypeError, match="dtype"):
+            rec(torch.zeros(m.cols, dtype=torch.float64, device=dev), y)
+        with pytest.raises(ValueError, match="elements"):
+            rec(torch.zeros(m.cols + 1, device=dev), y)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            rec(torch.zeros(m.cols, device=dev), torch.empty(m.rows + 1, device=dev)[1:])
+        assert kernels.launch_counts == before
+    with pytest.raises(TypeError, match="dtype"):
+        spmv.spmv_aligned(plan_aligned(m), torch.zeros(m.cols, dtype=torch.float64, device=dev))
+
+
+def test_device_arrays_without_record_are_checked_at_first_call(dev):
+    m = poisson_2d_csr(32, dtype=np.float32)
+    plan = plan_lanepack(m)
+    arrs = spmv.lanepack_device_arrays(plan, dev)
+    bare = {k: v for k, v in arrs.items() if k not in ("launch", "segments", "rb_seg")}
+    x_np, x = _x(m, dev)
+    y = spmv.spmv_lanepack(plan, x, device_arrays=bare)
+    assert "launch" in bare and torch.equal(y, spmv.spmv_lanepack(plan, x, device_arrays=arrs))
+
+
 @pytest.mark.parametrize("span", [128, 256])
 @pytest.mark.parametrize("vdt", [None, torch.bfloat16])
 def test_bell_kernel(dev, span, vdt):

@@ -173,8 +173,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
     blk = torch.zeros(1, 16, 16)
     calls = {
         "dia": lambda: kernels.launch_dia(f32[None], i32, f32, f32, rows=128, cols=128),
-        "aligned": lambda: kernels.launch_aligned(f32, i8, i32, i32, f32, f32),
-        "lanepack": lambda: kernels.launch_lanepack(f32, i16, i8, i8, i32, i32, f32, f32),
+        "aligned": lambda: kernels.prepare_aligned(f32[None], i8[None], i32, i32.repeat(1, 4),
+                                                   i32.repeat(2), f32[None], i32,
+                                                   cols=128, rows=128),
+        "lanepack": lambda: kernels.prepare_lanepack(f32[None], i16[None], i8[None], i8[None],
+                                                     i32, i32.repeat(1, 4), i32.repeat(2),
+                                                     f32[None], i32, cols=128, rows=128),
         "bell": lambda: kernels.launch_bell(f32[None, None], i8[None, None], i32, f32, f32,
                                             bias=128, rows=128),
         "stripe": lambda: kernels.launch_stripe(f32, i8, i8, None, i32, i32, f32, f32, levels=1),
