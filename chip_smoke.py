@@ -23,15 +23,17 @@ Phases, each of which ends the run with an exception on failure:
    their float64 plain versions per entry, and B11 to err/bound <= 0.34
    against a float64 block oracle of its stored operands on the card
    (``block_err_over_bound``; 1/(n + 2) <= 1/3 in theory). The aligned,
-   LanePack and BELL SpMV kernels (B2, B3, B4; BELL on randlocal_262k with
-   a LanePack spill in add mode) must give equal bits on two calls. Each
-   case has CUDA-event times (median of 30 calls, 5 for the block SpGEMM)
-   of the kernel through the wrapper a user calls (``ms``; for B2, B3 and
-   B10 also the bare launch, ``launch_ms``, and its device time with no
-   host gaps, ``device_ms``), its plain version and one library call on
-   the same inputs (``torch.sparse`` CSR times X, or CSR times CSR for the
-   SpGEMM, with the dense ``torch.matmul`` beside it, and in its place past
-   the products cuSPARSE can take; a yardstick used nowhere in the port),
+   LanePack, BELL and stripe SpMV kernels (B2, B3, B4, B5; BELL on
+   randlocal_262k with a LanePack spill in add mode, the select stripe
+   plan with its scan-mode spill in add mode) must give equal bits on two
+   calls. Each case has CUDA-event times (median of 30 calls, 5 for the
+   block SpGEMM) of the kernel through the wrapper a user calls (``ms``;
+   for B2, B3, B4, B5 and B10 also the bare launch, ``launch_ms``, and its
+   device time with no host gaps, ``device_ms``), its plain version and
+   one library call on the same inputs (``torch.sparse`` CSR times X, or
+   CSR times CSR for the SpGEMM, with the dense ``torch.matmul`` beside
+   it, and in its place past the products cuSPARSE can take; a yardstick
+   used nowhere in the port),
    and the bound: the larger of the bytes the product must move
    over 3.35 TB/s (the matrix once in the smallest of its plain CSR and DIA
    forms and the kernel's plan, ``matrix_bytes``, and x and y once each;
@@ -109,7 +111,9 @@ Phases, each of which ends the run with an exception on failure:
    b and dinv read once and y written once over 3.35 TB/s); and on
    Poisson 64^2, depth(L) - 1 = 126 sweeps equal to the exact host solve.
 
-The last two lines are the kernels' JSON record and the result line. The
+The last two lines are the kernels' JSON record (each kernel with its
+worst ``ms / library_ms`` over its cases, ``worst_library_factor``) and
+the result line. The
 script imports nothing of JAX or of the JAX package. Without a CUDA device
 it exits with 1 and prints no result.
 """
@@ -201,7 +205,8 @@ READS = {
     "aligned": ("vals", "lane", "col_off", "segments", "rb_seg"),
     "lanepack": ("vals", "lane", "ends", "starts", "col_off", "segments", "rb_seg"),
     "bell": ("vals", "lane", "ds"),
-    "stripe": ("vals", "lane", "ends", "starts", "stripe_rb", "col_off"),
+    "stripe": ("vals", "lane", "ends", "starts", "col_off", "chunk_stripe", "rb_mask",
+               "segments", "stripe_seg"),
     "aligned_spmm": ("vals", "lane", "col_off", "chunk_rb"),
     "lanepack_spmm": ("vals", "lane", "ends", "starts", "col_off", "chunk_rb"),
     "bell_spmm": ("vals", "lane", "ds"),
@@ -687,10 +692,17 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
                 p, a = p.spill, a.get("spill")
             return y
 
+        def launch(plan=plan, arrs=arrs, x=x, y=torch.empty(plan.rows, device=dev)):
+            arrs["launch"](x, y)
+            p, a = plan.spill, arrs.get("spill")
+            while p is not None:
+                a["launch"](x, y, add=True)
+                p, a = p.spill, a.get("spill")
+
         chk.check("stripe", f"{name}_{plan.mode}_L{plan.levels}_kw{plan.kw}", m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmv.spmv_stripe(plan, x, device_arrays=arrs),
                   plain, plan_bytes=arrays_bytes("stripe", arrs),
-                  stripe=(plan,))
+                  stripe=(plan,), launch=launch, repeat_bits=True)
         del arrs
 
     # LanePack: the bench's three classes, both packs
@@ -735,10 +747,17 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
             return y
 
         tag = f"{name}_span{plan.span}" + ("" if plan.spill is None else "_spill")
+
+        def launch(arrs=arrs, x=x, y=torch.empty(plan.rows, device=dev)):
+            arrs["launch"](x, y)
+            if "spill" in arrs:
+                arrs["spill"]["launch"](x, y, add=True)
+
         chk.check("bell", tag, m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
                   plain, plan_bytes=arrays_bytes("bell", arrs),
-                  lanepack=() if plan.spill is None else (plan.spill,), repeat_bits=True)
+                  lanepack=() if plan.spill is None else (plan.spill,), launch=launch,
+                  repeat_bits=True)
     chk._csr.clear()
 
 
@@ -1969,14 +1988,21 @@ def main() -> int:
     for name, (src, rep) in REPLACES.items():
         cases = chk.cases[name]
         first = cases[0]
+        # the worst ms / library_ms over the kernel's cases (None where no
+        # library call computes its function)
+        factors = [(c["ms"] / c["library_ms"], c["case"]) for c in cases if c.get("library_ms")]
+        worst = max(factors, default=(None, None))
         record.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=counts[name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],
+            worst_library_factor=worst[0], worst_library_case=worst[1],
             case=first["case"], cases=cases,
         ))
+        if worst[0] is not None:
+            log(f"kernel {name:12s} worst ms/library {worst[0]:.2f} ({worst[1]})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
-"""Times the aligned (B2) and LanePack (B3) SpMV of one checkout of the port
-on the card, so that two checkouts compare in one run:
+"""Times the SpMV kernels of one checkout of the port on the card: aligned
+(B2), LanePack (B3), BELL (B4) and stripe (B5), so that two checkouts
+compare in one run:
 
     python3 sparse_matrix_tpu_torch/bench/spmv_times.py [--tree DIR]
+        [--kinds aligned,lanepack,bell,stripe]
 
 imports ``sparse_matrix_tpu_torch`` from the checkout at DIR (default: the
 one holding this file) and prints one JSON line with, per case:
 
-* ``ms``: ``spmv_aligned`` / ``spmv_lanepack`` through the wrapper a user
-  calls (device arrays built beforehand), median of 30;
-* ``launch_ms``: the bare kernel launch(es) on the prepared inputs, the
-  host's launch path included, median of 30;
+* ``ms``: ``spmv_aligned`` / ``spmv_lanepack`` / ``spmv_bell`` /
+  ``spmv_stripe`` through the wrapper a user calls (device arrays built
+  beforehand), median of 30;
+* ``launch_ms``: the bare kernel launch(es) through the launch records of
+  the device arrays (the first writes y, every spill adds), the host's
+  launch path included, median of 30;
 * ``device_ms``: the bare launches with no host gaps (20 calls enqueued
   behind a sleep kernel, timed together);
 * ``library_ms``: ``torch.mv`` of the ``torch.sparse`` CSR tensor on the
@@ -18,8 +22,12 @@ one holding this file) and prints one JSON line with, per case:
 
 The cases: Poisson 1024^2 aligned; randlocal_262k aligned with its
 LanePack spill; femlike_262k, randlocal_262k and powerlaw_262k LanePack
-in the ``dense`` and ``per_rb`` packs (the planner's own ``kw``). The
-matrices are chip_smoke.py's, x from seed 0.
+in the ``dense`` and ``per_rb`` packs (the planner's own ``kw``); BELL on
+Poisson 1024^2 (span 128, f32 and bf16 value planes), femlike_262k (span
+256) and randlocal_262k (span 128 with its LanePack spill); stripe
+scan(2,2) on randlocal_262k and scan(8,16) on powerlaw_262k (the
+operator's plans) and the select plan of randlocal_262k with its
+scan-mode spill. The matrices are chip_smoke.py's, x from seed 0.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import sys
 import warnings
 
 import numpy as np
+
+KINDS = ("aligned", "lanepack", "bell", "stripe")
 
 
 def _cuda_ms(torch, fn, reps: int = 30, warmup: int = 10) -> float:
@@ -66,31 +76,24 @@ def _device_ms(torch, fn, calls: int = 20) -> float:
     return s.elapsed_time(e) / calls
 
 
-def _bare_launch(torch, kernels, spmv, kind, arrs, x, rows, r128):
-    """The bare launch(es) of one call: the prepared launch record where
-    the checkout has one, else the ``launch_*`` functions into a y the
-    caller zeroed once (the accumulating kernels of earlier checkouts)."""
-    if "launch" in arrs:
-        y = torch.empty(rows, dtype=torch.float32, device=x.device)
-        rec, spill = arrs["launch"], arrs.get("spill", {}).get("launch")
+def _chain(plan, arrs):
+    """(plan, arrays) of a plan and its spill sub-plans, outermost first."""
+    while plan is not None:
+        yield plan, arrs
+        plan, arrs = getattr(plan, "spill", None), arrs.get("spill")  # LanePack: no spill
 
-        def run():
-            rec(x, y)
-            if spill is not None:
-                spill(x, y, add=True)
 
-        return run
-    y = torch.zeros(r128 * 128, dtype=torch.float32, device=x.device)
-    if kind == "aligned":
-        def run():
-            kernels.launch_aligned(arrs["vals"], arrs["lane"], arrs["col_off"],
-                                   arrs["chunk_rb"], x, y)
-            if "spill" in arrs:
-                spmv._lanepack_cuda(arrs["spill"], x, y)
-    else:
-        def run():
-            kernels.launch_lanepack(arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"],
-                                    arrs["col_off"], arrs["chunk_rb"], x, y)
+def _bare_launch(torch, plan, arrs, x):
+    """The bare launch(es) of one call through the launch records: the
+    first writes y, every spill sub-plan's adds into it."""
+    y = torch.empty(plan.rows, dtype=torch.float32, device=x.device)
+    recs = [a["launch"] for _p, a in _chain(plan, arrs)]
+
+    def run():
+        recs[0](x, y)
+        for rec in recs[1:]:
+            rec(x, y, add=True)
+
     return run
 
 
@@ -99,7 +102,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)),
                     help="checkout whose sparse_matrix_tpu_torch is timed")
+    ap.add_argument("--kinds", default=",".join(KINDS),
+                    help="comma-separated kernels to time, of " + ", ".join(KINDS))
     args = ap.parse_args()
+    kinds = args.kinds.split(",")
+    if not set(kinds) <= set(KINDS):
+        ap.error(f"--kinds takes {', '.join(KINDS)}")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -110,9 +118,10 @@ def main() -> int:
     import sparse_matrix_tpu_torch
     from sparse_matrix_tpu_torch.bench.corpus import bench_classes
     from sparse_matrix_tpu_torch.formats.aligned import plan_aligned
+    from sparse_matrix_tpu_torch.formats.bell import plan_bell
     from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack
-    from sparse_matrix_tpu_torch.native import kernels
-    from sparse_matrix_tpu_torch.ops import spmv
+    from sparse_matrix_tpu_torch.formats.stripe import plan_stripe
+    from sparse_matrix_tpu_torch.ops import spmv, spmv_bell
     from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr
 
     if not os.path.abspath(sparse_matrix_tpu_torch.__file__).startswith(tree + os.sep):
@@ -124,21 +133,42 @@ def main() -> int:
     mats = {"poisson1024": poisson_2d_csr(1024, dtype=np.float32)}
     for name, _tag, m in bench_classes(0):
         mats[name] = m
+    # (kernel, matrix, variant)
     cases = [("aligned", "poisson1024", None), ("aligned", "randlocal_262k", None)]
     cases += [("lanepack", name, pack)
               for name in ("femlike_262k", "randlocal_262k", "powerlaw_262k")
               for pack in ("dense", "per_rb")]
+    cases += [("bell", "poisson1024", "f32"), ("bell", "poisson1024", "bf16"),
+              ("bell", "femlike_262k", "f32"), ("bell", "randlocal_262k", "f32")]
+    cases += [("stripe", "randlocal_262k", ("scan", 2, 2)),
+              ("stripe", "powerlaw_262k", ("scan", 8, 16)),
+              ("stripe", "randlocal_262k", ("select", None, None))]
     out = dict(tree=tree, nvidia_smi=smi, torch=torch.__version__, cases=[])
-    for kind, name, pack in cases:
+    for kind, name, variant in cases:
+        if kind not in kinds:
+            continue
         m = mats[name]
         if kind == "aligned":
             plan = plan_aligned(m)
-            wrapper, build = spmv.spmv_aligned, spmv.aligned_device_arrays
+            wrapper, arrs = spmv.spmv_aligned, spmv.aligned_device_arrays(plan, dev)
             case = name + ("_spill" if plan.spill is not None else "")
+        elif kind == "lanepack":
+            plan = plan_lanepack(m, pack=variant)
+            wrapper, arrs = spmv.spmv_lanepack, spmv.lanepack_device_arrays(plan, dev)
+            case = f"{name}_{variant}_kw{plan.kw}"
+        elif kind == "bell":
+            plan = plan_bell(m)
+            vdt = torch.bfloat16 if variant == "bf16" else None
+            wrapper = spmv_bell.spmv_bell
+            arrs = spmv_bell.bell_device_arrays(plan, dev, values_dtype=vdt)
+            case = (f"{name}_span{plan.span}_{variant}"
+                    + ("_spill" if plan.spill is not None else ""))
         else:
-            plan = plan_lanepack(m, pack=pack)
-            wrapper, build = spmv.spmv_lanepack, spmv.lanepack_device_arrays
-            case = f"{name}_{pack}_kw{plan.kw}"
+            mode, levels, kw = variant
+            plan = plan_stripe(m, mode=mode, levels=levels, kw=kw)
+            wrapper, arrs = spmv.spmv_stripe, spmv.stripe_device_arrays(plan, dev)
+            case = (f"{name}_{plan.mode}_L{plan.levels}_kw{plan.kw}"
+                    + ("_spill" if plan.spill is not None else ""))
         x_np = np.random.default_rng(0).standard_normal(m.cols).astype(np.float32)
         x = torch.from_numpy(x_np).to(dev)
         with warnings.catch_warnings():
@@ -148,14 +178,13 @@ def main() -> int:
                 torch.from_numpy(m.indices.astype(np.int64)),
                 torch.from_numpy(m.vals.astype(np.float32)), size=(m.rows, m.cols)).to(dev)
         library_ms = _cuda_ms(torch, lambda a=a, x=x: torch.mv(a, x))
-        arrs = build(plan, dev)
 
         def call(plan=plan, x=x, arrs=arrs, wrapper=wrapper):
             return wrapper(plan, x, device_arrays=arrs)
 
         y1, y2 = call(), call()
         torch.cuda.synchronize()
-        launch = _bare_launch(torch, kernels, spmv, kind, arrs, x, plan.rows, plan.r128)
+        launch = _bare_launch(torch, plan, arrs, x)
         row = dict(kernel=kind, case=case, rows=m.rows, nnz=m.nnz(), ms=_cuda_ms(torch, call),
                    launch_ms=_cuda_ms(torch, launch), device_ms=_device_ms(torch, launch),
                    library_ms=library_ms, bitwise_repeat=bool(torch.equal(y1, y2)))

@@ -5,8 +5,8 @@
 // cudaStream_t passed as void*), never synchronises and allocates nothing:
 // the Python wrapper owns every buffer. The return value is
 // cudaGetLastError() after the launch (0 = launched). Outputs that the
-// kernel accumulates into with atomics (stripe, aligned SpMM, LanePack
-// SpMM) must be zeroed by the caller.
+// kernel accumulates into with atomics (aligned SpMM, LanePack SpMM) must
+// be zeroed by the caller.
 #pragma once
 
 #include <stdint.h>
@@ -64,26 +64,81 @@ SPMX_API int spmx_aligned(const SpmxSegPlan* plan, const float* x, float* y,
 SPMX_API int spmx_lanepack(const SpmxSegPlan* plan, const float* x, float* y,
                            int add, void* stream);
 
-// y[rb*128 + l] = sum_layer vals[layer, rb, l] * x[(rb + ds[layer] + (pos >> 7))*128
-//                                                  + (pos & 127)],
-// pos = lane[layer, rb, l] + bias; lanes int8 (lane_bytes = 1) or int16 (2);
-// values f32 (values_bf16 = 0) or bf16 bits (1)
-SPMX_API int spmx_bell(int device, const void* vals, int values_bf16,
-                       const void* lane, int lane_bytes, int bias,
-                       const int32_t* ds, int num_layers, int64_t r128,
-                       int64_t rows, int64_t cols, const float* x, float* y,
+// A BELL plan, packed once by the wrapper: `vals` (num_layers, r128, 128)
+// f32 (values_bf16 = 0) or bf16 bits (1); `lane` the same
+// shape, int8 (lane_bytes = 1) or int16 (2); `ds` (num_layers,) int32
+// bucket bases
+typedef struct {
+  const void* vals;
+  const void* lane;
+  const int32_t* ds;
+  int64_t r128;
+  int64_t rows;
+  int64_t cols;
+  int32_t num_layers;
+  int32_t bias;
+  int32_t lane_bytes;
+  int32_t values_bf16;
+  int32_t device;
+} SpmxBellPlan;
+
+// with pos = lane[layer, rb, l] + bias:
+// r = sum_layer vals[layer, rb, l] * x[(rb + ds[layer] + (pos >> 7))*128 + (pos & 127)]
+// (x outside [0, cols) reads 0), summed in layer order; y[rb*128 + l] = r for
+// every row < rows. add must be 0 (cudaErrorNotSupported otherwise): a
+// BELL plan only writes y
+SPMX_API int spmx_bell(const SpmxBellPlan* plan, const float* x, float* y, int add,
                        void* stream);
 
-// per slab s of 8 chunks and level l < levels, lane d:
-// y[(stripe_rb[s] + l)*128 + d] += sum_chunks g, with p = vals * x[col_off*128
-// + lane] and g = incl[ends] - (starts < 0 ? 0 : incl[starts]) (scan mode,
-// starts != NULL) or g = p[ends] (select mode, starts == NULL); ends/starts
-// (S, levels, 8, 128) int8; lanes int8 (lane_bytes = 1) or int16 (2)
-SPMX_API int spmx_stripe(int device, const float* vals, const void* lane,
-                         int lane_bytes, const int8_t* ends,
-                         const int8_t* starts, const int32_t* stripe_rb,
-                         const int32_t* col_off, int64_t num_slabs, int levels,
-                         int64_t cols, const float* x, float* y, void* stream);
+// A stripe plan with its segments (segments.h), packed once by the wrapper:
+// slabs of 8 chunks, `vals` (S*8, 128) f32, `lane` (S*8, 128) int8
+// (lane_bytes = 1) or int16 (2), `ends` and, in scan mode, `starts` (NULL
+// in select mode) (S, levels, 8, 128) int8, `col_off` and `chunk_stripe`
+// (S*8,) int32, `rb_mask` (>= stripes*levels,) f32; `segments`
+// (num_segments, 4) int32 rows (stripe, first slab, slab count, scratch
+// slot or -1), sorted by stripe, every stripe of the rows holding at least
+// one; `stripe_seg` (stripes + 1) int32 offsets of each stripe's segments;
+// `scratch` (slots, levels*128) f32 and `tickets` (stripes *
+// ceil(levels / spmx_stripe_group_levels())) int32 (zero between
+// launches) for stripes of several segments. `foreign_pad`: some slab of a
+// stripe other than 0 holds padding chunks (chunk_stripe 0). Slab arrays,
+// col_off, chunk_stripe, segments and scratch 16-byte aligned.
+typedef struct {
+  const float* vals;
+  const void* lane;
+  const int8_t* ends;
+  const int8_t* starts;
+  const int32_t* col_off;
+  const int32_t* chunk_stripe;
+  const float* rb_mask;
+  const int32_t* segments;
+  const int32_t* stripe_seg;
+  float* scratch;
+  int32_t* tickets;
+  int64_t num_segments;
+  int64_t cols;
+  int64_t rows;
+  int32_t levels;
+  int32_t lane_bytes;
+  int32_t foreign_pad;
+  int32_t device;
+} SpmxStripePlan;
+
+// the levels one thread block of the stripe kernel owns (8); a plan of more
+// levels launches ceil(levels / 8) blocks a segment, with a ticket each
+SPMX_API int spmx_stripe_group_levels(void);
+
+// per stripe (levels row blocks from stripe*levels) and chunk c of its
+// slabs (slab s = c / 8), with p = vals * x[col_off*128 + lane] (x past cols
+// reads 0): g[l, d] = incl[ends[s, l, c%8, d]] - (starts < 0 ? 0 :
+// incl[starts]) (scan mode, incl the chunk's inclusive prefix sum of p) or
+// g = p[ends] (select mode), zero for a chunk whose chunk_stripe is not the
+// slab's; r = sum over the stripe's chunks, in segment then plan order, of
+// g, plus 0 * x[0] on stripe 0 when foreign_pad; y[row] = r (add = 0) or
+// y[row] += r (add = 1) for every row < rows of an unmasked row block, y =
+// 0 (add = 0) or untouched (add = 1) on masked ones; y 16-byte aligned
+SPMX_API int spmx_stripe(const SpmxStripePlan* plan, const float* x, float* y, int add,
+                         void* stream);
 
 // packed K-column DIA SpMM (1 <= k <= 16): x3 (.., k, 128) with x[j, :] at row
 // x_lo + j/128; y3 (y_rows_total, k, 128) with y[i, :] at row y_lo + i/128,

@@ -11,8 +11,9 @@ first launch, never at import.
 A :class:`PreparedLaunch` splits that work for a kernel called many times
 on one plan: ``prepare_*`` checks the plan's arrays once and packs their
 pointers into the C struct the kernel takes, and each call then checks only
-x and y and makes one ctypes call (the aligned and LanePack SpMV kernels;
-``prepare_aligned``, ``prepare_lanepack``).
+x and y and makes one ctypes call (the aligned, LanePack, BELL and
+stripe SpMV kernels; ``prepare_aligned``, ``prepare_lanepack``,
+``prepare_bell``, ``prepare_stripe``).
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "BLOCK_TILE",
+    "STRIPE_GROUP_LEVELS",
     "launch_dia",
     "PreparedLaunch",
     "prepare_aligned",
     "prepare_lanepack",
-    "launch_bell",
-    "launch_stripe",
+    "prepare_bell",
+    "prepare_stripe",
     "launch_dia_spmm",
     "launch_aligned_spmm",
     "launch_lanepack_spmm",
@@ -56,6 +58,12 @@ _LIB: Optional[ctypes.CDLL] = None
 #: live-depth streams have one segment per output tile
 BLOCK_TILE = 64
 
+#: the levels one thread block of the stripe kernel owns (kGroupLevels of
+#: csrc/spmv_stripe.cu, checked against ``spmx_stripe_group_levels`` when
+#: the library loads): a plan of L levels needs ``ceil(L / 8)`` tickets a
+#: stripe
+STRIPE_GROUP_LEVELS = 8
+
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
@@ -73,17 +81,10 @@ def _library() -> ctypes.CDLL:
         lib.spmx_cuda_error_string.argtypes = [i32]
         lib.spmx_dia.restype = i32
         lib.spmx_dia.argtypes = [i32, vp, i32, vp, i32, i64, i64, vp, vp, vp]
-        for fn in (lib.spmx_aligned, lib.spmx_lanepack):
+        # prepared launches: (plan struct, x, y, add, stream)
+        for fn in (lib.spmx_aligned, lib.spmx_lanepack, lib.spmx_bell, lib.spmx_stripe):
             fn.restype = i32
-            fn.argtypes = [ctypes.POINTER(SegPlan), vp, vp, i32, vp]
-        lib.spmx_bell.restype = i32
-        lib.spmx_bell.argtypes = [
-            i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i64, vp, vp, vp,
-        ]
-        lib.spmx_stripe.restype = i32
-        lib.spmx_stripe.argtypes = [
-            i32, vp, vp, i32, vp, vp, vp, vp, i64, i32, i64, vp, vp, vp,
-        ]
+            fn.argtypes = [vp, vp, vp, i32, vp]
         lib.spmx_dia_spmm.restype = i32
         lib.spmx_dia_spmm.argtypes = [
             i32, vp, i32, vp, i32, i64, i64, i32, vp, i64, vp, i64, i64, vp,
@@ -110,11 +111,16 @@ def _library() -> ctypes.CDLL:
         lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
         lib.spmx_trisweep.restype = i32
         lib.spmx_trisweep.argtypes = [i32, vp, vp, i32, i64, vp, vp, i32, vp, vp, vp]
-        lib.spmx_block_tile.restype = i32
-        lib.spmx_block_tile.argtypes = []
+        for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels):
+            fn.restype = i32
+            fn.argtypes = []
         if lib.spmx_block_tile() != BLOCK_TILE:
             raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
                                f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
+        if lib.spmx_stripe_group_levels() != STRIPE_GROUP_LEVELS:
+            raise RuntimeError(f"the stripe kernel groups {lib.spmx_stripe_group_levels()} "
+                               f"levels, STRIPE_GROUP_LEVELS is {STRIPE_GROUP_LEVELS}: the "
+                               "tickets would not match")
         _LIB = lib
     return _LIB
 
@@ -127,6 +133,25 @@ class SegPlan(ctypes.Structure):
                                                  "segments", "rb_seg", "scratch", "tickets")]
     _fields_ += [("num_segments", ctypes.c_int64), ("cols", ctypes.c_int64),
                  ("rows", ctypes.c_int64), ("device", ctypes.c_int32)]
+
+
+class BellPlan(ctypes.Structure):
+    """``SpmxBellPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("vals", "lane", "ds")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("r128", "rows", "cols")]
+    _fields_ += [(f, ctypes.c_int32) for f in ("num_layers", "bias", "lane_bytes",
+                                               "values_bf16", "device")]
+
+
+class StripePlan(ctypes.Structure):
+    """``SpmxStripePlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "vals", "lane", "ends", "starts", "col_off", "chunk_stripe", "rb_mask", "segments",
+        "stripe_seg", "scratch", "tickets")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("num_segments", "cols", "rows")]
+    _fields_ += [(f, ctypes.c_int32) for f in ("levels", "lane_bytes", "foreign_pad", "device")]
 
 
 class PreparedLaunch:
@@ -145,7 +170,7 @@ class PreparedLaunch:
     def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
                  *, x_len: int, y_len: int, empty: bool, keep: tuple):
         self.name, self.device, self.x_len, self.y_len = name, device, x_len, y_len
-        self._cname, self._args, self._ref = cname, args, ctypes.byref(args)
+        self._cname, self._args, self._ref = cname, args, ctypes.addressof(args)
         self._keep, self._empty = keep, empty
         self._fn = self._stream = None
 
@@ -244,6 +269,90 @@ def prepare_lanepack(vals, lane, ends, starts, col_off, segments, rb_seg, scratc
         segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
 
 
+def prepare_bell(vals, lane, ds, *, bias: int, rows: int, cols: int) -> PreparedLaunch:
+    """The BELL kernel's launch on one plan (vals f32 or bf16 and lane int8
+    or int16 ``(L, r128, 128)``, ds ``(L,)`` int32 bucket bases, lane
+    positions stored as ``pos - bias``): ``launch(x, y)`` writes ``y = A @
+    x`` into every row of y; ``launch(x, y, add=True)`` is refused (a BELL
+    plan only writes y, its spill adds)."""
+    dev = _check("bell", dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32),
+                 vals=vals, lane=lane, ds=ds)
+    layers = ds.numel()
+    if vals.dim() != 3 or vals.shape[0] != layers or vals.shape[2] != 128 \
+            or lane.shape != vals.shape:
+        raise ValueError("bell: value/lane planes disagree with ds")
+    r128 = vals.shape[1]
+    if r128 * 128 < rows:
+        raise ValueError("bell: planes do not cover the rows")
+    args = BellPlan(vals=vals.data_ptr(), lane=lane.data_ptr(), ds=ds.data_ptr(), r128=r128,
+                    rows=rows, cols=cols, num_layers=layers, bias=bias,
+                    lane_bytes=lane.element_size(), values_bf16=int(vals.dtype == torch.bfloat16),
+                    device=dev.index)
+    return PreparedLaunch("bell", "spmx_bell", args, dev, x_len=cols, y_len=rows,
+                          empty=rows == 0, keep=(vals, lane, ds))
+
+
+def prepare_stripe(vals, lane, ends, starts, col_off, chunk_stripe, rb_mask, segments,
+                   stripe_seg, scratch, tickets, *, levels: int, cols: int, rows: int,
+                   foreign_pad: bool) -> PreparedLaunch:
+    """The stripe kernel's launch on one plan and its segments
+    (``ops.spmv.stripe_segments``): slab arrays ``vals`` f32 and ``lane``
+    int8 or int16 ``(S * 8, 128)``, ``ends`` and, in scan mode, ``starts``
+    int8 ``(S, L, 8, 128)`` (``starts=None``: select mode), ``col_off`` and
+    ``chunk_stripe`` int32 ``(S * 8,)``, ``rb_mask`` f32, ``segments`` ``(N,
+    4)`` and ``stripe_seg`` ``(stripes + 1,)`` int32, ``scratch`` ``(slots,
+    L * 128)`` f32 and ``tickets`` ``(stripes * ceil(L / 8),)`` int32 zeros.
+    ``launch(x, y)`` writes ``y = A @ x`` into every row of y,
+    ``launch(x, y, add=True)`` adds it. The segment values are the
+    host's, not read back here."""
+    tensors = dict(vals=vals, lane=lane, ends=ends, col_off=col_off, chunk_stripe=chunk_stripe,
+                   rb_mask=rb_mask, segments=segments, stripe_seg=stripe_seg, scratch=scratch,
+                   tickets=tickets)
+    if starts is not None:
+        tensors["starts"] = starts
+    dev = _check("stripe",
+                 dict(vals=_F32, lane=(torch.int8, torch.int16), ends=torch.int8,
+                      starts=torch.int8, col_off=torch.int32, chunk_stripe=torch.int32,
+                      rb_mask=_F32, segments=torch.int32, stripe_seg=torch.int32,
+                      scratch=_F32, tickets=torch.int32),
+                 **tensors)
+    if levels < 1:
+        raise ValueError(f"stripe: {levels} levels")
+    slabs = ends.shape[0] if ends.dim() == 4 else -1
+    stripes = -(-rows // (levels * 128))
+    groups = -(-levels // STRIPE_GROUP_LEVELS)
+    if (
+        ends.shape != (slabs, levels, 8, 128)
+        or (starts is not None and starts.shape != ends.shape)
+        or vals.shape != (slabs * 8, 128) or lane.shape != vals.shape
+        or col_off.numel() < slabs * 8 or chunk_stripe.numel() < slabs * 8
+        or rb_mask.numel() < stripes * levels
+        or segments.dim() != 2 or segments.shape[1] != 4
+        or stripe_seg.numel() != stripes + 1 or tickets.numel() != stripes * groups
+        or scratch.dim() != 2 or scratch.shape[1] != levels * 128
+    ):
+        raise ValueError(f"stripe: slab, segment and scratch arrays disagree with {levels} "
+                         f"levels and {rows} rows")
+    if segments.shape[0] >= 1 << 31 or stripes * levels >= 1 << 31:
+        raise ValueError("stripe: the kernel indexes segments and row blocks with int32")
+    # the kernel copies slab rows, window bases and chunk stripes in 16-byte
+    # pieces, reads segments as int4 and scratch as V floats
+    _check_aligned("stripe", 16, **{k: tensors[k] for k in (
+        "vals", "lane", "ends", "starts", "col_off", "chunk_stripe", "segments", "scratch")
+        if k in tensors})
+    ptr = {k: t.data_ptr() for k, t in tensors.items()}
+    args = StripePlan(vals=ptr["vals"], lane=ptr["lane"], ends=ptr["ends"],
+                      starts=ptr.get("starts"), col_off=ptr["col_off"],
+                      chunk_stripe=ptr["chunk_stripe"], rb_mask=ptr["rb_mask"],
+                      segments=ptr["segments"], stripe_seg=ptr["stripe_seg"],
+                      scratch=ptr["scratch"], tickets=ptr["tickets"],
+                      num_segments=segments.shape[0], cols=cols, rows=rows, levels=levels,
+                      lane_bytes=lane.element_size(), foreign_pad=int(foreign_pad),
+                      device=dev.index)
+    return PreparedLaunch("stripe", "spmx_stripe", args, dev, x_len=cols, y_len=rows,
+                          empty=segments.shape[0] == 0, keep=tuple(tensors.values()))
+
+
 def _check(name: str, dtypes: dict, **tensors) -> torch.device:
     """All tensors contiguous, on one CUDA device, of the listed dtypes."""
     dev = None
@@ -296,56 +405,6 @@ def launch_dia(data, offsets, x, y, *, rows: int, cols: int) -> None:
     _run("dia", dev, _library().spmx_dia, data.data_ptr(),
          int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols,
          x.data_ptr(), y.data_ptr())
-
-
-def launch_bell(vals, lane, ds, x, y, *, bias: int, rows: int) -> None:
-    """``y = BELL(vals, lane, ds) @ x`` (vals/lane ``(L, r128, 128)``)."""
-    dev = _check(
-        "bell",
-        dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32, x=_F32, y=_F32),
-        vals=vals, lane=lane, ds=ds, x=x, y=y,
-    )
-    layers = ds.numel()
-    if vals.dim() != 3 or vals.shape[0] != layers or lane.shape != vals.shape:
-        raise ValueError("bell: value/lane planes disagree with ds")
-    r128 = vals.shape[1]
-    if r128 * 128 < rows or y.numel() != rows:
-        raise ValueError("bell: planes do not cover the rows")
-    _run("bell", dev, _library().spmx_bell, vals.data_ptr(),
-         int(vals.dtype == torch.bfloat16), lane.data_ptr(), lane.element_size(),
-         bias, ds.data_ptr(), layers, r128, rows, x.numel(), x.data_ptr(),
-         y.data_ptr())
-
-
-def launch_stripe(vals, lane, ends, starts, stripe_rb, col_off, x, y, *, levels: int) -> None:
-    """``y += stripe(...) @ x`` for one stripe plan (scan mode when
-    ``starts`` is given, select mode when it is None); y is the
-    ``(r128_padded * 128,)`` accumulator."""
-    tensors = dict(vals=vals, lane=lane, ends=ends, stripe_rb=stripe_rb,
-                   col_off=col_off, x=x, y=y)
-    if starts is not None:
-        tensors["starts"] = starts
-    dev = _check(
-        "stripe",
-        dict(vals=_F32, lane=(torch.int8, torch.int16), ends=torch.int8,
-             starts=torch.int8, stripe_rb=torch.int32, col_off=torch.int32,
-             x=_F32, y=_F32),
-        **tensors,
-    )
-    slabs = stripe_rb.numel()
-    if (
-        vals.numel() != slabs * 1024 or lane.numel() != vals.numel()
-        or col_off.numel() != slabs * 8
-        or ends.shape != (slabs, levels, 8, 128)
-        or (starts is not None and starts.shape != ends.shape)
-    ):
-        raise ValueError("stripe: slab arrays disagree with (slabs, levels)")
-    if slabs == 0:
-        return
-    _run("stripe", dev, _library().spmx_stripe, vals.data_ptr(), lane.data_ptr(),
-         lane.element_size(), ends.data_ptr(),
-         None if starts is None else starts.data_ptr(), stripe_rb.data_ptr(),
-         col_off.data_ptr(), slabs, levels, x.numel(), x.data_ptr(), y.data_ptr())
 
 
 def launch_dia_spmm(data, offsets, x3, y3, *, rows: int, cols: int, x_lo: int, y_lo: int) -> None:

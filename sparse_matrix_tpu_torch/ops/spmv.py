@@ -10,8 +10,8 @@ the port's planners (``formats/``), array-equal to the reference's:
   (``csrc/spmv_aligned.cu``), which writes y, plus the LanePack kernel on
   the plan's spill sub-plan in add mode;
 * :func:`spmv_stripe` — the multi-level stripe kernel
-  (``csrc/spmv_stripe.cu``) over a ``StripePlan`` and, through the same
-  kernel, its scan-mode spill sub-plan;
+  (``csrc/spmv_stripe.cu``), which writes y, over a ``StripePlan`` and,
+  through the same kernel in add mode, its scan-mode spill sub-plan;
 * :func:`spmv_ell` / :func:`spmv_ell_spill` — padded-ELL gathers in plain
   PyTorch on every device (the reference computes ELL in XLA, not Pallas);
 * :func:`spmv_oracle` — the host CSR row loop, the test oracle, and
@@ -27,7 +27,10 @@ device arrays carry the plan's chunks cut into segments
 one row block each, in plan order), one warp a segment, and a launch
 record (``native.kernels.PreparedLaunch``) made when the arrays are built,
 so that a call checks only x and y. :func:`_segments_torch` evaluates a
-plan over its segments on any device, in the kernels' order.
+plan over its segments on any device, in the kernels' order. The stripe
+kernel does the same for each stripe's rows (:func:`stripe_segments`: at
+most ``stripe_segment_slabs(L)`` consecutive slabs of one stripe a
+segment, one thread block each; :func:`_stripe_segments_torch`).
 The TPU-only limits of the reference are not carried over: its SMEM and
 VMEM raises, the B-slab padding of ``_pick_b``, the SMEM slab segmentation
 of aligned plans, and the ``rb_a``/``rb_b``/``split`` two-target packing
@@ -52,6 +55,7 @@ __all__ = [
     "spmv_lanepack",
     "aligned_device_arrays",
     "spmv_aligned",
+    "stripe_segments",
     "stripe_device_arrays",
     "spmv_stripe",
     "ell_from_csr",
@@ -171,10 +175,10 @@ def _segment_arrays(kind: str, plan, device) -> dict:
                 seg_slots=slots)
 
 
-def _prepare_launch(kind: str, arrs: dict, plan) -> kernels.PreparedLaunch:
-    """The kernel's launch record on ``arrs``: its scratch slots
-    (``seg_scratch``) and zeroed tickets (``seg_tickets``) are allocated
-    here, every array checked once."""
+def _prepare_segment_launch(kind: str, arrs: dict, plan) -> kernels.PreparedLaunch:
+    """The aligned or LanePack kernel's launch record on ``arrs``: its
+    scratch slots (``seg_scratch``) and zeroed tickets (``seg_tickets``)
+    are allocated here, every array checked once."""
     dev = arrs["vals"].device
     if "segments" not in arrs:
         arrs.update(_segment_arrays(kind, plan, dev))
@@ -190,12 +194,21 @@ def _prepare_launch(kind: str, arrs: dict, plan) -> kernels.PreparedLaunch:
                                     **common)
 
 
-def _launch_record(kind: str, arrs: dict, plan) -> kernels.PreparedLaunch:
-    """``arrs["launch"]``, made (and the arrays checked) at the first call
-    where the caller built the dict without it."""
+def _prepare_aligned(arrs: dict, plan) -> kernels.PreparedLaunch:
+    return _prepare_segment_launch("aligned", arrs, plan)
+
+
+def _prepare_lanepack(arrs: dict, plan) -> kernels.PreparedLaunch:
+    return _prepare_segment_launch("lanepack", arrs, plan)
+
+
+def _launch_record(prepare, arrs: dict, plan) -> kernels.PreparedLaunch:
+    """``arrs["launch"]``, made by ``prepare(arrs, plan)`` (and the arrays
+    checked) at the first call where the caller built the dict without
+    it."""
     rec = arrs.get("launch")
     if rec is None:
-        rec = arrs["launch"] = _prepare_launch(kind, arrs, plan)
+        rec = arrs["launch"] = prepare(arrs, plan)
     return rec
 
 
@@ -262,7 +275,7 @@ def lanepack_device_arrays(plan: LanePackPlan, device) -> dict:
         **_segment_arrays("lanepack", plan, device),
     )
     if arrs["vals"].is_cuda:
-        arrs["launch"] = _prepare_launch("lanepack", arrs, plan)
+        arrs["launch"] = _prepare_lanepack(arrs, plan)
     return arrs
 
 
@@ -300,7 +313,7 @@ def spmv_lanepack(plan: LanePackPlan, x, *, device_arrays=None, allow_downcast=F
     arrs = device_arrays if device_arrays is not None else lanepack_device_arrays(plan, x.device)
     if on_cuda(x):
         y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
-        _launch_record("lanepack", arrs, plan)(x.contiguous(), y)
+        _launch_record(_prepare_lanepack, arrs, plan)(x.contiguous(), y)
         return y
     return _lanepack_torch(arrs, x, rows=plan.rows, cols=plan.cols, kw=plan.kw)
 
@@ -326,7 +339,7 @@ def aligned_device_arrays(plan, device) -> dict:
         **_segment_arrays("aligned", plan, device),
     )
     if arrs["vals"].is_cuda:
-        arrs["launch"] = _prepare_launch("aligned", arrs, plan)
+        arrs["launch"] = _prepare_aligned(arrs, plan)
     if plan.spill is not None:
         arrs["spill"] = lanepack_device_arrays(plan.spill, device)
     return arrs
@@ -359,9 +372,9 @@ def spmv_aligned(plan, x, *, device_arrays=None, allow_downcast=False):
     if on_cuda(x):
         x = x.contiguous()
         y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
-        _launch_record("aligned", arrs, plan)(x, y)
+        _launch_record(_prepare_aligned, arrs, plan)(x, y)
         if spill is not None:
-            _launch_record("lanepack", arrs["spill"], spill)(x, y, add=True)
+            _launch_record(_prepare_lanepack, arrs["spill"], spill)(x, y, add=True)
         return y
     y = _aligned_torch(arrs, x, rows=plan.rows, cols=plan.cols)
     if spill is not None:
@@ -381,12 +394,96 @@ def _stripe_chain(plan):
         plan = plan.spill
 
 
+def stripe_segment_slabs(levels: int) -> int:
+    """The most slabs one segment of a plan of ``levels`` levels holds, a
+    thread block's work in the stripe kernel (csrc/spmv_stripe.cu; a stripe
+    of more slabs is cut into several segments, whose sums its last block
+    adds in order): 8 for at most 2 levels, 4 above, the faster of 2, 4 and
+    8 on each of the main path's plans, randlocal scan(2,2) and powerlaw
+    scan(8,16), on an H100 (PERF.md §6)."""
+    return 8 if levels <= 2 else 4
+
+
+def stripe_segments(plan):
+    """Cut each stripe's slabs into segments of at most ``g`` =
+    :func:`stripe_segment_slabs` of the plan's levels consecutive slabs, in
+    plan order, sorted by stripe (a stripe of the rows with no slab gets
+    one empty segment).
+    Returns ``(segments, stripe_seg, slots)``: ``segments`` (S, 4) int32
+    rows (stripe, first slab, slab count, scratch slot), the slot -1 for a
+    stripe's only segment and else numbered in segment order;
+    ``stripe_seg`` (stripes + 1,) int32, stripe k's segments being
+    ``stripe_seg[k] .. stripe_seg[k + 1]``; ``slots`` the scratch slots
+    used. Raises unless the slabs of each stripe are consecutive
+    (``stripe_rb`` non-decreasing), which the kernel's one owner a stripe
+    needs."""
+    g = stripe_segment_slabs(plan.levels)
+    if not 1 <= g <= 32:
+        raise ValueError(f"segment length {g} must be in [1, 32]")
+    lvl = plan.levels
+    stripes = -(-plan.rows // (lvl * LANES))
+    slab_stripe = plan.stripe_rb[: plan.num_slabs].astype(np.int64) // lvl
+    if np.any(np.diff(slab_stripe) < 0) or (slab_stripe.size and (
+            slab_stripe[0] < 0 or slab_stripe[-1] >= stripes)):
+        raise ValueError("stripe plan: the slabs of a stripe must be consecutive, in stripe "
+                         "order (stripe_rb non-decreasing, within the rows)")
+    cnt = np.bincount(slab_stripe, minlength=stripes)
+    lo = np.zeros(stripes, np.int64)
+    np.cumsum(cnt[:-1], out=lo[1:])
+    nseg = np.maximum(1, -(-cnt // g))
+    stripe_seg = np.zeros(stripes + 1, np.int64)
+    np.cumsum(nseg, out=stripe_seg[1:])
+    seg_stripe = np.repeat(np.arange(stripes), nseg)
+    k = np.arange(seg_stripe.size) - stripe_seg[:-1][seg_stripe]
+    count = np.minimum(cnt[seg_stripe] - k * g, g)
+    first = np.where(count > 0, lo[seg_stripe] + k * g, 0)
+    multi = nseg[seg_stripe] > 1
+    slot = np.full(seg_stripe.size, -1, np.int64)
+    slot[multi] = np.arange(int(multi.sum()))
+    segments = np.stack([seg_stripe, first, count, slot], axis=1).astype(np.int32)
+    return segments, stripe_seg.astype(np.int32), int(multi.sum())
+
+
+def _stripe_segment_arrays(plan, device) -> dict:
+    """``segments``, ``stripe_seg`` (on ``device``), ``seg_slots`` and
+    ``foreign_pad`` (whether a slab of a stripe other than 0 holds padding
+    chunks, which the plain version scatters into stripe 0) of a stripe
+    plan."""
+    segments, stripe_seg, slots = stripe_segments(plan)
+    chunks = plan.num_slabs * SUBLANES
+    slab_stripe = plan.stripe_rb[: plan.num_slabs].astype(np.int64) // plan.levels
+    foreign = np.repeat(slab_stripe, SUBLANES) != plan.chunk_stripe[:chunks]
+    return dict(segments=_t(segments, device), stripe_seg=_t(stripe_seg, device),
+                seg_slots=slots, foreign_pad=bool(foreign.any()))
+
+
+def _prepare_stripe(arrs: dict, plan) -> kernels.PreparedLaunch:
+    dev = arrs["vals"].device
+    if "segments" not in arrs:
+        arrs.update(_stripe_segment_arrays(plan, dev))
+    lvl = plan.levels
+    stripes = arrs["stripe_seg"].numel() - 1
+    groups = -(-lvl // kernels.STRIPE_GROUP_LEVELS)
+    arrs["seg_scratch"] = torch.empty((arrs["seg_slots"], lvl * LANES), dtype=torch.float32,
+                                      device=dev)
+    arrs["seg_tickets"] = torch.zeros(stripes * groups, dtype=torch.int32, device=dev)
+    return kernels.prepare_stripe(
+        arrs["vals"], arrs["lane"], arrs["ends"], arrs.get("starts"), arrs["col_off"],
+        arrs["chunk_stripe"], arrs["rb_mask"], arrs["segments"], arrs["stripe_seg"],
+        arrs["seg_scratch"], arrs["seg_tickets"], levels=lvl, cols=plan.cols, rows=plan.rows,
+        foreign_pad=arrs["foreign_pad"])
+
+
 def stripe_device_arrays(plan, device) -> dict:
     """A ``StripePlan``'s arrays on ``device``: ``vals`` (f32) and ``lane``
     (int8 or int16) as ``(chunks, 128)``; ``ends`` and, in scan mode,
     ``starts`` (int8) in the plan's ``(S, L, 8, 128)`` layout;
     ``stripe_rb`` (S,), ``col_off``/``chunk_stripe`` (chunks,) int32;
-    ``rb_mask``; ``spill``: the spill sub-plan's arrays."""
+    ``rb_mask``; its segments (``segments``, ``stripe_seg``,
+    ``seg_slots``, ``foreign_pad``; see :func:`stripe_segments`) and, on
+    CUDA, ``launch``: the kernel's launch record, every array checked, with
+    the ``seg_scratch`` slots and ``seg_tickets`` it owns (one launch at a
+    time); ``spill``: the spill sub-plan's arrays."""
     chunks = plan.num_slabs * plan.vals.shape[1]
     arrs = dict(
         vals=_t(plan.vals.reshape(chunks, LANES), device),
@@ -396,24 +493,27 @@ def stripe_device_arrays(plan, device) -> dict:
         col_off=_t(plan.col_off[:chunks].astype(np.int32), device),
         chunk_stripe=_t(plan.chunk_stripe[:chunks].astype(np.int32), device),
         rb_mask=_t(plan.rb_mask, device),
+        **_stripe_segment_arrays(plan, device),
     )
     if plan.starts is not None:
         arrs["starts"] = _t(plan.starts, device)
+    if arrs["vals"].is_cuda:
+        arrs["launch"] = _prepare_stripe(arrs, plan)
     if plan.spill is not None:
         arrs["spill"] = stripe_device_arrays(plan.spill, device)
     return arrs
 
 
-def _stripe_torch(arrs, x, *, rows: int, cols: int, lvl: int, kw: int, scan: bool):
-    """Plain PyTorch evaluation of one stripe plan (not its spill): the
-    counterpart of ``_stripe_reference`` (window gather, product, cumsum in
-    scan mode, per-level boundary gathers scatter-added at
-    ``chunk_stripe * L + level``, empty blocks masked)."""
+def _stripe_gathers(arrs, x, *, cols: int, lvl: int, kw: int, scan: bool, own=None):
+    """Per chunk and level the 128 gathers of one stripe plan, ``(chunks,
+    L, 128)``: the run differences of the chunk's prefix sum (scan mode) or
+    the selected products (select mode); a chunk where ``own`` is False
+    gathers from zero products."""
     vals = arrs["vals"]
     s8 = vals.shape[0]
     lane = arrs["lane"].long()
-    # (S, L, 8, 128) -> per chunk (S*8, L, 128)
-    ends = arrs["ends"].transpose(1, 2).reshape(s8, lvl, LANES).long()
+    # (S, L, 8, 128) -> per chunk (S*8, L*128)
+    ends = arrs["ends"].transpose(1, 2).reshape(s8, lvl * LANES).long()
     co = arrs["col_off"].long()
     c128 = -(-cols // LANES)
     xpad = torch.zeros((c128 + kw) * LANES, dtype=x.dtype, device=x.device)
@@ -421,49 +521,82 @@ def _stripe_torch(arrs, x, *, rows: int, cols: int, lvl: int, kw: int, scan: boo
     x2d = xpad.reshape(c128 + kw, LANES)
     win = x2d[co[:, None] + torch.arange(kw, device=x.device)[None, :]].reshape(s8, kw * LANES)
     p = vals * torch.gather(win, 1, lane)
-    if scan:
-        starts = arrs["starts"].transpose(1, 2).reshape(s8, lvl, LANES).long()
-        c = torch.cumsum(p, dim=1)
+    if own is not None:
+        p = torch.where(own[:, None], p, 0.0)
+    if not scan:
+        return torch.gather(p, 1, ends).reshape(s8, lvl, LANES)
+    starts = arrs["starts"].transpose(1, 2).reshape(s8, lvl * LANES).long()
+    c = torch.cumsum(p, dim=1)
+    g = torch.gather(c, 1, ends) - torch.where(
+        starts < 0, 0.0, torch.gather(c, 1, starts.clamp(min=0)))
+    return g.reshape(s8, lvl, LANES)
+
+
+def _stripe_torch(arrs, x, *, rows: int, cols: int, lvl: int, kw: int, scan: bool):
+    """Plain PyTorch evaluation of one stripe plan (not its spill): the
+    counterpart of ``_stripe_reference`` (window gather, product, cumsum in
+    scan mode, per-level boundary gathers scatter-added at
+    ``chunk_stripe * L + level``, empty blocks masked)."""
+    g = _stripe_gathers(arrs, x, cols=cols, lvl=lvl, kw=kw, scan=scan)
     r128p = arrs["rb_mask"].shape[0]
-    y2d = torch.zeros(r128p, LANES, dtype=vals.dtype, device=x.device)
+    y2d = torch.zeros(r128p, LANES, dtype=arrs["vals"].dtype, device=x.device)
     rb0 = arrs["chunk_stripe"].long() * lvl
     for lv in range(lvl):
-        e = ends[:, lv]
-        if scan:
-            s = starts[:, lv]
-            g = torch.gather(c, 1, e) - torch.where(
-                s < 0, 0.0, torch.gather(c, 1, s.clamp(min=0))
-            )
-        else:
-            g = torch.gather(p, 1, e)
-        y2d.index_add_(0, rb0 + lv, g)
+        y2d.index_add_(0, rb0 + lv, g[:, lv])
     y2d = torch.where(arrs["rb_mask"][:, None] > 0, y2d, 0.0)
     return y2d.reshape(-1)[:rows]
 
 
-def _stripe_cuda(plan, arrs, x, y) -> None:
-    """Launch the stripe kernel for ``plan`` and each spill sub-plan, all
-    adding into ``y`` (an empty plan launches nothing)."""
-    from ..native.kernels import launch_stripe
-
-    launch_stripe(arrs["vals"], arrs["lane"], arrs["ends"], arrs.get("starts"),
-                  arrs["stripe_rb"], arrs["col_off"], x, y, levels=plan.levels)
-    if plan.spill is not None:
-        _stripe_cuda(plan.spill, arrs["spill"], x, y)
+def _stripe_segments_torch(arrs, x, *, rows: int, cols: int, lvl: int, kw: int, scan: bool):
+    """Plain PyTorch evaluation of one stripe plan (not its spill) over its
+    segment arrays, in the kernel's order: per chunk the ``L * 128``
+    gathers (zero for a slab's padding chunks of another stripe), added
+    chunk by chunk within each segment, then segment by segment within each
+    stripe, ``0 * x[0]`` on stripe 0 where ``foreign_pad``, masked row
+    blocks 0; rows past ``rows`` dropped. The CPU tests hold it to
+    :func:`_stripe_torch` and the JAX package; no call path uses it."""
+    slab_stripe = arrs["stripe_rb"].long() // lvl
+    own = arrs["chunk_stripe"].long() == slab_stripe.repeat_interleave(SUBLANES)
+    g = _stripe_gathers(arrs, x, cols=cols, lvl=lvl, kw=kw, scan=scan, own=own)
+    g = g.reshape(g.shape[0], lvl * LANES)
+    seg = arrs["segments"].long()
+    first, count = seg[:, 1] * SUBLANES, seg[:, 2] * SUBLANES
+    acc = torch.zeros(seg.shape[0], lvl * LANES, dtype=g.dtype, device=x.device)
+    for k in range(int(count.max()) if seg.shape[0] else 0):
+        live = count > k
+        acc[live] += g[first[live] + k]
+    stripe_seg = arrs["stripe_seg"].long()
+    nseg = stripe_seg[1:] - stripe_seg[:-1]
+    y2d = torch.zeros(nseg.shape[0], lvl * LANES, dtype=g.dtype, device=x.device)
+    for k in range(int(nseg.max()) if nseg.numel() else 0):
+        live = nseg > k
+        y2d[live] += acc[stripe_seg[:-1][live] + k]
+    if arrs["foreign_pad"] and y2d.shape[0]:
+        y2d[0] += 0.0 * (x[0] if cols > 0 else 0.0)
+    y2d = y2d.reshape(-1, LANES)
+    y2d = torch.where(arrs["rb_mask"][: y2d.shape[0], None] > 0, y2d, 0.0)
+    return y2d.reshape(-1)[:rows]
 
 
 def spmv_stripe(plan, x, *, device_arrays=None, allow_downcast=False):
-    """``y = A @ x`` through the stripe kernel on the plan and its spill
-    sub-plan (CUDA ``x``: one y for all), or through the plain version
-    (CPU ``x``). The reference's SMEM and VMEM refusals are not carried
-    over: the kernel reads its indices and x from device memory."""
+    """``y = A @ x`` through the stripe kernel, which writes every row of a
+    fresh y, and the same kernel in add mode on each spill sub-plan (CUDA
+    ``x``; a plan with no slab launches nothing), or through the plain
+    version (CPU ``x``). The reference's SMEM and VMEM refusals are not
+    carried over: the kernel reads its indices and x from device memory."""
     x = _cast_x(x, plan.dtype, allow_downcast)
     arrs = device_arrays if device_arrays is not None else stripe_device_arrays(plan, x.device)
     if on_cuda(x):
-        r128p = max(p.r128_padded for p in _stripe_chain(plan))
-        y = torch.zeros(r128p * LANES, dtype=x.dtype, device=x.device)
-        _stripe_cuda(plan, arrs, x.contiguous(), y)
-        return y[: plan.rows]
+        if plan.num_slabs == 0:  # no entry, so no spill either
+            return torch.zeros(plan.rows, dtype=x.dtype, device=x.device)
+        x = x.contiguous()
+        y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
+        _launch_record(_prepare_stripe, arrs, plan)(x, y)
+        sp, sp_arrs = plan.spill, arrs.get("spill")
+        while sp is not None:
+            _launch_record(_prepare_stripe, sp_arrs, sp)(x, y, add=True)
+            sp, sp_arrs = sp.spill, sp_arrs.get("spill")
+        return y
     y = _stripe_torch(arrs, x, rows=plan.rows, cols=plan.cols, lvl=plan.levels,
                       kw=plan.kw, scan=plan.mode == "scan")
     if plan.spill is not None:

@@ -3,9 +3,10 @@
 Counterpart of ``sparse_matrix_tpu/ops/spmv_bell.py``: a ``BellPlan``
 (``formats/bell.py``) goes to the device as its
 ``(L, r128, 128)`` value and lane planes; a CUDA ``x`` launches the BELL
-kernel (``csrc/spmv_bell.cu``) and then the LanePack kernel on the spill
-sub-plan in add mode, a CPU ``x`` takes the plain version
-:func:`_bell_torch`. The ``pick_br`` row padding of the reference is a TPU
+kernel (``csrc/spmv_bell.cu``), which writes y, and then the LanePack
+kernel on the spill sub-plan in add mode, each through the launch record
+its device arrays carry (``native.kernels.PreparedLaunch``: the plan
+checked once); a CPU ``x`` takes the plain version :func:`_bell_torch`. The ``pick_br`` row padding of the reference is a TPU
 block size and is not carried over.
 """
 
@@ -16,8 +17,9 @@ import torch
 from ..device import on_cuda
 from ..formats.bell import BellPlan
 from ..formats.lanepack import LANES
-from ..native.kernels import launch_bell
-from .spmv import _cast_x, _lanepack_torch, _launch_record, _t, lanepack_device_arrays
+from ..native.kernels import PreparedLaunch, prepare_bell
+from .spmv import (_cast_x, _lanepack_torch, _launch_record, _prepare_lanepack, _t,
+                   lanepack_device_arrays)
 
 __all__ = ["bell_device_arrays", "spmv_bell"]
 
@@ -25,10 +27,11 @@ __all__ = ["bell_device_arrays", "spmv_bell"]
 def bell_device_arrays(plan: BellPlan, device, values_dtype=None) -> dict:
     """Value planes (``values_dtype``, default the plan's), lane planes
     (int8 at span 128, int16 at 256), per-layer bases ``ds`` (int32) and
-    the spill sub-plan's LanePack arrays. ``values_dtype=torch.bfloat16``
-    halves the value stream; the spill keeps f32 values. Slots the plan did
-    not fill keep its pad convention: value 0, lane pointing at index 0 of
-    the layer's first used 128-half."""
+    the spill sub-plan's LanePack arrays; on CUDA ``launch``, the kernel's
+    launch record. ``values_dtype=torch.bfloat16`` halves the value stream;
+    the spill keeps f32 values. Slots the plan did not fill keep its pad
+    convention: value 0, lane pointing at index 0 of the layer's first used
+    128-half."""
     vals = _t(plan.vals, device)
     if values_dtype is not None:
         vals = vals.to(values_dtype).contiguous()
@@ -37,9 +40,16 @@ def bell_device_arrays(plan: BellPlan, device, values_dtype=None) -> dict:
         lane=_t(plan.lane, device),
         ds=torch.tensor(plan.ds, dtype=torch.int32, device=device),
     )
+    if vals.is_cuda:
+        arrs["launch"] = _prepare_bell(arrs, plan)
     if plan.spill is not None:
         arrs["spill"] = lanepack_device_arrays(plan.spill, device)
     return arrs
+
+
+def _prepare_bell(arrs: dict, plan: BellPlan) -> PreparedLaunch:
+    return prepare_bell(arrs["vals"], arrs["lane"], arrs["ds"],
+                        bias=LANES if plan.span == 128 else 0, rows=plan.rows, cols=plan.cols)
 
 
 def _bell_torch(vals, lane, x, *, ds: tuple, modes: tuple, span: int, rows: int, cols: int):
@@ -79,14 +89,13 @@ def spmv_bell(plan: BellPlan, x, *, device_arrays=None, allow_downcast=False):
     x = _cast_x(x, plan.dtype, allow_downcast)
     arrs = device_arrays if device_arrays is not None else bell_device_arrays(plan, x.device)
     spill = plan.spill
-    bias = LANES if plan.span == 128 else 0
     if on_cuda(x):
         x = x.contiguous()
         # the BELL kernel writes every row; the spill kernel adds into them
         y = torch.empty(plan.rows, dtype=x.dtype, device=x.device)
-        launch_bell(arrs["vals"], arrs["lane"], arrs["ds"], x, y, bias=bias, rows=plan.rows)
+        _launch_record(_prepare_bell, arrs, plan)(x, y)
         if spill is not None:
-            _launch_record("lanepack", arrs["spill"], spill)(x, y, add=True)
+            _launch_record(_prepare_lanepack, arrs["spill"], spill)(x, y, add=True)
         return y
     if plan.num_layers:
         y = _bell_torch(arrs["vals"], arrs["lane"], x, ds=plan.ds, modes=plan.modes,

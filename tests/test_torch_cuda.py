@@ -380,6 +380,172 @@ def test_stripe_kernel_empty_plan_launches_nothing(dev):
     assert y.shape == (300,) and int(torch.count_nonzero(y)) == 0
 
 
+# the stripe kernel owns each stripe's rows (one thread block a segment,
+# csrc/spmv_stripe.cu): plans of each shape the main path runs, a partial
+# last stripe and 16 levels (two level groups)
+STRIPED = {
+    "randlocal_scan_L2_kw2": lambda: (
+        corpus.random_local(np.random.default_rng(1), 4096, 16, 1024), "scan", 2, 2),
+    "powerlaw_scan_L8_kw16": lambda: (
+        corpus.power_law_rows(np.random.default_rng(3), 4096, 16), "scan", 8, 16),
+    "powerlaw_select_spill": lambda: (
+        corpus.power_law_rows(np.random.default_rng(4), 3000, 12), "select", 4, 2),
+    "partial_scan_L4": lambda: (
+        corpus.random_local(np.random.default_rng(5), 700, 12, 6000), "scan", 4, 2),
+    "levels16": lambda: (corpus.power_law_rows(np.random.default_rng(7), 4096, 8), "scan", 16, 1),
+}
+
+
+def _striped(name, dev):
+    m, mode, levels, kw = STRIPED[name]()
+    plan = plan_stripe(m, mode=mode, levels=levels, kw=kw)
+    arrs = spmv.stripe_device_arrays(plan, dev)
+
+    def plain(x):
+        y, p, a = None, plan, arrs
+        while p is not None:
+            yp = spmv._stripe_torch(a, x, rows=p.rows, cols=p.cols, lvl=p.levels, kw=p.kw,
+                                    scan=p.mode == "scan")
+            y = yp if y is None else y + yp
+            p, a = p.spill, a.get("spill")
+        return y
+
+    return m, plan, arrs, plain
+
+
+def _stripe_records(plan, arrs):
+    while plan is not None:
+        yield arrs
+        plan, arrs = plan.spill, arrs.get("spill")
+
+
+def _segment_slabs(monkeypatch, g):
+    """Stripe segments of at most g slabs for every plan (None: the default)."""
+    if g is not None:
+        monkeypatch.setattr(spmv, "stripe_segment_slabs", lambda levels: g)
+
+
+@pytest.mark.parametrize("g", [1, 2, None])
+@pytest.mark.parametrize("name", list(STRIPED))
+def test_stripe_kernel_repeat_bitwise(dev, name, g, monkeypatch):
+    """Two calls give equal bits; stripes of more than g slabs (cut into
+    several segments) are summed by their last block, which resets the
+    tickets; within the bound."""
+    _segment_slabs(monkeypatch, g)
+    m, plan, arrs, plain = _striped(name, dev)
+    if g == 1:
+        assert arrs["segments"][:, 3].max() >= 0  # some stripe spans several segments
+    x_np, x = _x(m, dev)
+    run = lambda: spmv.spmv_stripe(plan, x, device_arrays=arrs)  # noqa: E731
+    _run("stripe", m, x_np, dev, run, lambda: plain(x), stripe=(plan,))
+    y1, y2 = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    for a in _stripe_records(plan, arrs):
+        assert torch.all(a["seg_tickets"] == 0)
+
+
+def test_stripe_kernel_store_and_add_modes(dev, monkeypatch):
+    """Store mode writes every row into a y full of NaN (masked row blocks
+    and empty stripes 0); add mode adds its result onto y bit for bit; the
+    spill chain adds in add mode, one launch a sub-plan."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    _segment_slabs(monkeypatch, 1)
+    rng = np.random.default_rng(7)
+    mask = rng.random((1000, 512)) < 0.03
+    for rb in (0, 2, 3):
+        mask[rb * 128: (rb + 1) * 128] = False
+    r, c = np.nonzero(mask)
+    m = CsrMatrix.from_coo(1000, 512, r, c, rng.standard_normal(r.size).astype(np.float32))
+    x_np, x = _x(m, dev)
+    for mode in ("scan", "select"):
+        plan = plan_stripe(m, mode=mode, levels=2, kw=1)
+        arrs = spmv.stripe_device_arrays(plan, dev)
+        recs = [a["launch"] for a in _stripe_records(plan, arrs)]
+        y = torch.full((1000,), float("nan"), device=dev)
+        before = kernels.launch_counts["stripe"]
+        recs[0](x, y)
+        for rec in recs[1:]:
+            rec(x, y, add=True)
+        assert kernels.launch_counts["stripe"] - before == len(recs)
+        yk = y.double().cpu().numpy()
+        for rb in (0, 2, 3):
+            assert np.all(yk[rb * 128: (rb + 1) * 128] == 0)
+        y64, bound = spmv.spmv_f64_bound(m, x_np, stripe=(plan,))
+        assert np.all(np.abs(yk - y64) <= bound)
+        y_store = torch.full((1000,), float("nan"), device=dev)
+        recs[0](x, y_store)
+        y_add = y.clone()
+        recs[0](x, y_add, add=True)
+        assert torch.equal(y_add, y + y_store)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")])
+@pytest.mark.parametrize("name", ["randlocal_scan_L2_kw2", "powerlaw_select_spill"])
+def test_stripe_kernel_nonfinite_x(dev, name, value, monkeypatch):
+    """A non-finite x (at x[0], which padding chunks read, and inside) gives
+    the plain version's NaN and inf rows: every pair adds its gather, a
+    run or not, and padding chunks of other stripes reach stripe 0."""
+    _segment_slabs(monkeypatch, 2)
+    m, plan, arrs, plain = _striped(name, dev)
+    for where in (0, m.cols // 2 + 3):
+        x_np, x = _x(m, dev)
+        x[where] = value
+        a = spmv.spmv_stripe(plan, x, device_arrays=arrs).cpu().numpy()
+        b = plain(x).cpu().numpy()
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        assert np.array_equal(np.isposinf(a), np.isposinf(b))
+        assert np.array_equal(np.isneginf(a), np.isneginf(b))
+        assert not np.all(np.isfinite(b))
+
+
+@pytest.mark.parametrize("span", [128, 256])
+@pytest.mark.parametrize("vdt", [None, torch.bfloat16])
+def test_bell_kernel_repeat_bitwise_odd_rows(dev, span, vdt):
+    """rows % 4 != 0 (Poisson 33^2, 1089 rows): the kernel writes every row
+    of a NaN-filled y, two calls give equal bits, within the bound (bf16
+    planes against their rounded values); add mode is refused (BELL only
+    writes y; its spill adds)."""
+    m = poisson_2d_csr(33, dtype=np.float32)
+    assert m.rows % 4 == 1
+    plan = plan_bell(m, span=span)
+    arrs = spmv_bell.bell_device_arrays(plan, dev, values_dtype=vdt)
+    x_np, x = _x(m, dev)
+    vals = None if vdt is None else torch.from_numpy(m.vals).to(vdt).double().numpy()
+    y = torch.full((m.rows,), float("nan"), device=dev)
+    arrs["launch"](x, y)
+    y64, bound = spmv.spmv_f64_bound(m, x_np, vals=vals)
+    assert np.all(np.abs(y.double().cpu().numpy() - y64) <= bound)
+    y_add = y.clone()
+    with pytest.raises(RuntimeError, match="bell kernel launch failed"):
+        arrs["launch"](x, y_add, add=True)
+    assert torch.equal(y_add, y)
+    y1 = spmv_bell.spmv_bell(plan, x, device_arrays=arrs)
+    assert torch.equal(y1, spmv_bell.spmv_bell(plan, x, device_arrays=arrs))
+    assert torch.equal(y1, y)
+
+
+def test_bell_and_stripe_records_refuse_bad_y(dev):
+    """A misaligned y, a y of another length and a CPU x are refused before
+    anything launches."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = poisson_2d_csr(32, dtype=np.float32)
+    recs = [spmv_bell.bell_device_arrays(plan_bell(m), dev)["launch"],
+            spmv.stripe_device_arrays(plan_stripe(m, mode="scan", levels=2, kw=1), dev)["launch"]]
+    before = dict(kernels.launch_counts)
+    for rec in recs:
+        x = torch.zeros(m.cols, device=dev)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            rec(x, torch.empty(m.rows + 1, device=dev)[1:])
+        with pytest.raises(ValueError, match="elements"):
+            rec(x, torch.empty(m.rows + 4, device=dev))
+        with pytest.raises(ValueError, match="is on cpu"):
+            rec(torch.zeros(m.cols), torch.empty(m.rows, device=dev))
+    assert kernels.launch_counts == before
+
+
 def _run_multi(kernel, m, X_np, run, plain, **bound_kw):
     from sparse_matrix_tpu_torch.native import kernels
 

@@ -179,9 +179,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
         "lanepack": lambda: kernels.prepare_lanepack(f32[None], i16[None], i8[None], i8[None],
                                                      i32, i32.repeat(1, 4), i32.repeat(2),
                                                      f32[None], i32, cols=128, rows=128),
-        "bell": lambda: kernels.launch_bell(f32[None, None], i8[None, None], i32, f32, f32,
-                                            bias=128, rows=128),
-        "stripe": lambda: kernels.launch_stripe(f32, i8, i8, None, i32, i32, f32, f32, levels=1),
+        "bell": lambda: kernels.prepare_bell(f32[None, None], i8[None, None], i32,
+                                             bias=128, rows=128, cols=128),
+        "stripe": lambda: kernels.prepare_stripe(f32[None], i8[None], i8[None, None, None],
+                                                 None, i32, i32, f32, i32.repeat(1, 4),
+                                                 i32.repeat(2), f32[None], i32, levels=1,
+                                                 cols=128, rows=128, foreign_pad=False),
         "dia_spmm": lambda: kernels.launch_dia_spmm(f32[None], i32, f32[None, None], f32[None, None],
                                                     rows=128, cols=128, x_lo=0, y_lo=0),
         "aligned_spmm": lambda: kernels.launch_aligned_spmm(f32, i8, i32, i32, f32[None, None],
