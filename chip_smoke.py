@@ -25,11 +25,15 @@ Phases, each of which ends the run with an exception on failure:
    (``block_err_over_bound``; 1/(n + 2) <= 1/3 in theory). The aligned,
    LanePack, BELL and stripe SpMV kernels (B2, B3, B4, B5; BELL on
    randlocal_262k with a LanePack spill in add mode, the select stripe
-   plan with its scan-mode spill in add mode) must give equal bits on two
-   calls. Each case has CUDA-event times (median of 30 calls, 5 for the
-   block SpGEMM) of the kernel through the wrapper a user calls (``ms``;
-   for B2, B3, B4, B5 and B10 also the bare launch, ``launch_ms``, and its
-   device time with no host gaps, ``device_ms``), its plain version and
+   plan with its scan-mode spill in add mode) and the LanePack and BELL
+   SpMM kernels (B7, packed and, on Poisson 1024^2, row-major; B8, whose
+   cases have no spill and must also equal their plain version bit for
+   bit) must give equal bits on two calls. Each case has CUDA-event times
+   (median of 30 calls, 5 for the block SpGEMM) of the kernel through the
+   wrapper a user calls (``ms``; for B2, B3, B4, B5, B7, B8 and B10 also
+   the bare launch, ``launch_ms``, and its device time with no host gaps,
+   ``device_ms``, which the kernels line repeats for the first case), its
+   plain version and
    one library call on the same inputs (``torch.sparse`` CSR times X, or
    CSR times CSR for the SpGEMM, with the dense ``torch.matmul`` beside
    it, and in its place past the products cuSPARSE can take; a yardstick
@@ -208,7 +212,7 @@ READS = {
     "stripe": ("vals", "lane", "ends", "starts", "col_off", "chunk_stripe", "rb_mask",
                "segments", "stripe_seg"),
     "aligned_spmm": ("vals", "lane", "col_off", "chunk_rb"),
-    "lanepack_spmm": ("vals", "lane", "ends", "starts", "col_off", "chunk_rb"),
+    "lanepack_spmm": ("vals", "lane", "ends", "starts", "col_off", "segments", "rb_seg"),
     "bell_spmm": ("vals", "lane", "ds"),
 }
 SPILL_OF = {"aligned": "lanepack", "bell": "lanepack", "stripe": "stripe",
@@ -313,7 +317,7 @@ class KernelChecks:
 
     def check(self, kernel, case, m, x_np, run_kernel, run_plain, *, plan_bytes,
               value_bytes=4, unpack=None, ulp_plain=False, launch=None, repeat_bits=False,
-              **bound_kw):
+              equal_plain=False, **bound_kw):
         """``x_np`` is (cols,) or (cols, K); ``unpack`` maps a kernel or
         plain output to (rows,) or (rows, K); ``plan_bytes`` counts the
         bytes of the plan arrays one call of the kernel reads (x and y
@@ -324,7 +328,8 @@ class KernelChecks:
         span as the library call; ``launch``, when given, is the bare
         kernel launch on the inputs the wrapper prepares, timed beside it
         as ``launch_ms`` and, with no host gaps, ``device_ms``;
-        ``repeat_bits`` demands equal bits from two more kernel calls."""
+        ``repeat_bits`` demands equal bits from two more kernel calls,
+        ``equal_plain`` the plain version's bits."""
         from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
 
         torch = self.torch
@@ -333,6 +338,9 @@ class KernelChecks:
         torch.cuda.synchronize()
         if repeat_bits and not torch.equal(run_kernel(), run_kernel()):
             raise AssertionError(f"{kernel}/{case}: two calls on one input differ in their bits")
+        if equal_plain and not torch.equal(k_out, p_out):
+            raise AssertionError(f"{kernel}/{case}: the kernel and its plain version differ in "
+                                 f"{int((k_out != p_out).sum())} entries")
         if ulp_plain and ulp_excess(k_out, p_out):
             raise AssertionError(f"{kernel}/{case}: {ulp_excess(k_out, p_out)} entries more "
                                  "than 1 ulp from the float64 plain version")
@@ -395,6 +403,8 @@ class KernelChecks:
                    plan_bytes=int(plan_bytes), flops=flops, **extra)
         if repeat_bits:
             row["bitwise_repeat"] = True
+        if equal_plain:
+            row["bitwise_plain"] = True
         self.cases[kernel].append(row)
         log(f"kernel {kernel:12s} {case:34s} rows={m.rows} nnz={m.nnz()} K={k} "
             f"max|k-plain|={row['max_abs_err']:.3e} max err/bound={ratio:.3f} "
@@ -851,7 +861,26 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
                   lambda plan=plan, arrs=arrs, x3=x3: spmm._lanepack_spmm_torch(
                       arrs, x3, cols=plan.cols, kw=plan.kw),
                   plan_bytes=arrays_bytes("lanepack_spmm", arrs),
-                  unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=(plan,))
+                  unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=(plan,),
+                  launch=lambda arrs=arrs, x3=x3, y3=torch.empty((plan.r128, K_RHS, 128),
+                                                                 device=dev):
+                      arrs["spmm_launch"](x3, y3, packed=True),
+                  repeat_bits=True)
+        if name == "poisson1024":
+            # the row-major call (spmm_lanepack, as matmat calls it): X and Y
+            # as the caller holds them, no packing
+            chk.check("lanepack_spmm", f"{name}_{plan.pack}_kw{plan.kw}_K{K_RHS}_rowmajor", m,
+                      x_np,
+                      lambda plan=plan, arrs=arrs, x=x: spmm.spmm_lanepack(
+                          plan, x, device_arrays=arrs),
+                      lambda plan=plan, arrs=arrs, x3=x3: spmm._lanepack_spmm_torch(
+                          arrs, x3, cols=plan.cols, kw=plan.kw),
+                      plan_bytes=arrays_bytes("lanepack_spmm", arrs),
+                      unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows) if y.dim() == 3 else y,
+                      lanepack=(plan,),
+                      launch=lambda arrs=arrs, x=x, y=torch.empty((m.rows, K_RHS), device=dev):
+                          arrs["spmm_launch"](x, y),
+                      repeat_bits=True)
     del cases, arrs
     # ... and the spill of randlocal's aligned plan in the aligned layout (one
     # guard row: the kernel reads zeros past cols), the C12 path
@@ -864,7 +893,10 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
               lambda: spmm.spmm_lanepack_packed(sp_plan, x3, device_arrays=sp_arrs),
               lambda: spmm._lanepack_spmm_torch(sp_arrs, x3, cols=sp_plan.cols, kw=sp_plan.kw),
               plan_bytes=arrays_bytes("lanepack_spmm", sp_arrs),
-              unpack=lambda y: spmm.unpack_rhs(y, sub.rows), lanepack=(sp_plan,))
+              unpack=lambda y: spmm.unpack_rhs(y, sub.rows), lanepack=(sp_plan,),
+              launch=lambda y3=torch.empty((sp_plan.r128, K_RHS, 128), device=dev):
+                  sp_arrs["spmm_launch"](x3, y3, packed=True),
+              repeat_bits=True)
     del sub, x3
 
     # B8: Poisson 1024^2 span 128 at K=8 and 16, femlike_262k span 256 at K=8
@@ -889,10 +921,18 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
                                                     cols=plan.cols, kw=plan.spill.kw)
             return spmm.unpack_rhs(y3, plan.rows)
 
+        def launch(plan=plan, arrs=arrs, x=x, y=torch.empty((m.rows, k), device=dev)):
+            arrs["spmm_launch"](x, y)
+            if plan.spill is not None:
+                arrs["spill"]["spmm_launch"](x, y, add=True)
+
+        # with no spill the kernel sums in the plain version's order and
+        # rounding: equal bits
         chk.check("bell_spmm", f"{name}_span{plan.span}_K{k}", m, x_np,
                   lambda plan=plan, arrs=arrs, x=x: spmm.spmm_bell(plan, x, device_arrays=arrs),
                   plain, plan_bytes=arrays_bytes("bell_spmm", arrs),
-                  lanepack=() if plan.spill is None else (plan.spill,))
+                  lanepack=() if plan.spill is None else (plan.spill,), launch=launch,
+                  repeat_bits=True, equal_plain=plan.spill is None)
     del fem_plan, arrs
 
     # B10: the block-tridiagonal 65536^2 matrix, the corpus's blocked_2k
@@ -2000,6 +2040,7 @@ def main() -> int:
             bound_by=first["bound_by"], library_ms=first["library_ms"],
             worst_library_factor=worst[0], worst_library_case=worst[1],
             case=first["case"], cases=cases,
+            **{key: first[key] for key in ("launch_ms", "device_ms") if key in first},
         ))
         if worst[0] is not None:
             log(f"kernel {name:12s} worst ms/library {worst[0]:.2f} ({worst[1]})")

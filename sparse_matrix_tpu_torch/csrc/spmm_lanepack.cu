@@ -1,117 +1,345 @@
-// LanePack SpMM in the packed multi-RHS layout: x3 (>= c128, K, 128) holds
-// x[j, q] at x3[j/128, q, j%128]; y3 (>= r128, K, 128) the same for y. Per
-// 128-slot chunk c and column q:
-//   p[s]  = vals[c, s] * x3[col_off[c] + (lane[c, s] >> 7), q, lane[c, s] & 127]
+// LanePack SpMM: Y = A @ X for K columns on a LanePack plan. Per 128-slot
+// chunk c of row block rb and column q:
+//   p[s]  = vals[c, s] * X[col_off[c]*128 + lane[c, s], q]   (x past cols reads 0)
 //   incl  = inclusive prefix sum of p over the chunk
-//   y3[chunk_rb[c], q, l] += incl[ends[c, l]]
-//                           - (starts[c, l] < 0 ? 0 : incl[starts[c, l]])
-// (x past cols reads 0, so x3 needs no guard rows).
+//   Y[rb*128 + l, q] gets incl[ends[c, l]] - (starts[c, l] < 0 ? 0 : incl[starts[c, l]])
+// X and Y are either packed, (blocks, K, 128) with X[j, q] at
+// x3[j/128, q, j%128] (spmm_lanepack_packed, lanepack_matvec_multi and
+// the aligned SpMM's spill), or natural, row-major (cols, K) and (rows, K)
+// (spmm_lanepack and the BELL SpMM's spill): one template each.
 //
 // Replaces: sparse_matrix_tpu/ops/spmm.py, _make_lanepack_spmm_kernel
 // (called by _spmm_lanepack_jit).
 //
 // Bound on the H100: device-memory bandwidth. A slot's value, lane, end and
-// start (8 bytes) and its chunk's metadata are read once for all K columns;
-// x3 and y3 move 4*K bytes per row; the kw windows of a chunk (K rows of
-// 128 floats each) are served by L2.
+// start (8 bytes) are read once for all K columns; X and Y move 4*K bytes
+// a row each; the window rows of a chunk (kw*128 rows of X) are served by
+// L1 and L2.
 //
-// First version: one warp per chunk, eight chunks per block, as in
-// spmv_lanepack.cu. Each thread loads its four consecutive slots' value,
-// lane, end and start once into registers, then loops over the K columns:
-// it gathers its four x values, scans them, and a warp-shuffle scan of the
-// thread totals completes the fp32 inclusive prefix sum (the TPU kernel
-// batched the K scans into one triangular matmul at HIGHEST precision; no
-// tensor core is used here). The prefix sums go through shared memory so
-// that each lane can read the two it needs, and lanes with a run add their
-// run sum to y3 with one atomicAdd. The empty default (ends = starts = 0)
-// is skipped, so it adds nothing; starts = -1 opens a run at slot 0. Both
-// packs (dense, per_rb) target rows through chunk_rb only. The caller zeroes
-// y3 (or passes an accumulator); atomics make a row's sum vary in its last
-// bits from run to run.
+// Design: the segments of the LanePack SpMV kernel (spmv_lanepack.cu,
+// segments.h): one warp owns one segment, at most 32 consecutive chunks of
+// one row block in plan order, and at most 8 of the launch's columns (a
+// launch takes at most 16; the wrapper cuts wider X into launches of 16
+// columns). Its chunks stream through a 3-stage ring of 16-byte cp.async
+// copies (lanepack_stage.h) once for all its columns; at 16 columns the
+// segment's two warps are neighbours in the grid, so the second reads the
+// chunks from L2. Per chunk, thread t gathers the x values of its four
+// slots for every column first (32 independent loads at 8 columns; 16-byte
+// loads of X's rows in the row-major layout), then, four columns at a time
+// so that their shuffle chains interleave, multiplies, scans within the
+// thread and across the warp with shuffles (the fp32 prefix sum that the
+// TPU kernel took from a triangular matmul at HIGHEST precision), and
+// takes the run differences of lanes 4t .. 4t+3 from four 512-byte
+// prefix buffers in shared memory. The 8 x 4 sums stay in registers, in
+// plan order (124 registers, no spills: two blocks of 256 threads an SM).
+// On the H100 (PERF.md section 6) four columns at a time beat two, and two
+// beat one, on every case; warps of 4 or 2 columns, which read each chunk
+// two or four times, lost on randlocal and powerlaw, as did a 2-stage
+// ring, and all 8 columns at once with 4 warps a block (more shared
+// memory, less L1 for the x windows) lost 16 % on Poisson and 1.8x on
+// powerlaw. The sums reach Y through the segment's single writer: a row
+// block of several segments is added up in segment order by the last warp
+// to take its ticket (one ticket a row block and 8-column group), from
+// scratch slots 16 columns wide. In the row-major layout the warp's (128,
+// 8) tile of Y goes through its shared memory (the ring's, free by then),
+// so that the warp stores whole runs of Y's rows. Store mode writes every
+// row of Y (packed: every lane of row blocks < r128, and zeros on the row
+// blocks past r128 up to y_blocks; row-major: every row < rows), so Y
+// needs no zeroing; add mode adds onto Y (a spill). No atomics on Y, the
+// same bits on every call.
 #include <cuda_runtime.h>
 
+#include "block_tile.h"
+#include "lanepack_stage.h"
+#include "segments.h"
 #include "spmx_cuda.h"
 
 namespace {
 
-constexpr int kChunksPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kRing = 3;
+constexpr int kWarps = 8;       // warps a thread block
+constexpr int kMaxCols = 16;    // columns a launch: the scratch slot holds 16 * 128 floats
+constexpr int kGroupCols = 8;   // columns a warp at most
 
-__global__ void lanepack_spmm_kernel(const float* __restrict__ vals,
-                                     const int16_t* __restrict__ lane,
-                                     const int8_t* __restrict__ ends,
-                                     const int8_t* __restrict__ starts,
-                                     const int32_t* __restrict__ col_off,
-                                     const int32_t* __restrict__ chunk_rb,
-                                     int64_t num_chunks, int64_t cols, int k,
-                                     const float* __restrict__ x3,
-                                     float* __restrict__ y3) {
-  __shared__ float prefix[kChunksPerBlock][128];
-  const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x & 31;
-  const int64_t c = (int64_t)blockIdx.x * kChunksPerBlock + warp;
-  if (c >= num_chunks) return;  // whole warp leaves; only warp syncs below
-  const int64_t base = c * 128 + 4 * t;  // thread t owns slots 4t .. 4t+3
-  const int64_t w0 = __ldg(col_off + c);
-  float v[4];
-  int64_t xoff[4];
-  int e[4], st[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ln = lane[base + i];
-    // a slot past the columns reads 0: its value is dropped
-    v[i] = w0 * 128 + ln < cols ? vals[base + i] : 0.0f;
-    xoff[i] = ((w0 + (ln >> 7)) * k) * 128 + (ln & 127);
-    e[i] = ends[base + i];
-    st[i] = starts[base + i];
-  }
-  float* p = prefix[warp];
-  float* yrow = y3 + ((int64_t)__ldg(chunk_rb + c) * k) * 128 + 4 * t;
+struct Call {
+  int64_t y_blocks;  // packed: row blocks of y3 (>= r128)
+  int k;             // columns of X and Y
+  int q0;            // first column of the launch
+  int kq;            // columns of the launch (<= kMaxCols)
+  int groups;        // warps a segment
+  int vec4;          // natural layout with k % 4 == 0 and 16-byte aligned X, Y
+  int add;
+};
 
-  for (int q = 0; q < k; ++q) {
-    const int64_t qo = (int64_t)q * 128;
-    float a[4];
+// Y of thread t's rows (lanes) 4t .. 4t+3 for columns col .. col + nq - 1
+// of row block rb. Packed: one float4 a column, a warp's stores of a
+// column contiguous. Row-major: the warp's (128, nq) tile goes through its
+// shared-memory `tile` (KG * 128 floats, free once the chunks are done),
+// so that the warp writes Y's rows in contiguous runs.
+template <int KG, bool kPacked>
+__device__ __forceinline__ void write_y(const SpmxSegPlan& p, const Call& c, float* y,
+                                        int64_t rb, int64_t col, int nq, int t,
+                                        float (&acc)[KG][4], float* tile) {
+  if constexpr (kPacked) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = v[i] == 0.0f ? 0.0f : v[i] * __ldg(x3 + xoff[i] + qo);
-    }
-    a[1] += a[0];
-    a[2] += a[1];
-    a[3] += a[2];
-    float incl = a[3];
-    for (int d = 1; d < 32; d <<= 1) {
-      const float up = __shfl_up_sync(kFullMask, incl, d);
-      if (t >= d) incl += up;
-    }
-    float excl = __shfl_up_sync(kFullMask, incl, 1);
-    if (t == 0) excl = 0.0f;
-    __syncwarp();  // the previous column's reads of p are done
+    for (int q = 0; q < KG; ++q) {
+      if (q >= nq) break;
+      float* yp = y + (rb * c.k + col + q) * 128 + 4 * t;
+      if (c.add) {
+        float w[4];
+        spmx::load_v<4>(yp, w);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[4 * t + i] = excl + a[i];
+        for (int r = 0; r < 4; ++r) acc[q][r] = w[r] + acc[q][r];
+      }
+      spmx::store_v<4>(yp, acc[q]);
+    }
+  } else {
+    // tile[r * KG + q]: row r of the row block, column q
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < KG; ++q) tile[(4 * t + r) * KG + q] = acc[q][r];
     __syncwarp();
+    const int64_t rows = min((int64_t)128, p.rows - rb * 128);
+    float* y0 = y + rb * 128 * c.k + col;
+    if (c.vec4) {
+      const int per_row = nq >> 2;  // float4s a row
+      for (int u = t; u < rows * per_row; u += 32) {
+        const int r = u / per_row, f = u - r * per_row;
+        float v[4];
+        spmx::load_v<4>(tile + r * KG + 4 * f, v);
+        float* yp = y0 + (int64_t)r * c.k + 4 * f;
+        if (c.add) {
+          float w[4];
+          spmx::load_v<4>(yp, w);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (e[i] == 0 && st[i] == 0) continue;
-      atomicAdd(yrow + qo + i, p[e[i]] - (st[i] < 0 ? 0.0f : p[st[i]]));
+          for (int i = 0; i < 4; ++i) v[i] = w[i] + v[i];
+        }
+        spmx::store_v<4>(yp, v);
+      }
+    } else {
+      for (int u = t; u < rows * nq; u += 32) {
+        const int r = u / nq, q = u - r * nq;
+        float* yp = y0 + (int64_t)r * c.k + q;
+        *yp = c.add ? *yp + tile[r * KG + q] : tile[r * KG + q];
+      }
     }
   }
 }
 
+constexpr int kScanCols = 4;  // columns scanned together
+
+// a warp's shared memory: its ring of chunks and the prefix sums of
+// kScanCols columns while it walks its chunks, then the (128, KG) tile of
+// its row-major Y
+union WarpSmem {
+  struct {
+    spmx::LanePackStage ring[kRing];
+    float4 prefix[kScanCols][32];  // thread t's four slots at [t]
+  } s;
+  float tile[128 * kGroupCols];
+};
+
+template <int KG, bool kPacked>
+__global__ void __launch_bounds__(32 * kWarps, KG >= 8 ? 2 : 3)
+lanepack_spmm_kernel(const SpmxSegPlan p, const float* __restrict__ x, float* __restrict__ y,
+                     const Call c) {
+  __shared__ WarpSmem smem[kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int64_t w = (int64_t)blockIdx.x * kWarps + warp;
+  if (w >= p.num_segments * c.groups) return;  // whole warp leaves; only warp syncs below
+  const int64_t s = w / c.groups;
+  const int g = (int)(w - s * c.groups);
+  const int nq = min(KG, c.kq - g * KG);  // this warp's columns ...
+  const int64_t col = c.q0 + g * KG;      // ... from column col of X and Y
+  const int64_t r128 = (p.rows + 127) >> 7;
+  if constexpr (kPacked) {
+    // store mode: zeros on y3's row blocks past r128 (a matvec's guard rows)
+    if (!c.add) {
+      for (int64_t gb = r128 + s; gb < c.y_blocks; gb += p.num_segments) {
+#pragma unroll
+        for (int q = 0; q < KG; ++q) {
+          if (q >= nq) break;
+          const float z[4] = {0.f, 0.f, 0.f, 0.f};
+          spmx::store_v<4>(y + (gb * c.k + col + q) * 128 + 4 * t, z);
+        }
+      }
+    }
+  }
+  const spmx::Segment seg = spmx::load_segment(p.segments, s);
+  const int n = seg.count;
+  const int window = t < n ? __ldg(p.col_off + seg.first + t) : 0;
+  spmx::LanePackStage* st = smem[warp].s.ring;
+  const spmx::LanePackCopier copy(p, t);
+  auto issue = [&](int i) {  // chunk i into stage i % kRing; one group a call
+    if (i < n) copy(st[i % kRing], (int64_t)seg.first + i);
+    spmx_tile::commit();
+  };
+
+  for (int i = 0; i < kRing - 1; ++i) issue(i);
+  float acc[KG][4];
+#pragma unroll
+  for (int q = 0; q < KG; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[q][r] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    issue(i + kRing - 1);
+    spmx_tile::wait_pending<kRing - 2>();  // chunks <= i landed
+    __syncwarp();
+    const spmx::LanePackStage& cur = st[i % kRing];
+    const int64_t base = (int64_t)__shfl_sync(spmx::kFullMask, window, i) * 128;
+    int ln[4];
+    spmx::stage_lanes(cur, t, ln);
+    float xv[KG][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t j = base + ln[r];
+      const bool in = j < p.cols;
+      if constexpr (kPacked) {
+        const float* xp = x + ((j >> 7) * c.k + col) * 128 + (j & 127);
+#pragma unroll
+        for (int q = 0; q < KG; ++q) xv[q][r] = in && q < nq ? __ldg(xp + q * 128) : 0.f;
+      } else {
+        const float* xp = x + j * c.k + col;
+        bool done = false;
+        if constexpr (KG >= 4) {
+          if (c.vec4) {
+#pragma unroll
+            for (int q = 0; q < KG; q += 4) {
+              const float4 v = in && q < nq ? __ldg(reinterpret_cast<const float4*>(xp + q))
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+              xv[q][r] = v.x;
+              xv[q + 1][r] = v.y;
+              xv[q + 2][r] = v.z;
+              xv[q + 3][r] = v.w;
+            }
+            done = true;
+          }
+        }
+        if (!done) {
+#pragma unroll
+          for (int q = 0; q < KG; ++q) xv[q][r] = in && q < nq ? __ldg(xp + q) : 0.f;
+        }
+      }
+    }
+    const float4 v = cur.vals[t];
+    const char4 e = cur.ends[t], b = cur.starts[t];
+    constexpr int P = KG < kScanCols ? KG : kScanCols;
+#pragma unroll
+    for (int q0 = 0; q0 < KG; q0 += P) {
+      if (q0 >= nq) break;  // warp-uniform
+      float a[P][4], incl[P];
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int q = q0 + u;
+        a[u][0] = v.x * xv[q][0];
+        a[u][1] = a[u][0] + v.y * xv[q][1];
+        a[u][2] = a[u][1] + v.z * xv[q][2];
+        a[u][3] = a[u][2] + v.w * xv[q][3];
+        incl[u] = a[u][3];
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          const float up = __shfl_up_sync(spmx::kFullMask, incl[u], d);
+          if (t >= d) incl[u] += up;
+        }
+      }
+      float4 (*buf)[32] = smem[warp].s.prefix;
+      if (q0 > 0) __syncwarp();  // the previous columns' reads are done
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        float excl = __shfl_up_sync(spmx::kFullMask, incl[u], 1);
+        if (t == 0) excl = 0.f;
+        buf[u][t] = make_float4(excl + a[u][0], excl + a[u][1], excl + a[u][2], excl + a[u][3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const int q = q0 + u;
+        const float* pre = reinterpret_cast<const float*>(buf[u]);
+        acc[q][0] += pre[e.x] - (b.x < 0 ? 0.f : pre[b.x]);
+        acc[q][1] += pre[e.y] - (b.y < 0 ? 0.f : pre[b.y]);
+        acc[q][2] += pre[e.z] - (b.z < 0 ? 0.f : pre[b.z]);
+        acc[q][3] += pre[e.w] - (b.w < 0 ? 0.f : pre[b.w]);
+      }
+    }
+    __syncwarp();  // prefix and stage i % kRing are rewritten next iteration
+  }
+
+  if (seg.slot >= 0) {
+    // one of several segments of its row block: write the slot, take the
+    // ticket; the last warp adds the slots in segment order
+    const int first = __ldg(p.rb_seg + seg.rb);
+    const int nseg = __ldg(p.rb_seg + seg.rb + 1) - first;
+    const int64_t slot0 = seg.slot - (s - first);
+    const int64_t width = (int64_t)kMaxCols * 128;
+    const int64_t off = (int64_t)g * KG * 128 + 4 * t;
+#pragma unroll
+    for (int q = 0; q < KG; ++q) {
+      if (q >= nq) break;
+      spmx::store_v<4>(p.scratch + seg.slot * width + off + q * 128, acc[q]);
+    }
+    __threadfence();
+    int32_t* ticket = p.tickets + g * r128 + seg.rb;
+    const int got = spmx::WarpOwner{t}.sync_from0([&] { return atomicAdd(ticket, 1); });
+    if (got != nseg - 1) return;
+    __threadfence();
+#pragma unroll
+    for (int q = 0; q < KG; ++q) {
+      if (q >= nq) break;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[q][r] = 0.f;
+      for (int k = 0; k < nseg; ++k)
+        spmx::add_cg<4>(acc[q], p.scratch + (slot0 + k) * width + off + q * 128);
+    }
+    if (t == 0) *ticket = 0;
+  } else if (c.add && n == 0) {
+    return;  // an empty row block adds nothing
+  }
+  write_y<KG, kPacked>(p, c, y, seg.rb, col, nq, t, acc, smem[warp].tile);
+}
+
+template <int KG>
+cudaError_t launch(const SpmxSegPlan& p, const float* x, float* y, const Call& c, bool packed,
+                   cudaStream_t s) {
+  const int64_t warps = p.num_segments * c.groups;
+  const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+  if (packed)
+    lanepack_spmm_kernel<KG, true><<<blocks, 32 * kWarps, 0, s>>>(p, x, y, c);
+  else
+    lanepack_spmm_kernel<KG, false><<<blocks, 32 * kWarps, 0, s>>>(p, x, y, c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-SPMX_API int spmx_lanepack_spmm(int device, const float* vals,
-                                const int16_t* lane, const int8_t* ends,
-                                const int8_t* starts, const int32_t* col_off,
-                                const int32_t* chunk_rb, int64_t num_chunks,
-                                int64_t cols, int k, const float* x3, float* y3,
+SPMX_API int spmx_lanepack_spmm_max_cols(void) { return kMaxCols; }
+
+SPMX_API int spmx_lanepack_spmm_group_cols(void) { return kGroupCols; }
+
+SPMX_API int spmx_lanepack_spmm(const SpmxSegPlan* plan, const float* x, float* y, int k,
+                                int q0, int kq, int packed, int64_t y_blocks, int add,
                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaSetDevice(plan->device);
   if (err != cudaSuccess) return (int)err;
-  if (num_chunks == 0 || k == 0) return 0;
-  const int64_t blocks = (num_chunks + kChunksPerBlock - 1) / kChunksPerBlock;
-  lanepack_spmm_kernel<<<(unsigned)blocks, 32 * kChunksPerBlock, 0,
-                         (cudaStream_t)stream>>>(vals, lane, ends, starts,
-                                                 col_off, chunk_rb, num_chunks,
-                                                 cols, k, x3, y3);
-  return (int)cudaGetLastError();
+  if (k < 1 || q0 < 0 || kq < 1 || kq > kMaxCols || q0 + kq > k)
+    return (int)cudaErrorInvalidValue;
+  if (packed && y_blocks < (plan->rows + 127) / 128) return (int)cudaErrorInvalidValue;
+  if (plan->num_segments == 0) return 0;
+  const int kg = min(kq <= 1 ? 1 : kq <= 2 ? 2 : kq <= 4 ? 4 : 8, kGroupCols);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const Call c{y_blocks, k, q0, kq, (kq + kg - 1) / kg,
+               !packed && kg >= 4 && k % 4 == 0 && aligned, add};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (kg) {
+    case 1: err = launch<1>(*plan, x, y, c, packed, s); break;
+    case 2: err = launch<2>(*plan, x, y, c, packed, s); break;
+    case 4: err = launch<4>(*plan, x, y, c, packed, s); break;
+    default: err = launch<8>(*plan, x, y, c, packed, s); break;
+  }
+  return (int)err;
 }

@@ -36,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include "block_tile.h"
+#include "lanepack_stage.h"
 #include "segments.h"
 #include "spmx_cuda.h"
 
@@ -44,19 +45,14 @@ namespace {
 constexpr int kRing = 3;
 constexpr int kWarps = 8;  // segments a thread block
 
-struct Stage {
-  float4 vals[32];    // slots 4t .. 4t+3 at [t]
-  int2 lane[32];      // int16 lanes of slots 4t .. 4t+3, low half first
-  char4 ends[32];     // run ends of lanes 4t .. 4t+3
-  char4 starts[32];
-};
+using Stage = spmx::LanePackStage;
 
 __device__ __forceinline__ float4 gather(const Stage& st, int t, int window,
                                          const float* __restrict__ x, int64_t cols) {
-  const int2 l = st.lane[t];
+  int ln[4];
+  spmx::stage_lanes(st, t, ln);
   const int64_t w = (int64_t)window * 128;
-  const int64_t j0 = w + (l.x & 0xffff), j1 = w + ((unsigned)l.x >> 16);
-  const int64_t j2 = w + (l.y & 0xffff), j3 = w + ((unsigned)l.y >> 16);
+  const int64_t j0 = w + ln[0], j1 = w + ln[1], j2 = w + ln[2], j3 = w + ln[3];
   return make_float4(j0 < cols ? __ldg(x + j0) : 0.f, j1 < cols ? __ldg(x + j1) : 0.f,
                      j2 < cols ? __ldg(x + j2) : 0.f, j3 < cols ? __ldg(x + j3) : 0.f);
 }
@@ -75,21 +71,10 @@ lanepack_kernel(const SpmxSegPlan p, const float* __restrict__ x, float* __restr
   const int window = t < n ? __ldg(p.col_off + seg.first + t) : 0;
   Stage* st = ring[warp];
   const float* pre = reinterpret_cast<const float*>(prefix[warp]);
-  const float4* vals = reinterpret_cast<const float4*>(p.vals);
-  // the second 16-byte piece of thread t: lanes (t < 16), ends (t < 24) or starts
-  const char* src2 = t < 16   ? static_cast<const char*>(p.lane) + 16 * t
-                     : t < 24 ? reinterpret_cast<const char*>(p.ends) + 16 * (t - 16)
-                              : reinterpret_cast<const char*>(p.starts) + 16 * (t - 24);
-  const int64_t stride2 = t < 16 ? 256 : 128;  // bytes a chunk in that array
-  const int off2 = t < 16 ? 16 * t : t < 24 ? 256 + 16 * (t - 16) : 384 + 16 * (t - 24);
+  const spmx::LanePackCopier copy(p, t);
 
   auto issue = [&](int i) {  // chunk i into stage i % kRing; one group a call
-    if (i < n) {
-      const int64_t c = (int64_t)seg.first + i;
-      Stage& d = st[i % kRing];
-      spmx_tile::copy16(&d.vals[t], vals + c * 32 + t, true);
-      spmx_tile::copy16(reinterpret_cast<char*>(&d.lane[0]) + off2, src2 + c * stride2, true);
-    }
+    if (i < n) copy(st[i % kRing], (int64_t)seg.first + i);
     spmx_tile::commit();
   };
 

@@ -4,9 +4,8 @@
 // Every entry point selects `device`, enqueues one kernel on `stream` (a
 // cudaStream_t passed as void*), never synchronises and allocates nothing:
 // the Python wrapper owns every buffer. The return value is
-// cudaGetLastError() after the launch (0 = launched). Outputs that the
-// kernel accumulates into with atomics (aligned SpMM, LanePack SpMM) must
-// be zeroed by the caller.
+// cudaGetLastError() after the launch (0 = launched). The aligned SpMM
+// accumulates into its output with atomics: the caller zeroes it.
 #pragma once
 
 #include <stdint.h>
@@ -33,7 +32,9 @@ SPMX_API int spmx_dia(int device, const void* data, int values_bf16,
 // (r128 + 1) int32 offsets of each row block's segments; `scratch` (slots,
 // 128) f32 and `tickets` (r128,) int32 (zero between launches) for row
 // blocks of several segments. `ends`/`starts` are NULL for the aligned
-// kernel. vals 16-byte, lane 4-byte (int8) or 8-byte (int16) aligned.
+// kernel. vals 16-byte, lane 4-byte (int8) or 8-byte (int16) aligned. The
+// LanePack SpMM's plan has its own `scratch` (slots, 16 * 128) and
+// `tickets` (2 * r128).
 typedef struct {
   const float* vals;
   const void* lane;
@@ -157,25 +158,34 @@ SPMX_API int spmx_aligned_spmm(int device, const float* vals,
                                int64_t cols, int k, const float* x3, float* y3,
                                void* stream);
 
-// packed K-column LanePack SpMM (k >= 1): per chunk c and column q,
-// p = vals * x3[col_off + (lane >> 7), q, lane & 127] (x past cols reads 0);
-// incl = inclusive scan of p over the chunk;
-// y3[chunk_rb[c], q, l] += incl[ends[l]] - (starts[l] < 0 ? 0 : incl[starts[l]])
-SPMX_API int spmx_lanepack_spmm(int device, const float* vals,
-                                const int16_t* lane, const int8_t* ends,
-                                const int8_t* starts, const int32_t* col_off,
-                                const int32_t* chunk_rb, int64_t num_chunks,
-                                int64_t cols, int k, const float* x3, float* y3,
+// the most columns one launch of spmx_lanepack_spmm takes (16), and one
+// warp of it (8): a plan's SpMM tickets are (16 / 8) * r128
+SPMX_API int spmx_lanepack_spmm_max_cols(void);
+SPMX_API int spmx_lanepack_spmm_group_cols(void);
+
+// LanePack SpMM on a LanePack plan with its segments (the plan of
+// spmx_lanepack, with the SpMM's own scratch and tickets), columns q0 ..
+// q0 + kq - 1 of k (1 <= kq <= 16): per chunk c and column q, p = vals *
+// X[col_off*128 + lane, q] (X past cols reads 0), incl = inclusive scan of
+// p over the chunk, and row rb*128 + l of the chunk's row block gets
+// incl[ends[l]] - (starts[l] < 0 ? 0 : incl[starts[l]]), summed in segment
+// order. packed = 1: X (>= c128, k, 128) and Y (y_blocks, k, 128) with
+// X[j, q] at x[(j/128*k + q)*128 + j%128]; store mode writes every lane of
+// row blocks < r128 and zeros on row blocks r128 .. y_blocks - 1 (y_blocks
+// >= r128). packed = 0: X (cols, k) and Y (rows, k) row-major; store mode
+// writes every row < rows. add = 1 adds onto Y instead (the guard row
+// blocks untouched). Y 16-byte aligned
+SPMX_API int spmx_lanepack_spmm(const SpmxSegPlan* plan, const float* x, float* y, int k,
+                                int q0, int kq, int packed, int64_t y_blocks, int add,
                                 void* stream);
 
-// packed K-column BELL SpMM (1 <= k <= 16): with pos = lane[layer, rb, l] + bias
-// and j = (rb + ds[layer] + (pos >> 7))*128 + (pos & 127),
-// y3[rb, q, l] = sum_layer vals[layer, rb, l] * x3[j/128, q, j%128]
-// (j outside [0, cols) reads 0); every element of y3 (r128, k, 128) is written
-SPMX_API int spmx_bell_spmm(int device, const void* vals, int values_bf16,
-                            const void* lane, int lane_bytes, int bias,
-                            const int32_t* ds, int num_layers, int64_t r128,
-                            int64_t cols, int k, const float* x3, float* y3,
+// BELL SpMM (1 <= k <= 16) on a BELL plan: with pos = lane[layer, rb, l] +
+// bias and j = (rb + ds[layer] + (pos >> 7))*128 + (pos & 127), Y[i, q] =
+// sum_layer vals[layer, rb, l] * X[j, q] for row i = rb*128 + l < rows
+// (j outside [0, cols) adds nothing), in layer order, each product and
+// sum rounded on its own; X (cols, k) and Y (rows, k) row-major, every row
+// of Y written
+SPMX_API int spmx_bell_spmm(const SpmxBellPlan* plan, const float* x, float* y, int k,
                             void* stream);
 
 // the output tile edge of the two block kernels (64): their live-depth

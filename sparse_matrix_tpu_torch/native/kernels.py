@@ -13,7 +13,9 @@ on one plan: ``prepare_*`` checks the plan's arrays once and packs their
 pointers into the C struct the kernel takes, and each call then checks only
 x and y and makes one ctypes call (the aligned, LanePack, BELL and
 stripe SpMV kernels; ``prepare_aligned``, ``prepare_lanepack``,
-``prepare_bell``, ``prepare_stripe``).
+``prepare_bell``, ``prepare_stripe``). A :class:`PreparedSpmm` does the
+same for the LanePack and BELL SpMM kernels, whose X and Y carry K
+columns (``prepare_lanepack_spmm``, ``prepare_bell_spmm``).
 """
 
 from __future__ import annotations
@@ -34,10 +36,11 @@ __all__ = [
     "prepare_lanepack",
     "prepare_bell",
     "prepare_stripe",
+    "PreparedSpmm",
+    "prepare_lanepack_spmm",
+    "prepare_bell_spmm",
     "launch_dia_spmm",
     "launch_aligned_spmm",
-    "launch_lanepack_spmm",
-    "launch_bell_spmm",
     "launch_bcsr_spmm",
     "launch_block_spgemm",
     "launch_esc_expand",
@@ -63,6 +66,15 @@ BLOCK_TILE = 64
 #: the library loads): a plan of L levels needs ``ceil(L / 8)`` tickets a
 #: stripe
 STRIPE_GROUP_LEVELS = 8
+
+#: the most columns one launch of the LanePack SpMM kernel takes, and one
+#: of its warps (kMaxCols and kGroupCols of csrc/spmm_lanepack.cu, checked
+#: against ``spmx_lanepack_spmm_max_cols``/``_group_cols`` when the
+#: library loads): its scratch slots are 16 128-float rows wide, a wider X
+#: takes several launches, and a plan needs 16 / 8 tickets a row block
+LANEPACK_SPMM_COLS = 16
+LANEPACK_SPMM_GROUP_COLS = 8
+LANEPACK_SPMM_GROUPS = LANEPACK_SPMM_COLS // LANEPACK_SPMM_GROUP_COLS
 
 
 def reset_launch_counts() -> None:
@@ -93,14 +105,12 @@ def _library() -> ctypes.CDLL:
         lib.spmx_aligned_spmm.argtypes = [
             i32, vp, vp, vp, vp, i64, i64, i32, vp, vp, vp,
         ]
+        # (plan struct, x, y, k, q0, kq, packed, y_blocks, add, stream)
         lib.spmx_lanepack_spmm.restype = i32
-        lib.spmx_lanepack_spmm.argtypes = [
-            i32, vp, vp, vp, vp, vp, vp, i64, i64, i32, vp, vp, vp,
-        ]
+        lib.spmx_lanepack_spmm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
+        # (plan struct, x, y, k, stream)
         lib.spmx_bell_spmm.restype = i32
-        lib.spmx_bell_spmm.argtypes = [
-            i32, vp, i32, vp, i32, i32, vp, i32, i64, i64, i32, vp, vp, vp,
-        ]
+        lib.spmx_bell_spmm.argtypes = [vp, vp, vp, i32, vp]
         lib.spmx_bcsr_spmm.restype = i32
         lib.spmx_bcsr_spmm.argtypes = [
             i32, vp, vp, vp, vp, i64, vp, vp, i64, i32, i64, vp, vp, vp,
@@ -111,9 +121,16 @@ def _library() -> ctypes.CDLL:
         lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
         lib.spmx_trisweep.restype = i32
         lib.spmx_trisweep.argtypes = [i32, vp, vp, i32, i64, vp, vp, i32, vp, vp, vp]
-        for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels):
+        for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
+                   lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols):
             fn.restype = i32
             fn.argtypes = []
+        cols = (lib.spmx_lanepack_spmm_max_cols(), lib.spmx_lanepack_spmm_group_cols())
+        if cols != (LANEPACK_SPMM_COLS, LANEPACK_SPMM_GROUP_COLS):
+            raise RuntimeError(f"the LanePack SpMM kernel takes {cols[0]} columns a launch and "
+                               f"{cols[1]} a warp, LANEPACK_SPMM_COLS and _GROUP_COLS are "
+                               f"{LANEPACK_SPMM_COLS} and {LANEPACK_SPMM_GROUP_COLS}: its scratch "
+                               "slots and tickets would not match")
         if lib.spmx_block_tile() != BLOCK_TILE:
             raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
                                f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
@@ -154,36 +171,62 @@ class StripePlan(ctypes.Structure):
     _fields_ += [(f, ctypes.c_int32) for f in ("levels", "lane_bytes", "foreign_pad", "device")]
 
 
-class PreparedLaunch:
-    """One kernel's launch on one checked plan: ``launch(x, y, add=False)``
-    checks x (a contiguous f32 CUDA vector of ``x_len`` elements on the
-    plan's device) and y (the same, ``y_len`` elements, 16-byte aligned),
-    enqueues the kernel on the current stream with one ctypes call of
-    ``(args, x, y, add, stream)``, raises on a refused launch and adds one
-    to ``launch_counts[name]``. ``args`` is the kernel's C struct, packed
-    once; ``keep`` holds the tensors its pointers name. A plan with no
-    work launches and counts nothing."""
+class _LaunchRecord:
+    """What the launch records share: the kernel's C struct ``args``,
+    packed once (``keep`` holds the tensors its pointers name), the
+    library function, resolved at the first launch, and :meth:`_enqueue`.
+    A plan with no work (``empty``) launches and counts nothing."""
 
-    __slots__ = ("name", "device", "x_len", "y_len", "_cname", "_args", "_ref", "_keep",
-                 "_fn", "_stream", "_empty")
+    __slots__ = ("name", "device", "_cname", "_args", "_ref", "_keep", "_fn", "_stream",
+                 "_empty")
 
     def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
-                 *, x_len: int, y_len: int, empty: bool, keep: tuple):
-        self.name, self.device, self.x_len, self.y_len = name, device, x_len, y_len
+                 *, empty: bool, keep: tuple):
+        self.name, self.device = name, device
         self._cname, self._args, self._ref = cname, args, ctypes.addressof(args)
         self._keep, self._empty = keep, empty
         self._fn = self._stream = None
 
-    def _refuse(self, what: str, t: torch.Tensor, n: int):
+    def _refuse(self, what: str, t: torch.Tensor, n: Optional[int] = None):
         if t.device != self.device:
             return ValueError(f"{self.name}: {what} is on {t.device}, the plan on {self.device}")
         if t.dtype != _F32:
             return TypeError(f"{self.name}: {what} has dtype {t.dtype}, expected {_F32}")
         if not t.is_contiguous():
             return ValueError(f"{self.name}: {what} must be contiguous")
-        if t.numel() != n:
+        if n is not None and t.numel() != n:
             return ValueError(f"{self.name}: {what} has {t.numel()} elements, expected {n}")
         return ValueError(f"{self.name}: {what} must be 16-byte aligned")
+
+    def _enqueue(self, *call) -> None:
+        """One ctypes call ``(args, *call, stream)`` of the kernel on the
+        current stream; raises on a refused launch, else adds one to
+        ``launch_counts[name]``."""
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(_library(), self._cname)
+            raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+            self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+        err = fn(self._ref, *call, self._stream(self.device.index))
+        if err != 0:
+            msg = _library().spmx_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err} ({msg})")
+        launch_counts[self.name] += 1
+
+
+class PreparedLaunch(_LaunchRecord):
+    """One kernel's launch on one checked plan: ``launch(x, y, add=False)``
+    checks x (a contiguous f32 CUDA vector of ``x_len`` elements on the
+    plan's device) and y (the same, ``y_len`` elements, 16-byte aligned)
+    and enqueues the kernel with one ctypes call of ``(args, x, y, add,
+    stream)``."""
+
+    __slots__ = ("x_len", "y_len")
+
+    def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
+                 *, x_len: int, y_len: int, empty: bool, keep: tuple):
+        super().__init__(name, cname, args, device, empty=empty, keep=keep)
+        self.x_len, self.y_len = x_len, y_len
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, add: bool = False) -> None:
         idx = self.device.index
@@ -193,27 +236,72 @@ class PreparedLaunch:
         if (not y.is_cuda or y.get_device() != idx or y.dtype is not _F32
                 or not y.is_contiguous() or y.numel() != self.y_len or y.data_ptr() % 16):
             raise self._refuse("y", y, self.y_len)
+        if not self._empty:
+            self._enqueue(x.data_ptr(), y.data_ptr(), int(add))
+
+
+class PreparedSpmm(_LaunchRecord):
+    """One SpMM kernel's launches on one checked plan: ``launch(x, y,
+    packed=False, add=False)`` takes X ``(cols, K)`` and Y ``(rows, K)``
+    row-major or, with ``packed`` (the LanePack SpMM only), packed X ``(>=
+    c128, K, 128)`` and Y ``(>= r128, K, 128)`` (``X[j, q]`` at ``[j //
+    128, q, j % 128]``), both contiguous f32 CUDA tensors on the plan's
+    device, Y 16-byte aligned. ``max_cols``: the LanePack SpMM takes any K
+    in launches of that many columns, ``(args, x, y, K, q0, columns,
+    packed, Y's row blocks, add, stream)``; None: the BELL SpMM, one
+    launch ``(args, x, y, K, stream)`` of at most 16 columns. Store mode
+    writes every row of Y (packed: and zeros on Y's row blocks past the
+    plan's); ``add=True`` adds (the LanePack SpMM only)."""
+
+    __slots__ = ("rows", "cols", "max_cols")
+
+    def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
+                 *, rows: int, cols: int, max_cols: Optional[int], empty: bool, keep: tuple):
+        super().__init__(name, cname, args, device, empty=empty, keep=keep)
+        self.rows, self.cols, self.max_cols = rows, cols, max_cols
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor, *, packed: bool = False,
+                 add: bool = False) -> None:
+        idx = self.device.index
+        for what, t in (("x", x), ("y", y)):
+            if (not t.is_cuda or t.get_device() != idx or t.dtype is not _F32
+                    or not t.is_contiguous() or (what == "y" and t.data_ptr() % 16)):
+                raise self._refuse(what, t)
+        k = int(x.shape[1]) if x.dim() >= 2 else 0
+        if packed:
+            fits = (self.max_cols is not None and x.dim() == 3 and x.shape[2] == 128
+                    and x.shape[0] * 128 >= self.cols and y.dim() == 3
+                    and y.shape[1:] == x.shape[1:] and y.shape[0] * 128 >= self.rows)
+        else:
+            fits = x.dim() == 2 and x.shape[0] == self.cols and tuple(y.shape) == (self.rows, k)
+        if not fits or k < 1 or (self.max_cols is None and k > 16):
+            raise ValueError(f"{self.name}: x {tuple(x.shape)} and y {tuple(y.shape)} do not fit "
+                             f"a {self.rows} x {self.cols} plan"
+                             + (" in the packed layout" if packed else " as (cols, K), (rows, K)")
+                             + ("" if self.max_cols else " with 1 <= K <= 16"))
+        if add and self.max_cols is None:
+            raise ValueError(f"{self.name}: the kernel only writes y")
         if self._empty:
+            if packed and not add:
+                y.zero_()
             return
-        fn = self._fn
-        if fn is None:
-            fn = self._fn = getattr(_library(), self._cname)
-            raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-            self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
-        err = fn(self._ref, x.data_ptr(), y.data_ptr(), int(add), self._stream(idx))
-        if err != 0:
-            msg = _library().spmx_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err} ({msg})")
-        launch_counts[self.name] += 1
+        if self.max_cols is None:
+            self._enqueue(x.data_ptr(), y.data_ptr(), k)
+            return
+        y_blocks = int(y.shape[0]) if packed else 0
+        for q0 in range(0, k, self.max_cols):
+            self._enqueue(x.data_ptr(), y.data_ptr(), k, q0, min(self.max_cols, k - q0),
+                          int(packed), y_blocks, int(add))
 
 
-def _prepare_segmented(name, dtypes, *, cols, rows, **tensors) -> PreparedLaunch:
-    """Check a segmented SpMV plan (``csrc/segments.h``) and pack its
-    launch: slot arrays ``(chunks, 128)``, ``col_off`` ``(chunks,)``,
-    ``segments`` ``(S, 4)``, ``rb_seg`` ``(r128 + 1,)``, ``scratch``
-    ``(slots, 128)`` and ``tickets`` ``(r128,)`` int32 zeros. The segment
-    values are the host's (``ops.spmv.chunk_segments``: at most 32 chunks
-    a segment), not read back here."""
+def _seg_plan(name, dtypes, *, cols, rows, scratch_width=128, tickets_per_rb=1, **tensors):
+    """Check a segmented plan (``csrc/segments.h``) and pack its C struct:
+    slot arrays ``(chunks, 128)``, ``col_off`` ``(chunks,)``, ``segments``
+    ``(S, 4)``, ``rb_seg`` ``(r128 + 1,)``, ``scratch`` ``(slots,
+    scratch_width)`` and ``tickets`` ``(tickets_per_rb * r128,)`` int32
+    zeros. The segment values are the host's (``ops.spmv.chunk_segments``:
+    at most 32 chunks a segment), not read back here. Returns ``(device,
+    args)``."""
     dev = _check(name, dtypes, **tensors)
     vals, seg, rb_seg = tensors["vals"], tensors["segments"], tensors["rb_seg"]
     chunks = vals.shape[0] if vals.dim() == 2 else -1
@@ -223,8 +311,8 @@ def _prepare_segmented(name, dtypes, *, cols, rows, **tensors) -> PreparedLaunch
         or any(tensors[k].shape != vals.shape for k in ("lane", "ends", "starts") if k in tensors)
         or tensors["col_off"].numel() < chunks
         or seg.dim() != 2 or seg.shape[1] != 4 or rb_seg.numel() != r128 + 1
-        or tensors["tickets"].numel() != r128 or tensors["scratch"].dim() != 2
-        or tensors["scratch"].shape[1] != 128
+        or tensors["tickets"].numel() != tickets_per_rb * r128 or tensors["scratch"].dim() != 2
+        or tensors["scratch"].shape[1] != scratch_width
     ):
         raise ValueError(f"{name}: slot, chunk and segment arrays disagree with {rows} rows")
     if chunks >= 1 << 31 or seg.shape[0] >= 1 << 31:
@@ -234,12 +322,19 @@ def _prepare_segmented(name, dtypes, *, cols, rows, **tensors) -> PreparedLaunch
                                                          "segments", "scratch")
                                 if k in tensors})
     ptr = {k: t.data_ptr() for k, t in tensors.items()}
-    args = SegPlan(vals=ptr["vals"], lane=ptr["lane"], ends=ptr.get("ends"),
-                   starts=ptr.get("starts"), col_off=ptr["col_off"], segments=ptr["segments"],
-                   rb_seg=ptr["rb_seg"], scratch=ptr["scratch"], tickets=ptr["tickets"],
-                   num_segments=seg.shape[0], cols=cols, rows=rows, device=dev.index)
+    return dev, SegPlan(vals=ptr["vals"], lane=ptr["lane"], ends=ptr.get("ends"),
+                        starts=ptr.get("starts"), col_off=ptr["col_off"],
+                        segments=ptr["segments"], rb_seg=ptr["rb_seg"], scratch=ptr["scratch"],
+                        tickets=ptr["tickets"], num_segments=seg.shape[0], cols=cols, rows=rows,
+                        device=dev.index)
+
+
+def _prepare_segmented(name, dtypes, *, cols, rows, **tensors) -> PreparedLaunch:
+    """The launch record of a segmented SpMV plan (:func:`_seg_plan`, one
+    128-float scratch row a slot and one ticket a row block)."""
+    dev, args = _seg_plan(name, dtypes, cols=cols, rows=rows, **tensors)
     return PreparedLaunch(name, f"spmx_{name}", args, dev, x_len=cols, y_len=rows,
-                          empty=seg.shape[0] == 0, keep=tuple(tensors.values()))
+                          empty=args.num_segments == 0, keep=tuple(tensors.values()))
 
 
 _SEG_DTYPES = dict(col_off=torch.int32, segments=torch.int32, rb_seg=torch.int32,
@@ -269,25 +364,61 @@ def prepare_lanepack(vals, lane, ends, starts, col_off, segments, rb_seg, scratc
         segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
 
 
+def prepare_lanepack_spmm(vals, lane, ends, starts, col_off, segments, rb_seg, scratch, tickets,
+                          *, cols: int, rows: int) -> PreparedSpmm:
+    """The LanePack SpMM kernel's launches on one LanePack plan and its
+    segments (the arrays of :func:`prepare_lanepack`, with the SpMM's own
+    ``scratch`` ``(slots, 16 * 128)`` f32 and ``tickets`` ``(2 * r128,)``
+    int32 zeros): ``launch(x, y, packed=..., add=...)`` (see
+    :class:`PreparedSpmm`), one launch a 16 columns."""
+    dev, args = _seg_plan(
+        "lanepack_spmm",
+        dict(vals=torch.float32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
+             **_SEG_DTYPES),
+        cols=cols, rows=rows, scratch_width=LANEPACK_SPMM_COLS * 128,
+        tickets_per_rb=LANEPACK_SPMM_GROUPS, vals=vals, lane=lane, ends=ends, starts=starts,
+        col_off=col_off, segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
+    return PreparedSpmm("lanepack_spmm", "spmx_lanepack_spmm", args, dev, rows=rows, cols=cols,
+                        max_cols=LANEPACK_SPMM_COLS, empty=args.num_segments == 0,
+                        keep=(vals, lane, ends, starts, col_off, segments, rb_seg, scratch,
+                              tickets))
+
+
+def _bell_plan(name, vals, lane, ds, *, bias: int, rows: int, cols: int):
+    """Check a BELL plan's planes and pack its C struct; returns ``(device,
+    args)``."""
+    dev = _check(name, dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32),
+                 vals=vals, lane=lane, ds=ds)
+    layers = ds.numel()
+    if vals.dim() != 3 or vals.shape[0] != layers or vals.shape[2] != 128 \
+            or lane.shape != vals.shape:
+        raise ValueError(f"{name}: value/lane planes disagree with ds")
+    r128 = vals.shape[1]
+    if r128 * 128 < rows:
+        raise ValueError(f"{name}: planes do not cover the rows")
+    return dev, BellPlan(vals=vals.data_ptr(), lane=lane.data_ptr(), ds=ds.data_ptr(),
+                         r128=r128, rows=rows, cols=cols, num_layers=layers, bias=bias,
+                         lane_bytes=lane.element_size(),
+                         values_bf16=int(vals.dtype == torch.bfloat16), device=dev.index)
+
+
+def prepare_bell_spmm(vals, lane, ds, *, bias: int, rows: int, cols: int) -> PreparedSpmm:
+    """The BELL SpMM kernel's launch on one plan (the planes of
+    :func:`prepare_bell`): ``launch(x, y)`` writes ``Y = A @ X`` into
+    every row of Y, X ``(cols, K)`` and Y ``(rows, K)`` row-major, 1 <= K
+    <= 16; add mode and the packed layout are refused."""
+    dev, args = _bell_plan("bell_spmm", vals, lane, ds, bias=bias, rows=rows, cols=cols)
+    return PreparedSpmm("bell_spmm", "spmx_bell_spmm", args, dev, rows=rows, cols=cols,
+                        max_cols=None, empty=rows == 0, keep=(vals, lane, ds))
+
+
 def prepare_bell(vals, lane, ds, *, bias: int, rows: int, cols: int) -> PreparedLaunch:
     """The BELL kernel's launch on one plan (vals f32 or bf16 and lane int8
     or int16 ``(L, r128, 128)``, ds ``(L,)`` int32 bucket bases, lane
     positions stored as ``pos - bias``): ``launch(x, y)`` writes ``y = A @
     x`` into every row of y; ``launch(x, y, add=True)`` is refused (a BELL
     plan only writes y, its spill adds)."""
-    dev = _check("bell", dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32),
-                 vals=vals, lane=lane, ds=ds)
-    layers = ds.numel()
-    if vals.dim() != 3 or vals.shape[0] != layers or vals.shape[2] != 128 \
-            or lane.shape != vals.shape:
-        raise ValueError("bell: value/lane planes disagree with ds")
-    r128 = vals.shape[1]
-    if r128 * 128 < rows:
-        raise ValueError("bell: planes do not cover the rows")
-    args = BellPlan(vals=vals.data_ptr(), lane=lane.data_ptr(), ds=ds.data_ptr(), r128=r128,
-                    rows=rows, cols=cols, num_layers=layers, bias=bias,
-                    lane_bytes=lane.element_size(), values_bf16=int(vals.dtype == torch.bfloat16),
-                    device=dev.index)
+    dev, args = _bell_plan("bell", vals, lane, ds, bias=bias, rows=rows, cols=cols)
     return PreparedLaunch("bell", "spmx_bell", args, dev, x_len=cols, y_len=rows,
                           empty=rows == 0, keep=(vals, lane, ds))
 
@@ -445,57 +576,6 @@ def launch_aligned_spmm(vals, lane, col_off, chunk_rb, x3, y3, *, cols: int) -> 
     _run("aligned_spmm", dev, _library().spmx_aligned_spmm, vals.data_ptr(),
          lane.data_ptr(), col_off.data_ptr(), chunk_rb.data_ptr(), chunks, cols,
          x3.shape[1], x3.data_ptr(), y3.data_ptr())
-
-
-def launch_lanepack_spmm(vals, lane, ends, starts, col_off, chunk_rb, x3, y3, *, cols: int) -> None:
-    """``y3 += lanepack(...) @ x3`` in the packed ``(.., K, 128)`` layout;
-    y3 is the accumulator, x reads past ``cols`` give zero."""
-    dev = _check(
-        "lanepack_spmm",
-        dict(vals=_F32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
-             col_off=torch.int32, chunk_rb=torch.int32, x3=_F32, y3=_F32),
-        vals=vals, lane=lane, ends=ends, starts=starts, col_off=col_off,
-        chunk_rb=chunk_rb, x3=x3, y3=y3,
-    )
-    chunks = vals.numel() // 128
-    n = vals.numel()
-    if (lane.numel(), ends.numel(), starts.numel()) != (n, n, n) or min(
-        col_off.numel(), chunk_rb.numel()
-    ) < chunks:
-        raise ValueError("lanepack_spmm: slot and chunk arrays disagree")
-    if x3.dim() != 3 or x3.shape[2] != 128 or y3.dim() != 3 or y3.shape[1:] != x3.shape[1:]:
-        raise ValueError("lanepack_spmm: x3 and y3 must be (.., K, 128) with one K")
-    if x3.shape[0] * 128 < cols:
-        raise ValueError("lanepack_spmm: x3 does not cover the columns")
-    if chunks == 0 or x3.shape[1] == 0:
-        return
-    _run("lanepack_spmm", dev, _library().spmx_lanepack_spmm, vals.data_ptr(),
-         lane.data_ptr(), ends.data_ptr(), starts.data_ptr(), col_off.data_ptr(),
-         chunk_rb.data_ptr(), chunks, cols, x3.shape[1], x3.data_ptr(), y3.data_ptr())
-
-
-def launch_bell_spmm(vals, lane, ds, x3, y3, *, bias: int, cols: int) -> None:
-    """``y3 = BELL(vals, lane, ds) @ x3`` in the packed ``(.., K, 128)``
-    layout (vals/lane ``(L, r128, 128)``, y3 ``(r128, K, 128)``, 1 <= K <=
-    16); writes every element of y3."""
-    dev = _check(
-        "bell_spmm",
-        dict(vals=_VALS, lane=(torch.int8, torch.int16), ds=torch.int32, x3=_F32, y3=_F32),
-        vals=vals, lane=lane, ds=ds, x3=x3, y3=y3,
-    )
-    layers = ds.numel()
-    if vals.dim() != 3 or vals.shape[0] != layers or lane.shape != vals.shape:
-        raise ValueError("bell_spmm: value/lane planes disagree with ds")
-    k = x3.shape[1] if x3.dim() == 3 else 0
-    r128 = vals.shape[1]
-    if (
-        not 1 <= k <= 16 or x3.shape[2] != 128 or y3.shape != (r128, k, 128)
-        or x3.shape[0] * 128 < cols
-    ):
-        raise ValueError("bell_spmm: shapes disagree with (L, r128, cols, K)")
-    _run("bell_spmm", dev, _library().spmx_bell_spmm, vals.data_ptr(),
-         int(vals.dtype == torch.bfloat16), lane.data_ptr(), lane.element_size(),
-         bias, ds.data_ptr(), layers, r128, cols, k, x3.data_ptr(), y3.data_ptr())
 
 
 def _check_bs(name: str, bs: int) -> None:

@@ -538,7 +538,10 @@ class SpmvOperator:
             return torch.stack([apply(x[:, j]) for j in range(k)], dim=1)
 
         def chunks16(apply):
-            """``apply`` on balanced column chunks of at most 16."""
+            """``apply`` on balanced column chunks of at most 16 (on X
+            itself when K <= 16)."""
+            if k <= 16:
+                return apply(x)
             nchunks = -(-k // 16)
             base, rem = divmod(k, nchunks)
             parts, j = [], 0

@@ -1,22 +1,26 @@
 """SpMM: sparse matrix times a block of K dense columns (``A @ X``).
 
-Counterpart of ``sparse_matrix_tpu/ops/spmm.py``. The general formats keep
-the right-hand sides in the packed layout ``(c128 + guard, K, 128)``
-(:func:`pack_rhs`), in which one x-window load of a chunk serves all K
-columns:
+Counterpart of ``sparse_matrix_tpu/ops/spmm.py``. The packed multi-RHS
+layout ``(c128 + guard, K, 128)`` (:func:`pack_rhs`) is kept where the
+reference's callers hold it (the ``*_packed`` and ``*_matvec_multi``
+entry points, ``cg_solve_multi(..., rhs_axis=1)``); the others take X
+``(cols, K)`` and return Y ``(rows, K)``:
 
 * :func:`spmm_aligned_packed`, :func:`aligned_matvec_multi`,
   :func:`spmm_aligned` — the aligned SpMM kernel (``csrc/spmm_aligned.cu``)
   on an ``AlignedPlan``; the plan's LanePack spill goes through the
-  LanePack SpMM kernel, one launch for all K columns;
-* :func:`spmm_lanepack_packed`, :func:`lanepack_matvec_multi`,
-  :func:`spmm_lanepack` — the LanePack SpMM kernel
-  (``csrc/spmm_lanepack.cu``) on a ``LanePackPlan``; ``spmm_lanepack``
-  loops over columns through the SpMV kernel where the reference does
-  (:func:`lanepack_spmm_uses_kernel`);
+  LanePack SpMM kernel in add mode, one launch for up to 16 columns;
+* :func:`spmm_lanepack_packed`, :func:`lanepack_matvec_multi` (packed)
+  and :func:`spmm_lanepack` (row-major X and Y, no relayout) — the
+  LanePack SpMM kernel (``csrc/spmm_lanepack.cu``) on a ``LanePackPlan``,
+  through the launch record of its device arrays (``spmm_launch``): one
+  warp owns each row-block segment, Y from ``torch.empty``, no atomics;
+  ``spmm_lanepack`` loops over columns through the SpMV kernel where the
+  reference does (:func:`lanepack_spmm_uses_kernel`);
 * :func:`spmm_bell` — the BELL SpMM kernel (``csrc/spmm_bell.cu``) on a
-  ``BellPlan`` for 2 <= K <= 16 (:func:`bell_spmm_viable`), plus the
-  LanePack SpMM kernel on its spill;
+  ``BellPlan`` for 2 <= K <= 16 (:func:`bell_spmm_viable`), row-major X
+  and Y through its launch record, plus the LanePack SpMM kernel on its
+  spill in add mode;
 * :func:`spmm_bcsr` — the BCSR SpMM kernel (``csrc/spmm_bcsr.cu``) on a
   ``BsrMatrix``: the stored blocks' products over the A-side live-depth
   stream of :func:`bcsr_depth_stream`, on the FP64 tensor cores;
@@ -122,35 +126,49 @@ def _lanepack_spmm_torch(arrs, x3, *, cols: int, kw: int):
     return torch.where(arrs["rb_mask"][:, None, None] > 0, y, 0.0)
 
 
-def _lanepack_spmm_into(arrs, x3, y3, *, cols: int, kw: int) -> None:
-    """``y3[:r128] += A @ x3`` for a LanePack plan's arrays, through the
-    LanePack SpMM kernel (CUDA) or its plain version (CPU). ``x3`` needs
-    only ``c128`` window rows: reads past ``cols`` give zero."""
-    if on_cuda(x3):
-        from ..native.kernels import launch_lanepack_spmm
+def _lanepack_spmm_into(plan, arrs, x, y, *, packed: bool, add: bool = False) -> None:
+    """``y = A @ x``, or ``y += A @ x`` with ``add``, for a LanePack plan
+    and its arrays: x and y packed (``(>= c128, K, 128)`` and ``(>= r128, K,
+    128)``; x reads past ``cols`` give zero) or row-major ``(cols, K)`` and
+    ``(rows, K)``. CUDA: the LanePack SpMM kernel through the arrays'
+    launch record; store mode writes every row of y and, packed, zeros on
+    y's row blocks past r128. CPU: the plain version."""
+    if on_cuda(x):
+        from .spmv import _launch_record, _prepare_lanepack_spmm
 
-        launch_lanepack_spmm(arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"],
-                             arrs["col_off"], arrs["chunk_rb"], x3, y3, cols=cols)
+        _launch_record(_prepare_lanepack_spmm, arrs, plan, key="spmm_launch")(
+            x, y, packed=packed, add=add)
+        return
+    x3 = x if packed else pack_rhs(x, plan.cols, guard=0)
+    y3 = _lanepack_spmm_torch(arrs, x3, cols=plan.cols, kw=plan.kw)
+    if not packed:
+        y3 = unpack_rhs(y3, plan.rows)
+    elif not add:
+        y[y3.shape[0]:] = 0
+    out = y[: y3.shape[0]]
+    if add:
+        out += y3
     else:
-        y = _lanepack_spmm_torch(arrs, x3, cols=cols, kw=kw)
-        y3[: y.shape[0]] += y
+        out.copy_(y3)
 
 
 def spmm_lanepack_packed(plan, x3, *, device_arrays=None):
     """``Y = A @ X`` on a ``LanePackPlan``, packed layout in and out:
     ``x3`` is (c128 + guard, K, 128) for any guard (``pack_rhs`` with
-    ``guard=plan.kw`` gives the reference's), the result (r128, K, 128)."""
+    ``guard=plan.kw`` gives the reference's), the result (r128, K, 128),
+    allocated with ``torch.empty`` and written whole."""
     x3 = _check_x3(x3, plan.cols, 0)
     arrs = device_arrays if device_arrays is not None else lanepack_device_arrays(plan, x3.device)
-    y3 = torch.zeros((plan.r128, x3.shape[1], LANES), dtype=x3.dtype, device=x3.device)
-    _lanepack_spmm_into(arrs, x3, y3, cols=plan.cols, kw=plan.kw)
+    y3 = torch.empty((plan.r128, x3.shape[1], LANES), dtype=x3.dtype, device=x3.device)
+    _lanepack_spmm_into(plan, arrs, x3, y3, packed=True)
     return y3
 
 
 def lanepack_matvec_multi(plan, k: int, device, *, device_arrays=None):
     """Packed-layout multi-RHS matvec of a square LanePack plan: maps
-    (c128 + kw, K, 128) to the same shape (guard rows zero), for
-    ``cg_solve_multi(..., rhs_axis=1)``. Device arrays are built once."""
+    (c128 + kw, K, 128) to the same shape (guard rows zero, written by the
+    kernel), for ``cg_solve_multi(..., rhs_axis=1)``. Device arrays are
+    built once."""
     if plan.rows != plan.cols:
         raise ValueError("packed multi-RHS matvec needs a square operator")
     arrs = device_arrays if device_arrays is not None else lanepack_device_arrays(plan, device)
@@ -159,8 +177,8 @@ def lanepack_matvec_multi(plan, k: int, device, *, device_arrays=None):
         x3 = _check_x3(x3, plan.cols, plan.kw)
         if x3.shape[1] != k:
             raise ValueError(f"x3 has {x3.shape[1]} columns, the matvec was built for {k}")
-        y3 = torch.zeros_like(x3)
-        _lanepack_spmm_into(arrs, x3, y3, cols=plan.cols, kw=plan.kw)
+        y3 = torch.empty_like(x3)
+        _lanepack_spmm_into(plan, arrs, x3, y3, packed=True)
         return y3
 
     return mv
@@ -178,18 +196,30 @@ def lanepack_spmm_uses_kernel(plan, k: int) -> bool:
     return k >= _LP_SPMM_MIN_K or plan.num_slabs < _LP_SPMM_LOOP_MIN_SLABS
 
 
+def _check_x(x, cols: int):
+    """``x`` a float32 (cols, K) block; returned contiguous."""
+    if x.dim() != 2 or x.shape[0] != cols:
+        raise ValueError(f"x must be ({cols}, K), got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x has dtype {x.dtype}, the plan is float32")
+    return x.contiguous()
+
+
 def spmm_lanepack(plan, x, *, device_arrays=None):
-    """``Y = A @ X`` for ``X`` (cols, K) on a ``LanePackPlan``: the packed
-    LanePack SpMM kernel where :func:`lanepack_spmm_uses_kernel`, else a
-    column loop through the LanePack SpMV kernel. The exact K is passed
-    (no padding to multiples of 8)."""
+    """``Y = A @ X`` for ``X`` (cols, K) on a ``LanePackPlan``: the
+    LanePack SpMM kernel on X and Y as they are, row-major (no packing),
+    where :func:`lanepack_spmm_uses_kernel`, else a column loop through
+    the LanePack SpMV kernel. The exact K is passed (no padding to
+    multiples of 8)."""
     arrs = device_arrays if device_arrays is not None else lanepack_device_arrays(plan, x.device)
     k = int(x.shape[1])
     if not lanepack_spmm_uses_kernel(plan, k):
         return torch.stack([spmv_lanepack(plan, x[:, j], device_arrays=arrs) for j in range(k)],
                            dim=1)
-    y3 = spmm_lanepack_packed(plan, pack_rhs(x, plan.cols, guard=plan.kw), device_arrays=arrs)
-    return unpack_rhs(y3, plan.rows)
+    x = _check_x(x, plan.cols)
+    y = torch.empty((plan.rows, k), dtype=x.dtype, device=x.device)
+    _lanepack_spmm_into(plan, arrs, x, y, packed=False)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +256,7 @@ def _spmm_aligned_into(plan, arrs, x3, y3) -> None:
     else:
         y3[: plan.r128] += _aligned_spmm_torch(arrs, x3, rows=plan.rows)
     if plan.spill is not None:
-        _lanepack_spmm_into(arrs["spill"], x3, y3, cols=plan.cols, kw=plan.spill.kw)
+        _lanepack_spmm_into(plan.spill, arrs["spill"], x3, y3, packed=True, add=True)
 
 
 def spmm_aligned_packed(plan, x3, *, device_arrays=None):
@@ -314,32 +344,34 @@ def _bell_spmm_torch(vals, lane, x, *, ds: tuple, modes: tuple, span: int, cols:
 
 def spmm_bell(plan, x, *, device_arrays=None):
     """``Y = A @ X`` for ``X`` (cols, K) on a ``BellPlan``: one pass over
-    the slot planes for all K columns through the BELL SpMM kernel, plus
-    the LanePack SpMM kernel on the spill sub-plan, both into one packed
-    y. bf16 value planes are widened and accumulated in f32."""
-    from .spmv_bell import bell_device_arrays
+    the slot planes for all K columns through the BELL SpMM kernel, which
+    reads X and writes Y (rows, K) as they are, row-major, then the
+    LanePack SpMM kernel adds the spill sub-plan onto Y (CUDA); or their
+    plain versions (CPU). bf16 value planes are widened and accumulated
+    in f32."""
+    from .spmv import _launch_record
+    from .spmv_bell import _prepare_bell_spmm, bell_device_arrays
 
-    k = int(x.shape[1])
+    k = int(x.shape[1]) if x.dim() == 2 else 0
     if not bell_spmm_viable(plan, k):
         raise ValueError(f"spmm_bell takes 2 <= K <= 16 columns, got K={k}: chunk K or "
                          "loop over columns with spmv_bell")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x has dtype {x.dtype}, the plan is float32")
+    x = _check_x(x, plan.cols)
     arrs = device_arrays if device_arrays is not None else bell_device_arrays(plan, x.device)
-    x3 = pack_rhs(x, plan.cols)
     if on_cuda(x):
-        from ..native.kernels import launch_bell_spmm
-
-        y3 = torch.empty((plan.r128, k, LANES), dtype=x.dtype, device=x.device)
-        launch_bell_spmm(arrs["vals"], arrs["lane"], arrs["ds"], x3, y3,
-                         bias=LANES if plan.span == 128 else 0, cols=plan.cols)
-    elif plan.num_layers:
+        y = torch.empty((plan.rows, k), dtype=x.dtype, device=x.device)
+        _launch_record(_prepare_bell_spmm, arrs, plan, key="spmm_launch")(x, y)
+        if plan.spill is not None:
+            _lanepack_spmm_into(plan.spill, arrs["spill"], x, y, packed=False, add=True)
+        return y
+    if plan.num_layers:
         y3 = _bell_spmm_torch(arrs["vals"], arrs["lane"], x, ds=plan.ds, modes=plan.modes,
                               span=plan.span, cols=plan.cols)
     else:
         y3 = torch.zeros((plan.r128, k, LANES), dtype=x.dtype, device=x.device)
     if plan.spill is not None:
-        _lanepack_spmm_into(arrs["spill"], x3, y3, cols=plan.cols, kw=plan.spill.kw)
+        y3 = y3 + _lanepack_spmm_torch(arrs["spill"], pack_rhs(x, plan.cols), cols=plan.cols,
+                                       kw=plan.spill.kw)
     return unpack_rhs(y3, plan.rows)
 
 

@@ -202,13 +202,32 @@ def _prepare_lanepack(arrs: dict, plan) -> kernels.PreparedLaunch:
     return _prepare_segment_launch("lanepack", arrs, plan)
 
 
-def _launch_record(prepare, arrs: dict, plan) -> kernels.PreparedLaunch:
-    """``arrs["launch"]``, made by ``prepare(arrs, plan)`` (and the arrays
-    checked) at the first call where the caller built the dict without
-    it."""
-    rec = arrs.get("launch")
+def _prepare_lanepack_spmm(arrs: dict, plan) -> kernels.PreparedSpmm:
+    """The LanePack SpMM kernel's launch record on a LanePack plan's
+    ``arrs``: the segments of the SpMV kernel, with scratch slots 16
+    columns wide (``spmm_scratch``) and two zeroed tickets a row block
+    (``spmm_tickets``) of its own, every array checked once."""
+    dev = arrs["vals"].device
+    if "segments" not in arrs:
+        arrs.update(_segment_arrays("lanepack", plan, dev))
+    arrs["spmm_scratch"] = torch.empty((arrs["seg_slots"], kernels.LANEPACK_SPMM_COLS * LANES),
+                                       dtype=torch.float32, device=dev)
+    arrs["spmm_tickets"] = torch.zeros(kernels.LANEPACK_SPMM_GROUPS * plan.r128,
+                                       dtype=torch.int32, device=dev)
+    return kernels.prepare_lanepack_spmm(
+        arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"], arrs["col_off"],
+        arrs["segments"], arrs["rb_seg"], arrs["spmm_scratch"], arrs["spmm_tickets"],
+        cols=plan.cols, rows=plan.rows)
+
+
+def _launch_record(prepare, arrs: dict, plan, key: str = "launch"):
+    """``arrs[key]`` (``"launch"``: the SpMV kernel's record,
+    ``"spmm_launch"``: the SpMM kernel's), made by ``prepare(arrs, plan)``
+    (and the arrays checked) at the first call where the caller built the
+    dict without it."""
+    rec = arrs.get(key)
     if rec is None:
-        rec = arrs["launch"] = prepare(arrs, plan)
+        rec = arrs[key] = prepare(arrs, plan)
     return rec
 
 
@@ -218,36 +237,44 @@ def _segments_torch(kind: str, arrs, x, *, rows: int, cols: int, kw: int = 1):
     chunk the 128 row contributions (the products, or the run differences
     of the chunk's prefix sum), added chunk by chunk within each segment,
     then segment by segment within each row block; rows past ``rows``
-    dropped. The CPU tests hold it to ``_aligned_torch`` and
-    ``_lanepack_torch``; no call path uses it."""
+    dropped. ``x`` is a vector (the SpMV kernels' order) or a (cols, K)
+    block, whose columns each take their own scan and sum (the LanePack
+    SpMM kernel's order); the result is (rows,) or (rows, K). The CPU
+    tests hold it to ``_aligned_torch``, ``_lanepack_torch`` and
+    ``ops.spmm._lanepack_spmm_torch``; no call path uses it."""
     vals = arrs["vals"]
     co = arrs["col_off"].long()
     c128 = -(-cols // LANES)
     win = kw if kind == "lanepack" else 1
-    xpad = torch.zeros((c128 + win) * LANES, dtype=x.dtype, device=x.device)
-    xpad[: x.shape[0]] = x
-    x2d = xpad.reshape(c128 + win, LANES)
+    xm = x.reshape(x.shape[0], -1)
+    k = xm.shape[1]
+    xpad = torch.zeros(((c128 + win) * LANES, k), dtype=x.dtype, device=x.device)
+    xpad[: x.shape[0]] = xm
+    x3 = xpad.reshape(c128 + win, LANES, k)
     chunks = vals.shape[0]
-    xw = x2d[co[:chunks, None] + torch.arange(win, device=x.device)[None, :]]
-    p = vals * torch.gather(xw.reshape(chunks, win * LANES), 1, arrs["lane"].long())
+    xw = x3[co[:chunks, None] + torch.arange(win, device=x.device)[None, :]]
+    lane = arrs["lane"].long()[:, :, None].expand(-1, -1, k)
+    p = vals[:, :, None] * torch.gather(xw.reshape(chunks, win * LANES, k), 1, lane)
     if kind == "lanepack":
         c = torch.cumsum(p, dim=1)
-        starts = arrs["starts"].long()
-        p = torch.gather(c, 1, arrs["ends"].long()) - torch.where(
+        ends = arrs["ends"].long()[:, :, None].expand(-1, -1, k)
+        starts = arrs["starts"].long()[:, :, None].expand(-1, -1, k)
+        p = torch.gather(c, 1, ends) - torch.where(
             starts < 0, 0.0, torch.gather(c, 1, starts.clamp(min=0)))
     seg = arrs["segments"].long()
     first, count = seg[:, 1], seg[:, 2]
-    acc = torch.zeros(seg.shape[0], LANES, dtype=vals.dtype, device=x.device)
-    for k in range(int(count.max()) if seg.shape[0] else 0):
-        live = count > k
-        acc[live] += p[first[live] + k]
+    acc = torch.zeros(seg.shape[0], LANES, k, dtype=vals.dtype, device=x.device)
+    for j in range(int(count.max()) if seg.shape[0] else 0):
+        live = count > j
+        acc[live] += p[first[live] + j]
     rb_seg = arrs["rb_seg"].long()
     nseg = rb_seg[1:] - rb_seg[:-1]
-    y2d = torch.zeros(nseg.shape[0], LANES, dtype=vals.dtype, device=x.device)
-    for k in range(int(nseg.max()) if nseg.numel() else 0):
-        live = nseg > k
-        y2d[live] += acc[rb_seg[:-1][live] + k]
-    return y2d.reshape(-1)[:rows]
+    y3 = torch.zeros(nseg.shape[0], LANES, k, dtype=vals.dtype, device=x.device)
+    for j in range(int(nseg.max()) if nseg.numel() else 0):
+        live = nseg > j
+        y3[live] += acc[rb_seg[:-1][live] + j]
+    y = y3.reshape(-1, k)[:rows]
+    return y if x.dim() == 2 else y[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +287,11 @@ def lanepack_device_arrays(plan: LanePackPlan, device) -> dict:
     128-slot chunks: ``vals`` (f32), ``lane`` (int16), ``ends``/``starts``
     (int8), ``col_off``/``chunk_rb`` (int32, one per chunk), ``rb_mask``;
     its segments (``segments``, ``rb_seg``, ``seg_slots``; see
-    :func:`chunk_segments`) and, on CUDA, ``launch``: the kernel's launch
-    record, every array checked, with the ``seg_scratch`` slots and
-    ``seg_tickets`` it owns (one launch at a time)."""
+    :func:`chunk_segments`) and, on CUDA, ``launch``: the SpMV kernel's
+    launch record, every array checked, with the ``seg_scratch`` slots and
+    ``seg_tickets`` it owns, and ``spmm_launch``: the SpMM kernel's
+    (``native.kernels.PreparedSpmm``), with its ``spmm_scratch`` and
+    ``spmm_tickets`` (one launch at a time for each)."""
     chunks = plan.num_slabs * plan.vals.shape[1]
     arrs = dict(
         vals=_t(plan.vals.reshape(chunks, LANES), device),
@@ -276,6 +305,7 @@ def lanepack_device_arrays(plan: LanePackPlan, device) -> dict:
     )
     if arrs["vals"].is_cuda:
         arrs["launch"] = _prepare_lanepack(arrs, plan)
+        arrs["spmm_launch"] = _prepare_lanepack_spmm(arrs, plan)
     return arrs
 
 

@@ -17,7 +17,7 @@ import torch
 from ..device import on_cuda
 from ..formats.bell import BellPlan
 from ..formats.lanepack import LANES
-from ..native.kernels import PreparedLaunch, prepare_bell
+from ..native.kernels import PreparedLaunch, PreparedSpmm, prepare_bell, prepare_bell_spmm
 from .spmv import (_cast_x, _lanepack_torch, _launch_record, _prepare_lanepack, _t,
                    lanepack_device_arrays)
 
@@ -27,8 +27,9 @@ __all__ = ["bell_device_arrays", "spmv_bell"]
 def bell_device_arrays(plan: BellPlan, device, values_dtype=None) -> dict:
     """Value planes (``values_dtype``, default the plan's), lane planes
     (int8 at span 128, int16 at 256), per-layer bases ``ds`` (int32) and
-    the spill sub-plan's LanePack arrays; on CUDA ``launch``, the kernel's
-    launch record. ``values_dtype=torch.bfloat16`` halves the value stream;
+    the spill sub-plan's LanePack arrays; on CUDA ``launch`` and
+    ``spmm_launch``, the launch records of the BELL SpMV and SpMM kernels.
+    ``values_dtype=torch.bfloat16`` halves the value stream;
     the spill keeps f32 values. Slots the plan did not fill keep its pad
     convention: value 0, lane pointing at index 0 of the layer's first used
     128-half."""
@@ -42,6 +43,7 @@ def bell_device_arrays(plan: BellPlan, device, values_dtype=None) -> dict:
     )
     if vals.is_cuda:
         arrs["launch"] = _prepare_bell(arrs, plan)
+        arrs["spmm_launch"] = _prepare_bell_spmm(arrs, plan)
     if plan.spill is not None:
         arrs["spill"] = lanepack_device_arrays(plan.spill, device)
     return arrs
@@ -50,6 +52,12 @@ def bell_device_arrays(plan: BellPlan, device, values_dtype=None) -> dict:
 def _prepare_bell(arrs: dict, plan: BellPlan) -> PreparedLaunch:
     return prepare_bell(arrs["vals"], arrs["lane"], arrs["ds"],
                         bias=LANES if plan.span == 128 else 0, rows=plan.rows, cols=plan.cols)
+
+
+def _prepare_bell_spmm(arrs: dict, plan: BellPlan) -> PreparedSpmm:
+    return prepare_bell_spmm(arrs["vals"], arrs["lane"], arrs["ds"],
+                             bias=LANES if plan.span == 128 else 0, rows=plan.rows,
+                             cols=plan.cols)
 
 
 def _bell_torch(vals, lane, x, *, ds: tuple, modes: tuple, span: int, rows: int, cols: int):

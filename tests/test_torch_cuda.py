@@ -728,6 +728,215 @@ def test_bell_spmm_kernel(dev, name, span, vdt, k):
                vals=vals, lanepack=() if plan.spill is None else (plan.spill,))
 
 
+def _lanepack_spmm_plain(plan, arrs, X):
+    """``_lanepack_spmm_torch`` on X (cols, K), unpacked to (rows, K)."""
+    y3 = spmm._lanepack_spmm_torch(arrs, spmm.pack_rhs(X, plan.cols, guard=0), cols=plan.cols,
+                                   kw=plan.kw)
+    return spmm.unpack_rhs(y3, plan.rows)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 20])
+@pytest.mark.parametrize("layout", ["packed", "rowmajor"])
+@pytest.mark.parametrize("g", [2, spmv.SEGMENT_CHUNKS])
+def test_lanepack_spmm_kernel_segments_repeat_bitwise(dev, g, layout, k, monkeypatch):
+    """Row blocks cut into segments of g chunks are summed by their last
+    warp (tickets back at 0); two calls give equal bits; each column within
+    the bound; one launch a 16 columns."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", g)
+    m = corpus.power_law_rows(np.random.default_rng(1), 3000, 12)
+    plan = plan_lanepack(m, kw=4)
+    assert spmm.lanepack_spmm_uses_kernel(plan, k)
+    arrs = spmv.lanepack_device_arrays(plan, dev)
+    if g == 2:
+        assert int(arrs["segments"][:, 3].max()) >= 0
+    X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
+    X = torch.from_numpy(X_np).to(dev)
+    x3 = spmm.pack_rhs(X, m.cols, guard=plan.kw)
+
+    def run():
+        if layout == "packed":
+            return spmm.unpack_rhs(spmm.spmm_lanepack_packed(plan, x3, device_arrays=arrs),
+                                   m.rows)
+        return spmm.spmm_lanepack(plan, X, device_arrays=arrs)
+
+    before = kernels.launch_counts["lanepack_spmm"]
+    _run_multi("lanepack_spmm", m, X_np, run, lambda: _lanepack_spmm_plain(plan, arrs, X),
+               lanepack=(plan,))
+    assert kernels.launch_counts["lanepack_spmm"] - before == -(-k // 16)
+    y1, y2 = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert torch.all(arrs["spmm_tickets"] == 0)
+
+
+@pytest.mark.parametrize("layout", ["packed", "rowmajor"])
+def test_lanepack_spmm_kernel_store_and_add_modes(dev, layout, monkeypatch):
+    """Store mode writes every row of a NaN-filled y (empty row blocks 0;
+    packed: the row blocks past r128 zeroed); add mode adds the same
+    result onto y bit for bit and leaves those row blocks alone."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    rng = np.random.default_rng(7)
+    mask = rng.random((700, 512)) < 0.03
+    for rb in (0, 2, 4):
+        mask[rb * 128: (rb + 1) * 128] = False
+    r, c = np.nonzero(mask)
+    m = CsrMatrix.from_coo(700, 512, r, c, rng.standard_normal(r.size).astype(np.float32))
+    plan = plan_lanepack(m, pack="per_rb")
+    arrs = spmv.lanepack_device_arrays(plan, dev)
+    rec = arrs["spmm_launch"]
+    X_np = rng.standard_normal((512, 8)).astype(np.float32)
+    X = torch.from_numpy(X_np).to(dev)
+    packed = layout == "packed"
+    x = spmm.pack_rhs(X, 512, guard=0) if packed else X
+    shape = (plan.r128 + 3, 8, 128) if packed else (700, 8)
+    y = torch.full(shape, float("nan"), device=dev)
+    rec(x, y, packed=packed)
+    got = spmm.unpack_rhs(y, 700) if packed else y
+    if packed:
+        assert int(torch.count_nonzero(y[plan.r128:])) == 0
+    for rb in (0, 2, 4):
+        assert torch.all(got[rb * 128: (rb + 1) * 128] == 0)
+    for q in range(8):
+        y64, bound = spmv.spmv_f64_bound(m, X_np[:, q], lanepack=(plan,))
+        assert np.all(np.abs(got[:, q].double().cpu().numpy() - y64) <= bound)
+    y0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    y_add = y0.clone()
+    rec(x, y_add, packed=packed, add=True)
+    if packed:
+        assert torch.equal(y_add[: plan.r128], y0[: plan.r128] + y[: plan.r128])
+        assert torch.equal(y_add[plan.r128:], y0[plan.r128:])
+    else:
+        assert torch.equal(y_add, y0 + y)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")])
+@pytest.mark.parametrize("layout", ["packed", "rowmajor"])
+def test_lanepack_spmm_kernel_nonfinite_x(dev, layout, value, monkeypatch):
+    """A non-finite X (at X[0, q], which slab padding reads, and inside)
+    gives the plain version's NaN and inf entries, column by column."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    m = corpus.fem_like(np.random.default_rng(1), 48, 2)
+    m = CsrMatrix(m.rows, m.cols, m.vals.astype(np.float32), m.indices, m.offsets,
+                  is_sorted=m.is_sorted)
+    plan = plan_lanepack(m, pack="per_rb")
+    arrs = spmv.lanepack_device_arrays(plan, dev)
+    for where in (0, m.cols // 2 + 3):
+        X = torch.from_numpy(np.random.default_rng(5).standard_normal((m.cols, 4))
+                             .astype(np.float32)).to(dev)
+        X[where, 1] = value
+        if layout == "packed":
+            a = spmm.unpack_rhs(spmm.spmm_lanepack_packed(
+                plan, spmm.pack_rhs(X, m.cols, guard=plan.kw), device_arrays=arrs), m.rows)
+        else:
+            a = spmm.spmm_lanepack(plan, X, device_arrays=arrs)
+        a, b = a.cpu().numpy(), _lanepack_spmm_plain(plan, arrs, X).cpu().numpy()
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        assert np.array_equal(np.isposinf(a), np.isposinf(b))
+        assert np.array_equal(np.isneginf(a), np.isneginf(b))
+        assert not np.all(np.isfinite(b))
+
+
+@pytest.mark.parametrize("k", [2, 3, 6, 8, 16])
+@pytest.mark.parametrize("span", [128, 256])
+@pytest.mark.parametrize("vdt", [None, torch.bfloat16])
+def test_bell_spmm_kernel_equals_plain_bitwise(dev, vdt, span, k):
+    """With no spill the BELL SpMM kernel rounds each product and sum as
+    the plain version does, in layer order: equal bits, every call (K
+    that takes 16-, 8- and 4-byte loads)."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = BELL_MATRICES["randlocal"]()
+    plan = plan_bell(m, span=span)
+    assert plan.spill is None
+    arrs = spmv_bell.bell_device_arrays(plan, dev, values_dtype=vdt)
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal((m.cols, k))
+                         .astype(np.float32)).to(dev)
+    before = kernels.launch_counts["bell_spmm"]
+    y1 = spmm.spmm_bell(plan, X, device_arrays=arrs)
+    y2 = spmm.spmm_bell(plan, X, device_arrays=arrs)
+    plain = spmm.unpack_rhs(spmm._bell_spmm_torch(arrs["vals"], arrs["lane"], X, ds=plan.ds,
+                                                  modes=plan.modes, span=plan.span,
+                                                  cols=plan.cols), m.rows)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["bell_spmm"] - before == 2
+    assert y1.shape == (m.rows, k) and torch.equal(y1, plain) and torch.equal(y1, y2)
+
+
+def test_bell_spmm_spill_is_one_lanepack_spmm_launch_in_add_mode(dev):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = BELL_MATRICES["powerlaw_spill"]()
+    plan = plan_bell(m)
+    assert plan.spill is not None
+    arrs = spmv_bell.bell_device_arrays(plan, dev)
+    X = torch.from_numpy(np.random.default_rng(3).standard_normal((m.cols, 8))
+                         .astype(np.float32)).to(dev)
+    before = dict(kernels.launch_counts)
+    y = spmm.spmm_bell(plan, X, device_arrays=arrs)
+    torch.cuda.synchronize()
+    got = {key: kernels.launch_counts[key] - before[key] for key in before}
+    assert got["bell_spmm"] == 1 and got["lanepack_spmm"] == 1 and got["lanepack"] == 0
+    y_bell = torch.empty_like(y)
+    arrs["spmm_launch"](X, y_bell)
+    y_spill = torch.empty_like(y)
+    arrs["spill"]["spmm_launch"](X, y_spill)
+    assert torch.equal(y, y_bell + y_spill)
+    assert torch.equal(y, spmm.spmm_bell(plan, X, device_arrays=arrs))
+
+
+def test_bell_matmat_multi_rhs_cg_on_card_matches_cpu(dev):
+    """BELL multi-RHS CG through ``SpmvOperator.matmat`` (B8 at K = 8, X and
+    Y row-major): iterations within 2 of the CPU's, X within 1e-4."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers.cg import cg_solve_multi
+
+    a = poisson_2d_csr(48, dtype=np.float32)
+    B = torch.from_numpy(np.random.default_rng(8).standard_normal((a.rows, 8))
+                         .astype(np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        op = SpmvOperator(a, device=d, force="bell")
+        res = cg_solve_multi(op.matmat, B.to(d), tol=1e-5, maxiter=2000, rhs_axis=-1)
+        out[d.type] = (res.iterations, res.x.double().cpu())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 2
+    assert torch.linalg.norm(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * torch.linalg.norm(out["cpu"][1])
+
+
+def test_spmm_records_refuse_bad_inputs(dev):
+    """The SpMM launch records refuse x on the CPU, another dtype, shapes
+    that do not fit, a misaligned y, and (BELL) K > 16, add mode and the
+    packed layout, before anything launches."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = poisson_2d_csr(32, dtype=np.float32)
+    lp = spmv.lanepack_device_arrays(plan_lanepack(m), dev)["spmm_launch"]
+    bl = spmv_bell.bell_device_arrays(plan_bell(m), dev)["spmm_launch"]
+    X = torch.zeros((m.cols, 4), device=dev)
+    Y = torch.empty((m.rows, 4), device=dev)
+    before = dict(kernels.launch_counts)
+    for rec in (lp, bl):
+        with pytest.raises(ValueError, match="is on cpu"):
+            rec(X.cpu(), Y)
+        with pytest.raises(TypeError, match="dtype"):
+            rec(X.double(), Y)
+        with pytest.raises(ValueError, match="do not fit"):
+            rec(X[1:], Y)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            rec(X, _misaligned(Y))
+    with pytest.raises(ValueError, match="do not fit"):
+        lp(spmm.pack_rhs(X, m.cols), torch.empty((1, 4, 128), device=dev), packed=True)
+    with pytest.raises(ValueError, match="1 <= K <= 16"):
+        bl(torch.zeros((m.cols, 17), device=dev), torch.empty((m.rows, 17), device=dev))
+    with pytest.raises(ValueError, match="only writes y"):
+        bl(X, Y, add=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        bl(spmm.pack_rhs(X, m.cols), torch.empty((m.rows // 128, 4, 128), device=dev),
+           packed=True)
+    assert kernels.launch_counts == before
+
+
 def _with_empty_block_rows(rows, cols, seed):
     rng = np.random.default_rng(seed)
     r = rng.integers(0, rows - 96, 4000)

@@ -6,11 +6,19 @@ bicgstab.py, gmres.py, ops/trisweep.py, native/host.py).
 The same inputs, made from a numpy seed, go through the JAX package and the
 port (the reference's CSR is built over the port's arrays). Tolerances:
 
-* factors: array-equal to the reference's (both libraries are the same C++
-  built with the same g++ flags); the port's library against its own
-  Python loops within 1e-12 (f64) and 1e-6 (f32) of the largest magnitude
-  (the compiler may contract a multiply and a subtract that numpy rounds
-  apart, and a few f32 entries cancel);
+* factors and exact solves: array-equal to the reference's on the path the
+  reference took in this process (``ref_path``): its native library, held
+  to the port's host library (the same C++ built with the same g++ flags),
+  or its Python loops, held to the port's copies of them
+  (``_ilu0_python``, ``_ilut_python``, ``_trisolve_python``: the same
+  numpy scalar operations in the same order, so equal bits). The reference
+  falls back to its loops for good when its library fails to load: under
+  ``SPMX_NO_NATIVE=1``, or when a concurrent test process is still writing
+  the library it builds at first use. Each assertion names the path;
+* the port's library against its own Python loops within 1e-12 (f64) and
+  1e-6 (f32) of the largest magnitude (the compiler may contract a
+  multiply and a subtract that numpy rounds apart, and a few f32 entries
+  cancel);
 * the plain trisweep against the reference's ``trisweep()`` (its
   ``_trisweep_xla`` on the CPU): within 4 float32 ulps of the largest
   magnitude of the reference's result (XLA may contract a multiply and an
@@ -74,9 +82,41 @@ def _unsym_dense(rng, n, shift, dens=0.03):
     return d
 
 
-def _same_csr(got, want):
+def _same_csr(got, want, path=""):
     for f in ("offsets", "indices", "vals"):
-        np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(want, f)))
+        np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(want, f)),
+                                      err_msg=f"{f}; reference path: {path}")
+
+
+@pytest.fixture(scope="module")
+def ref_path():
+    """``"native"`` if the reference's ILU routines run its native library in
+    this process, else ``"python"`` (its Python loops). Asked once: the
+    reference's loader settles the answer at its first call."""
+    from sparse_matrix_tpu.native import loader
+
+    return "native" if loader.native_available() else "python"
+
+
+def _ilu0_python_binding(rows, cols, offsets, indices, vals, diag_pos):
+    """``host.ilu0_native``'s signature over the port's Python loop."""
+    return ilu._ilu0_python(rows, offsets, indices.astype(np.int64), vals, diag_pos)
+
+
+def _on_ref_path(path, monkeypatch):
+    """Make the port's ILU(0) and IC(0) take the path the reference took:
+    its host library, or (``"python"``) its own Python loop in the
+    library's place."""
+    if path == "python":
+        monkeypatch.setattr(host, "ilu0_native", _ilu0_python_binding)
+
+
+def _ilut_on(path, a, **kw):
+    return ilu.ilut(a, **kw) if path == "native" else ilu._ilut_python(a, **kw)
+
+
+def _trisolve_on(path, t, b, **kw):
+    return (ilu.trisolve_host if path == "native" else ilu._trisolve_python)(t, b, **kw)
 
 
 def _matrix(kind, dtype):
@@ -90,21 +130,23 @@ def _matrix(kind, dtype):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("kind", ["spd7", "spd40", "spd120", "dense30", "poisson"])
-def test_ilu0_and_ic0_match_reference(kind, dtype):
+def test_ilu0_and_ic0_match_reference(kind, dtype, ref_path, monkeypatch):
     a = _matrix(kind, dtype)
-    f, rf = ilu.ilu0(a), ref_ilu.ilu0(_ref(a))
-    _same_csr(f.l, rf.l)
-    _same_csr(f.u, rf.u)
-    _same_csr(ilu.ic0(a), ref_ilu.ic0(_ref(a)))
+    rf, rc = ref_ilu.ilu0(_ref(a)), ref_ilu.ic0(_ref(a))
+    _on_ref_path(ref_path, monkeypatch)
+    f = ilu.ilu0(a)
+    _same_csr(f.l, rf.l, ref_path)
+    _same_csr(f.u, rf.u, ref_path)
+    _same_csr(ilu.ic0(a), rc, ref_path)
 
 
 @pytest.mark.parametrize("tau,p", [(1e-3, 6), (0.0, 40), (1e-1, 3)])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_ilut_matches_reference(dtype, tau, p):
+def test_ilut_matches_reference(dtype, tau, p, ref_path):
     a = _csr(_spd_dense(np.random.default_rng(21), 40, 0.3).astype(dtype))
-    f, rf = ilu.ilut(a, tau=tau, p=p), ref_ilu.ilut(_ref(a), tau=tau, p=p)
-    _same_csr(f.l, rf.l)
-    _same_csr(f.u, rf.u)
+    f, rf = _ilut_on(ref_path, a, tau=tau, p=p), ref_ilu.ilut(_ref(a), tau=tau, p=p)
+    _same_csr(f.l, rf.l, ref_path)
+    _same_csr(f.u, rf.u, ref_path)
 
 
 def _close(got, want, dtype):
@@ -172,16 +214,19 @@ def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
         host.build()
 
 
-def test_trisolve_host_matches_reference():
+def test_trisolve_host_matches_reference(ref_path, monkeypatch):
     rng = np.random.default_rng(4)
     a = _csr(_spd_dense(rng, 90))
-    f = ilu.ilu0(a)
     rf = ref_ilu.ilu0(_ref(a))
+    _on_ref_path(ref_path, monkeypatch)
+    f = ilu.ilu0(a)
     b = rng.standard_normal(a.rows)
-    y = ilu.trisolve_host(f.l, b, lower=True, unit=True)
-    np.testing.assert_array_equal(y, ref_ilu.trisolve_host(rf.l, b, lower=True, unit=True))
-    np.testing.assert_array_equal(ilu.trisolve_host(f.u, y, lower=False),
-                                  ref_ilu.trisolve_host(rf.u, y, lower=False))
+    msg = f"reference path: {ref_path}"
+    y = _trisolve_on(ref_path, f.l, b, lower=True, unit=True)
+    np.testing.assert_array_equal(y, ref_ilu.trisolve_host(rf.l, b, lower=True, unit=True),
+                                  err_msg=msg)
+    np.testing.assert_array_equal(_trisolve_on(ref_path, f.u, y, lower=False),
+                                  ref_ilu.trisolve_host(rf.u, y, lower=False), err_msg=msg)
 
 
 def _strict_dia(t):

@@ -189,11 +189,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                     rows=128, cols=128, x_lo=0, y_lo=0),
         "aligned_spmm": lambda: kernels.launch_aligned_spmm(f32, i8, i32, i32, f32[None, None],
                                                             f32[None, None], cols=128),
-        "lanepack_spmm": lambda: kernels.launch_lanepack_spmm(
-            f32, i16, i8, i8, i32, i32, f32[None, None], f32[None, None], cols=128),
-        "bell_spmm": lambda: kernels.launch_bell_spmm(f32[None, None], i8[None, None], i32,
-                                                      f32[None, None], f32[None, None],
-                                                      bias=128, cols=128),
+        "lanepack_spmm": lambda: kernels.prepare_lanepack_spmm(
+            f32[None], i16[None], i8[None], i8[None], i32, i32.repeat(1, 4), i32.repeat(2),
+            torch.zeros(0, 2048), i32.repeat(2), cols=128, rows=128),
+        "bell_spmm": lambda: kernels.prepare_bell_spmm(f32[None, None], i8[None, None], i32,
+                                                       bias=128, rows=128, cols=128),
         "bcsr_spmm": lambda: kernels.launch_bcsr_spmm(
             blk, i32, i32.repeat(2), i32.repeat(1, 2), i32.repeat(2),
             torch.zeros(1), f32[:, None], f32[:, None]),
