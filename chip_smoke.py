@@ -25,14 +25,16 @@ Phases, each of which ends the run with an exception on failure:
    (``block_err_over_bound``; 1/(n + 2) <= 1/3 in theory). The aligned,
    LanePack, BELL and stripe SpMV kernels (B2, B3, B4, B5; BELL on
    randlocal_262k with a LanePack spill in add mode, the select stripe
-   plan with its scan-mode spill in add mode) and the LanePack and BELL
-   SpMM kernels (B7, packed and, on Poisson 1024^2, row-major; B8, whose
-   cases have no spill and must also equal their plain version bit for
-   bit) must give equal bits on two calls. Each case has CUDA-event times
-   (median of 30 calls, 5 for the block SpGEMM) of the kernel through the
-   wrapper a user calls (``ms``; for B2, B3, B4, B5, B7, B8 and B10 also
-   the bare launch, ``launch_ms``, and its device time with no host gaps,
-   ``device_ms``, which the kernels line repeats for the first case), its
+   plan with its scan-mode spill in add mode) and the aligned, LanePack
+   and BELL SpMM kernels (B6 and B7, packed and, on Poisson 1024^2,
+   row-major; B6 with no spill must also equal its segment-order plain
+   version, ``_segments_torch``, bit for bit; B8, whose cases have no
+   spill, its plain version) must give equal bits on two calls. Each case
+   has CUDA-event times (median of 30 calls, 5 for the block SpGEMM) of
+   the kernel through the wrapper a user calls (``ms``; for B2, B3, B4,
+   B5, B6, B7, B8, B10 and B13 also the bare launch, ``launch_ms``, and
+   its device time with no host gaps, ``device_ms``, which the kernels
+   line repeats for the first case), its
    plain version and
    one library call on the same inputs (``torch.sparse`` CSR times X, or
    CSR times CSR for the SpGEMM, with the dense ``torch.matmul`` beside
@@ -106,7 +108,7 @@ Phases, each of which ends the run with an exception on failure:
    reference gather engine's expansion as the yardstick) and its bound.
 6. The trisweep kernel at sweeps = 4 on part g's factors (L and L^T of
    Poisson 2048^2's IC(0), L and U of femlike's ILU(0)): bit-equal to its
-   plain version, within the float64 running bound of
+   plain version and on two calls, within the float64 running bound of
    ``trisweep_f64_bound``, with its times beside the loop form (the
    reference's default ``TriangularJacobi.__call__``: the yardstick, no
    single PyTorch call computes Jacobi sweeps), beside the exact solve of
@@ -211,7 +213,7 @@ READS = {
     "bell": ("vals", "lane", "ds"),
     "stripe": ("vals", "lane", "ends", "starts", "col_off", "chunk_stripe", "rb_mask",
                "segments", "stripe_seg"),
-    "aligned_spmm": ("vals", "lane", "col_off", "chunk_rb"),
+    "aligned_spmm": ("vals", "lane", "col_off", "segments", "rb_seg"),
     "lanepack_spmm": ("vals", "lane", "ends", "starts", "col_off", "segments", "rb_seg"),
     "bell_spmm": ("vals", "lane", "ds"),
 }
@@ -670,10 +672,37 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
                                                     kw=plan.spill.kw)
             return y3
 
+        def launch_mm(arrs=arrs, x=x3, y=torch.empty_like(x3), packed=True):
+            arrs["spmm_launch"](x, y, packed=packed)
+            if "spill" in arrs:
+                arrs["spill"]["spmm_launch"](x, y, packed=packed, add=True)
+
         chk.check("aligned_spmm", f"{tag}_K{K_RHS}", m, xb_np,
                   lambda mv=mv, x3=x3: mv(x3), plain_mm,
                   plan_bytes=arrays_bytes("aligned_spmm", arrs),
-                  unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=spill)
+                  unpack=lambda y, m=m: spmm.unpack_rhs(y, m.rows), lanepack=spill,
+                  launch=launch_mm, repeat_bits=True)
+        if plan.spill is None:
+            # with no spill the kernel sums in the segment-order plain
+            # version's order and rounding: equal bits, packed and row-major
+            want = spmv._segments_torch("aligned", arrs, xb, rows=m.rows, cols=m.cols)
+            if not (torch.equal(spmm.unpack_rhs(mv(x3), m.rows), want)
+                    and torch.equal(spmm.spmm_aligned(plan, xb, device_arrays=arrs), want)):
+                raise AssertionError(f"aligned_spmm/{tag}: the kernel and its segment-order "
+                                     "plain version differ")
+            chk.cases["aligned_spmm"][-1]["bitwise_segments"] = True
+            log(f"kernel aligned_spmm {tag}_K{K_RHS}: equal to the segment-order plain version "
+                "bit for bit, packed and row-major")
+            # the row-major call (spmm_aligned, as matmat calls it): X and Y as
+            # the caller holds them, no packing
+            chk.check("aligned_spmm", f"{tag}_K{K_RHS}_rowmajor", m, xb_np,
+                      lambda plan=plan, arrs=arrs, xb=xb: spmm.spmm_aligned(
+                          plan, xb, device_arrays=arrs),
+                      lambda plain_mm=plain_mm, m=m: spmm.unpack_rhs(plain_mm(), m.rows),
+                      plan_bytes=arrays_bytes("aligned_spmm", arrs), lanepack=spill,
+                      launch=lambda launch_mm=launch_mm, xb=xb, y=torch.empty(
+                          (m.rows, K_RHS), device=dev): launch_mm(x=xb, y=y, packed=False),
+                      repeat_bits=True)
         if c12 and plan.spill is not None:
             time_c12(torch, chk, plan, arrs, mv, x3)
         del arrs, mv, x3
@@ -777,14 +806,11 @@ def time_c12(torch, chk, plan, arrs, mv, x3):
     one LanePack SpMV launch and one add into y3) against the packed matvec
     ``mv``, whose spill is one LanePack SpMM launch for all K columns;
     timed in turns (before, after, after, before) in this call."""
-    from sparse_matrix_tpu_torch.native.kernels import launch_aligned_spmm
-
     r128, k = plan.r128, x3.shape[1]
 
     def before():
-        y3 = torch.zeros_like(x3)
-        launch_aligned_spmm(arrs["vals"], arrs["lane"], arrs["col_off"], arrs["chunk_rb"],
-                            x3, y3, cols=plan.cols)
+        y3 = torch.empty_like(x3)
+        arrs["spmm_launch"](x3, y3, packed=True)
         for q in range(k):
             xq = x3[:, q, :].reshape(-1)[: plan.cols].contiguous()
             yq = torch.zeros(r128 * 128, dtype=x3.dtype, device=x3.device)
@@ -1844,10 +1870,17 @@ def phase_trisweep_kernel(torch, dev, chk, state):
             return tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets,
                                       rows=plan.rows, sweeps=s)
 
+        rec, y_bare = plan._record(s), torch.empty_like(b)
+
+        def launch(rec=rec, b=b, dinv=dinv, y=y_bare):
+            rec(b, dinv, y, s)
+
         yk, yp = kernel(), plain()
         torch.cuda.synchronize()
         if not torch.equal(yk, yp):
             raise AssertionError(f"trisweep/{case}: kernel and plain version differ")
+        if not torch.equal(kernel(), kernel()):
+            raise AssertionError(f"trisweep/{case}: two calls on one input differ in their bits")
         x64, bound = tw.trisweep_f64_bound(plan, b, dinv, sweeps=s)
         err = (yk.double() - x64).abs()
         if not bool((err <= bound).all()):
@@ -1855,6 +1888,7 @@ def phase_trisweep_kernel(torch, dev, chk, state):
         ratio = float((err / bound.clamp(min=1e-300)).max())
         del x64, bound, err
         ms = cuda_ms(torch, kernel)
+        launch_ms, device_ms = cuda_ms(torch, launch), device_ms_per_call(torch, launch)
         plain_ms = cuda_ms(torch, plain)
         loop_ms = cuda_ms(torch, lambda loop=loop, b=b: loop(b))
         # the exact solve of T x = b by one library call (cuSPARSE through
@@ -1878,8 +1912,10 @@ def phase_trisweep_kernel(torch, dev, chk, state):
         flops = float((s * (2 * nb + 2) + 1) * rows)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
-        row = dict(case=case, rows=rows, nb=nb, sweeps=s, max_abs_err=float((yk - yp).abs().max()),
-                   max_err_over_bound=ratio, ms=ms, plain_ms=plain_ms, library_ms=None,
+        row = dict(case=case, rows=rows, nb=nb, sweeps=s, chunk_rows=plan.chunk_rows,
+                   max_abs_err=float((yk - yp).abs().max()), bitwise_plain=True,
+                   bitwise_repeat=True, max_err_over_bound=ratio, ms=ms, launch_ms=launch_ms,
+                   device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
                    yardstick_ms=loop_ms,
                    yardstick="the loop form TriangularJacobi.__call__ (1 + sweeps DIA SpMV "
                              "launches and their elementwise updates; no single PyTorch call)",
@@ -1888,8 +1924,10 @@ def phase_trisweep_kernel(torch, dev, chk, state):
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=int(nbytes), flops=flops)
         chk.cases["trisweep"].append(row)
-        log(f"kernel trisweep     {case:34s} rows={rows} nb={nb} sweeps={s} bit-equal to plain, "
-            f"max err/bound={ratio:.3f} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, loop form "
+        log(f"kernel trisweep     {case:34s} rows={rows} nb={nb} sweeps={s} chunk_rows="
+            f"{plan.chunk_rows} bit-equal to plain, equal bits on two calls, "
+            f"max err/bound={ratio:.3f} kernel {ms:.4f} ms (bare launch {launch_ms:.4f} ms, its "
+            f"device time with no host gaps {device_ms:.4f} ms), plain {plain_ms:.4f} ms, loop form "
             f"{loop_ms:.4f} ms, exact solve (torch.triangular_solve, CSR) {exact_ms:.4f} ms "
             f"(rel err {exact_err:.2e}), bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; "
             f"{flops:.4g} flop / 67 TFLOP/s), {ms / row['bound_ms']:.2f}x the bound")

@@ -1,9 +1,10 @@
 """Times the SpMV kernels of one checkout of the port on the card: aligned
-(B2), LanePack (B3), BELL (B4) and stripe (B5), and the LanePack (B7)
-and BELL (B8) SpMM kernels, so that two checkouts compare in one run:
+(B2), LanePack (B3), BELL (B4) and stripe (B5), the aligned (B6),
+LanePack (B7) and BELL (B8) SpMM kernels and the fused triangular sweeps
+(B13), so that two checkouts compare in one run:
 
     python3 sparse_matrix_tpu_torch/bench/spmv_times.py [--tree DIR]
-        [--kinds aligned,lanepack,bell,stripe,lanepack_spmm,bell_spmm]
+        [--kinds aligned,lanepack,bell,stripe,aligned_spmm,lanepack_spmm,bell_spmm,trisweep]
 
 imports ``sparse_matrix_tpu_torch`` from the checkout at DIR (default: the
 one holding this file) and prints one JSON line with, per case:
@@ -42,6 +43,31 @@ host gaps. A checkout without the SpMM launch records (before
 slice 9) has no row-major kernel: its bare launch is the zeroing of y3
 and the packed kernel (for B8 also the packing of X), what one of its
 kernel calls needs.
+
+B6, at K = 8: through ``spmm_aligned_packed`` (``packed``) and
+``spmm_aligned`` (``rowmajor``) on Poisson 1024^2 and on randlocal_262k
+with its LanePack spill, and on Poisson 1024^2 through ``pack_rhs``,
+``spmm_aligned_packed`` and ``unpack_rhs`` (``viapacked``); the bare
+launch adds the spill's LanePack SpMM in add mode, except in
+randlocal's ``nospill`` row, whose bare launch is the aligned kernel
+alone (packed). A checkout
+without the aligned SpMM's launch record (before slice 10): its bare
+launch is the zeroing of y3, its atomic kernel and the spill, and its
+``rowmajor`` bare launch is the whole ``spmm_aligned`` call.
+
+B13, at 4 sweeps: ``trisweep`` on L and L^T of Poisson 2048^2's IC(0) and
+on L and U of femlike_262k's ILU(0) (made diagonally dominant, as in
+chip_smoke.py), each with ``equal_plain`` (bit-equal to
+``_trisweep_torch``); on Poisson 2048^2's L also at 1024, 2048 and 8192
+rows a chunk where the checkout's plan takes ``chunk_rows`` (slice 10
+on). A checkout before slice 10 has no launch record: its bare launch is
+its cooperative kernel through ``launch_trisweep``.
+
+Design-search options: ``--sweeps 0,1,4`` times B13 at each sweep count
+(default 4), ``--chunk-rows 1024,8192`` sets the extra chunk sizes of
+Poisson 2048^2's L (default 1024,2048,8192), and ``--segment-chunks G``
+plans every aligned and LanePack segment with at most G chunks (the
+checkout's ``ops.spmv.SEGMENT_CHUNKS``, 32 by default).
 """
 
 from __future__ import annotations
@@ -56,7 +82,9 @@ import warnings
 
 import numpy as np
 
-KINDS = ("aligned", "lanepack", "bell", "stripe", "lanepack_spmm", "bell_spmm")
+KINDS = ("aligned", "lanepack", "bell", "stripe", "aligned_spmm", "lanepack_spmm", "bell_spmm",
+         "trisweep")
+TRISWEEP_SWEEPS = 4
 K_RHS = 8
 
 
@@ -180,6 +208,132 @@ def _spmm_case(torch, kind, name, variant, m, ops, dev):
     return case, call, bare
 
 
+def _aligned_spmm_case(torch, name, layout, m, ops, dev):
+    """(case name, wrapper call, bare launch) of an aligned SpMM case."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import spmm
+
+    op = ops[name, "aligned"]
+    plan, arrs = op._aligned, op._ali_arrs
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal((m.cols, K_RHS))
+                         .astype(np.float32)).to(dev)
+    x3 = spmm.pack_rhs(X, plan.cols)
+    case = (f"{name}_K{K_RHS}_{layout}"
+            + ("_spill" if plan.spill is not None and layout != "nospill" else ""))
+    if layout == "rowmajor":
+        call = lambda: spmm.spmm_aligned(plan, X, device_arrays=arrs)  # noqa: E731
+    elif layout == "viapacked":
+        call = lambda: spmm.unpack_rhs(spmm.spmm_aligned_packed(  # noqa: E731
+            plan, spmm.pack_rhs(X, plan.cols), device_arrays=arrs), plan.rows)
+    else:
+        call = lambda: spmm.spmm_aligned_packed(plan, x3, device_arrays=arrs)  # noqa: E731
+    y3 = torch.empty((plan.r128, K_RHS, 128), device=dev)
+    y = torch.empty((plan.rows, K_RHS), device=dev)
+    spill = arrs.get("spill")
+    if layout == "nospill":  # the aligned kernel alone, without the spill's launch
+        spill = None
+    if "spmm_launch" not in arrs:
+        if layout == "rowmajor":
+            return case, call, call
+
+        def bare():
+            y3.zero_()
+            kernels.launch_aligned_spmm(arrs["vals"], arrs["lane"], arrs["col_off"],
+                                        arrs["chunk_rb"], x3, y3, cols=plan.cols)
+            if spill is not None:
+                spill["spmm_launch"](x3, y3, packed=True, add=True)
+    elif layout == "rowmajor":
+        def bare():
+            arrs["spmm_launch"](X, y)
+            if spill is not None:
+                spill["spmm_launch"](X, y, add=True)
+    else:
+        def bare():
+            arrs["spmm_launch"](x3, y3, packed=True)
+            if spill is not None:
+                spill["spmm_launch"](x3, y3, packed=True, add=True)
+    return case, call, bare
+
+
+def _trisweep_factors(dev):
+    """{case: triangular factor}: L and L^T of Poisson 2048^2's IC(0), L and
+    U of the dominant femlike_262k's ILU(0)."""
+    from sparse_matrix_tpu_torch.bench.corpus import bench_classes, with_dominant_diagonal
+    from sparse_matrix_tpu_torch.formats.csr import CsrMatrix
+    from sparse_matrix_tpu_torch.solvers import ilu
+    from sparse_matrix_tpu_torch.solvers.poisson import poisson_2d_csr
+
+    lc = ilu.ic0(poisson_2d_csr(2048, dtype=np.float32))
+    fem = next(m for name, _tag, m in bench_classes(0) if name == "femlike_262k")
+    fem = with_dominant_diagonal(fem)
+    fem = CsrMatrix(fem.rows, fem.cols, fem.vals.astype(np.float32), fem.indices, fem.offsets,
+                    is_sorted=fem.is_sorted)
+    f = ilu.ilu0(fem)
+    return {"poisson2048_L": lc, "poisson2048_LT": lc.transpose(), "femlike_262k_L": f.l,
+            "femlike_262k_U": f.u}
+
+
+def _trisweep_case(torch, case, t, chunk_rows, dev, sweeps):
+    """(case name, wrapper call, bare launch, plain version) of a trisweep
+    case; None where the checkout's plan takes no ``chunk_rows``."""
+    import inspect
+
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+    from sparse_matrix_tpu_torch.solvers.ilu import TriangularJacobi
+
+    sj = TriangularJacobi(t, device=dev, sweeps=sweeps, fused=True)
+    plan, dinv = sj._fused, sj.dinv
+    if chunk_rows is not None:
+        if "chunk_rows" not in inspect.signature(tw.TrisweepPlan).parameters:
+            return None
+        plan = tw.TrisweepPlan(plan.offsets, plan.data.cpu().numpy(), plan.rows, device=dev,
+                               chunk_rows=chunk_rows)
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal(t.rows)
+                         .astype(np.float32)).to(dev)
+    s = sweeps
+    y = torch.empty_like(b)
+    if hasattr(plan, "_record"):
+        rec = plan._record(s)
+
+        def bare():
+            rec(b, dinv, y, s)
+    else:
+        scratch = torch.empty_like(b)
+
+        def bare():
+            kernels.launch_trisweep(plan.data, plan.offsets_t, b, dinv, scratch, y, sweeps=s)
+    name = case + ("" if chunk_rows is None else f"_T{chunk_rows}") + f"_s{s}"
+    return (name, lambda: tw.trisweep(plan, b, dinv, sweeps=s), bare,
+            lambda: tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets,
+                                       rows=plan.rows, sweeps=s),
+            dict(rows=plan.rows, nb=len(plan.offsets),
+                 chunk_rows=getattr(plan, "chunk_rows", None)))
+
+
+def _time_trisweep(torch, dev, out, sweeps_list, chunk_rows_list):
+    for case, t in _trisweep_factors(dev).items():
+        chunks = (None, *chunk_rows_list) if case == "poisson2048_L" else (None,)
+        for sweeps, chunk_rows in ((s, c) for s in sweeps_list for c in chunks):
+            got = _trisweep_case(torch, case, t, chunk_rows, dev, sweeps)
+            if got is None:
+                continue
+            name, call, bare, plain, info = got
+            y1, y2, yp = call(), call(), plain()
+            torch.cuda.synchronize()
+            row = dict(kernel="trisweep", case=name, sweeps=sweeps, **info,
+                       ms=_cuda_ms(torch, call), launch_ms=_cuda_ms(torch, bare),
+                       device_ms=_device_ms(torch, bare), plain_ms=_cuda_ms(torch, plain),
+                       bitwise_repeat=bool(torch.equal(y1, y2)),
+                       equal_plain=bool(torch.equal(y1, yp)))
+            out["cases"].append(row)
+            print(f"trisweep {name}: {row['ms']:.4f} ms, launch {row['launch_ms']:.4f}, "
+                  f"device {row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, bitwise repeat "
+                  f"{row['bitwise_repeat']}, equal plain {row['equal_plain']}", file=sys.stderr)
+            del call, bare, plain, y1, y2, yp
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -187,6 +341,12 @@ def main() -> int:
                     help="checkout whose sparse_matrix_tpu_torch is timed")
     ap.add_argument("--kinds", default=",".join(KINDS),
                     help="comma-separated kernels to time, of " + ", ".join(KINDS))
+    ap.add_argument("--sweeps", default=str(TRISWEEP_SWEEPS),
+                    help="comma-separated sweep counts of the trisweep cases")
+    ap.add_argument("--chunk-rows", default="1024,2048,8192",
+                    help="extra chunk sizes of the trisweep case on Poisson 2048^2's L")
+    ap.add_argument("--segment-chunks", type=int, default=None,
+                    help="the most chunks of an aligned or LanePack segment")
     args = ap.parse_args()
     kinds = args.kinds.split(",")
     if not set(kinds) <= set(KINDS):
@@ -209,6 +369,8 @@ def main() -> int:
 
     if not os.path.abspath(sparse_matrix_tpu_torch.__file__).startswith(tree + os.sep):
         raise AssertionError(f"imported {sparse_matrix_tpu_torch.__file__}, not from {tree}")
+    if args.segment_chunks is not None:
+        spmv.SEGMENT_CHUNKS = args.segment_chunks
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -234,21 +396,31 @@ def main() -> int:
               ("lanepack_spmm", "randlocal_262k", ("packed", True))]
     cases += [("bell_spmm", "poisson1024", (None, 8)), ("bell_spmm", "poisson1024", (None, 16)),
               ("bell_spmm", "femlike_262k", (None, 8))]
+    cases += [("aligned_spmm", "poisson1024", "packed"),
+              ("aligned_spmm", "poisson1024", "rowmajor"),
+              ("aligned_spmm", "poisson1024", "viapacked"),
+              ("aligned_spmm", "randlocal_262k", "packed"),
+              ("aligned_spmm", "randlocal_262k", "nospill"),
+              ("aligned_spmm", "randlocal_262k", "rowmajor")]
     ops = {}
-    if {"lanepack_spmm", "bell_spmm"} & set(kinds):
+    if {"aligned_spmm", "lanepack_spmm", "bell_spmm"} & set(kinds):
         from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
 
         # chip_smoke.py's forced operators
         for name, force in (("poisson1024", "lanepack"), ("randlocal_262k", "lanepack"),
-                            ("randlocal_262k", "aligned")):
+                            ("randlocal_262k", "aligned"), ("poisson1024", "aligned")):
             ops[name, force] = SpmvOperator(mats[name], device=dev, force=force)
-    out = dict(tree=tree, nvidia_smi=smi, torch=torch.__version__, cases=[])
+    out = dict(tree=tree, nvidia_smi=smi, torch=torch.__version__,
+               segment_chunks=spmv.SEGMENT_CHUNKS, cases=[])
     for kind, name, variant in cases:
         if kind not in kinds:
             continue
         m = mats[name]
-        if kind in ("lanepack_spmm", "bell_spmm"):
-            case, call, launch = _spmm_case(torch, kind, name, variant, m, ops, dev)
+        if kind in ("aligned_spmm", "lanepack_spmm", "bell_spmm"):
+            if kind == "aligned_spmm":
+                case, call, launch = _aligned_spmm_case(torch, name, variant, m, ops, dev)
+            else:
+                case, call, launch = _spmm_case(torch, kind, name, variant, m, ops, dev)
             k = 16 if kind == "bell_spmm" and variant[1] == 16 else K_RHS
             X = torch.from_numpy(np.random.default_rng(0).standard_normal((m.cols, k))
                                  .astype(np.float32)).to(dev)
@@ -266,7 +438,8 @@ def main() -> int:
                        launch_ms=_cuda_ms(torch, launch), device_ms=_device_ms(torch, launch),
                        library_ms=library_ms, bitwise_repeat=bool(torch.equal(y1, y2)))
             out["cases"].append(row)
-            print(f"{kind} {case}: {row['ms']:.4f} ms (device {row['call_device_ms']:.4f}), "
+            print(f"{kind} {case} G{spmv.SEGMENT_CHUNKS}: {row['ms']:.4f} ms "
+                  f"(device {row['call_device_ms']:.4f}), "
                   f"launch {row['launch_ms']:.4f}, "
                   f"device {row['device_ms']:.4f}, library {library_ms:.4f}, "
                   f"bitwise repeat {row['bitwise_repeat']}", file=sys.stderr)
@@ -320,6 +493,9 @@ def main() -> int:
         del arrs, y1, y2, launch
         del a, plan
         torch.cuda.empty_cache()
+    if "trisweep" in kinds:
+        _time_trisweep(torch, dev, out, [int(v) for v in args.sweeps.split(",")],
+                       [int(v) for v in args.chunk_rows.split(",") if v])
     print(json.dumps(out))
     return 0
 

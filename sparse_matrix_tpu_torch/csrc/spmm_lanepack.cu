@@ -37,8 +37,9 @@
 // two or four times, lost on randlocal and powerlaw, as did a 2-stage
 // ring, and all 8 columns at once with 4 warps a block (more shared
 // memory, less L1 for the x windows) lost 16 % on Poisson and 1.8x on
-// powerlaw. The sums reach Y through the segment's single writer: a row
-// block of several segments is added up in segment order by the last warp
+// powerlaw. The sums reach Y through the segment's single writer
+// (spmm_segments.h, shared with the aligned SpMM): a row block of several
+// segments is added up in segment order by the last warp
 // to take its ticket (one ticket a row block and 8-column group), from
 // scratch slots 16 columns wide. In the row-major layout the warp's (128,
 // 8) tile of Y goes through its shared memory (the ring's, free by then),
@@ -52,80 +53,17 @@
 #include "block_tile.h"
 #include "lanepack_stage.h"
 #include "segments.h"
+#include "spmm_segments.h"
 #include "spmx_cuda.h"
 
 namespace {
 
+using spmx_spmm::Call;
+using spmx_spmm::kGroupCols;
+using spmx_spmm::kMaxCols;
+using spmx_spmm::kWarps;
+
 constexpr int kRing = 3;
-constexpr int kWarps = 8;       // warps a thread block
-constexpr int kMaxCols = 16;    // columns a launch: the scratch slot holds 16 * 128 floats
-constexpr int kGroupCols = 8;   // columns a warp at most
-
-struct Call {
-  int64_t y_blocks;  // packed: row blocks of y3 (>= r128)
-  int k;             // columns of X and Y
-  int q0;            // first column of the launch
-  int kq;            // columns of the launch (<= kMaxCols)
-  int groups;        // warps a segment
-  int vec4;          // natural layout with k % 4 == 0 and 16-byte aligned X, Y
-  int add;
-};
-
-// Y of thread t's rows (lanes) 4t .. 4t+3 for columns col .. col + nq - 1
-// of row block rb. Packed: one float4 a column, a warp's stores of a
-// column contiguous. Row-major: the warp's (128, nq) tile goes through its
-// shared-memory `tile` (KG * 128 floats, free once the chunks are done),
-// so that the warp writes Y's rows in contiguous runs.
-template <int KG, bool kPacked>
-__device__ __forceinline__ void write_y(const SpmxSegPlan& p, const Call& c, float* y,
-                                        int64_t rb, int64_t col, int nq, int t,
-                                        float (&acc)[KG][4], float* tile) {
-  if constexpr (kPacked) {
-#pragma unroll
-    for (int q = 0; q < KG; ++q) {
-      if (q >= nq) break;
-      float* yp = y + (rb * c.k + col + q) * 128 + 4 * t;
-      if (c.add) {
-        float w[4];
-        spmx::load_v<4>(yp, w);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[q][r] = w[r] + acc[q][r];
-      }
-      spmx::store_v<4>(yp, acc[q]);
-    }
-  } else {
-    // tile[r * KG + q]: row r of the row block, column q
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < KG; ++q) tile[(4 * t + r) * KG + q] = acc[q][r];
-    __syncwarp();
-    const int64_t rows = min((int64_t)128, p.rows - rb * 128);
-    float* y0 = y + rb * 128 * c.k + col;
-    if (c.vec4) {
-      const int per_row = nq >> 2;  // float4s a row
-      for (int u = t; u < rows * per_row; u += 32) {
-        const int r = u / per_row, f = u - r * per_row;
-        float v[4];
-        spmx::load_v<4>(tile + r * KG + 4 * f, v);
-        float* yp = y0 + (int64_t)r * c.k + 4 * f;
-        if (c.add) {
-          float w[4];
-          spmx::load_v<4>(yp, w);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) v[i] = w[i] + v[i];
-        }
-        spmx::store_v<4>(yp, v);
-      }
-    } else {
-      for (int u = t; u < rows * nq; u += 32) {
-        const int r = u / nq, q = u - r * nq;
-        float* yp = y0 + (int64_t)r * c.k + q;
-        *yp = c.add ? *yp + tile[r * KG + q] : tile[r * KG + q];
-      }
-    }
-  }
-}
 
 constexpr int kScanCols = 4;  // columns scanned together
 
@@ -147,26 +85,13 @@ lanepack_spmm_kernel(const SpmxSegPlan p, const float* __restrict__ x, float* __
   __shared__ WarpSmem smem[kWarps];
   const int warp = threadIdx.x >> 5;
   const int t = threadIdx.x & 31;
-  const int64_t w = (int64_t)blockIdx.x * kWarps + warp;
-  if (w >= p.num_segments * c.groups) return;  // whole warp leaves; only warp syncs below
-  const int64_t s = w / c.groups;
-  const int g = (int)(w - s * c.groups);
-  const int nq = min(KG, c.kq - g * KG);  // this warp's columns ...
-  const int64_t col = c.q0 + g * KG;      // ... from column col of X and Y
-  const int64_t r128 = (p.rows + 127) >> 7;
-  if constexpr (kPacked) {
-    // store mode: zeros on y3's row blocks past r128 (a matvec's guard rows)
-    if (!c.add) {
-      for (int64_t gb = r128 + s; gb < c.y_blocks; gb += p.num_segments) {
-#pragma unroll
-        for (int q = 0; q < KG; ++q) {
-          if (q >= nq) break;
-          const float z[4] = {0.f, 0.f, 0.f, 0.f};
-          spmx::store_v<4>(y + (gb * c.k + col + q) * 128 + 4 * t, z);
-        }
-      }
-    }
-  }
+  spmx_spmm::WarpJob job;
+  if (!spmx_spmm::warp_job<KG>(p, c, (int64_t)blockIdx.x * kWarps + warp, job))
+    return;  // whole warp leaves; only warp syncs below
+  const int64_t s = job.s;
+  const int nq = job.nq;       // this warp's columns ...
+  const int64_t col = job.col;  // ... from column col of X and Y
+  if constexpr (kPacked) spmx_spmm::zero_guard_blocks<KG>(p, c, y, job, t);
   const spmx::Segment seg = spmx::load_segment(p.segments, s);
   const int n = seg.count;
   const int window = t < n ? __ldg(p.col_off + seg.first + t) : 0;
@@ -270,37 +195,7 @@ lanepack_spmm_kernel(const SpmxSegPlan p, const float* __restrict__ x, float* __
     __syncwarp();  // prefix and stage i % kRing are rewritten next iteration
   }
 
-  if (seg.slot >= 0) {
-    // one of several segments of its row block: write the slot, take the
-    // ticket; the last warp adds the slots in segment order
-    const int first = __ldg(p.rb_seg + seg.rb);
-    const int nseg = __ldg(p.rb_seg + seg.rb + 1) - first;
-    const int64_t slot0 = seg.slot - (s - first);
-    const int64_t width = (int64_t)kMaxCols * 128;
-    const int64_t off = (int64_t)g * KG * 128 + 4 * t;
-#pragma unroll
-    for (int q = 0; q < KG; ++q) {
-      if (q >= nq) break;
-      spmx::store_v<4>(p.scratch + seg.slot * width + off + q * 128, acc[q]);
-    }
-    __threadfence();
-    int32_t* ticket = p.tickets + g * r128 + seg.rb;
-    const int got = spmx::WarpOwner{t}.sync_from0([&] { return atomicAdd(ticket, 1); });
-    if (got != nseg - 1) return;
-    __threadfence();
-#pragma unroll
-    for (int q = 0; q < KG; ++q) {
-      if (q >= nq) break;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[q][r] = 0.f;
-      for (int k = 0; k < nseg; ++k)
-        spmx::add_cg<4>(acc[q], p.scratch + (slot0 + k) * width + off + q * 128);
-    }
-    if (t == 0) *ticket = 0;
-  } else if (c.add && n == 0) {
-    return;  // an empty row block adds nothing
-  }
-  write_y<KG, kPacked>(p, c, y, seg.rb, col, nq, t, acc, smem[warp].tile);
+  spmx_spmm::finish<KG, kPacked>(p, c, y, job, seg, t, acc, smem[warp].tile);
 }
 
 template <int KG>
@@ -326,14 +221,11 @@ SPMX_API int spmx_lanepack_spmm(const SpmxSegPlan* plan, const float* x, float* 
                                 void* stream) {
   cudaError_t err = cudaSetDevice(plan->device);
   if (err != cudaSuccess) return (int)err;
-  if (k < 1 || q0 < 0 || kq < 1 || kq > kMaxCols || q0 + kq > k)
-    return (int)cudaErrorInvalidValue;
-  if (packed && y_blocks < (plan->rows + 127) / 128) return (int)cudaErrorInvalidValue;
+  spmx_spmm::Call c;
+  int kg = 0;
+  err = spmx_spmm::make_call(*plan, x, y, k, q0, kq, packed, y_blocks, add, c, kg);
+  if (err != cudaSuccess) return (int)err;
   if (plan->num_segments == 0) return 0;
-  const int kg = min(kq <= 1 ? 1 : kq <= 2 ? 2 : kq <= 4 ? 4 : 8, kGroupCols);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  const Call c{y_blocks, k, q0, kq, (kq + kg - 1) / kg,
-               !packed && kg >= 4 && k % 4 == 0 && aligned, add};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (kg) {
     case 1: err = launch<1>(*plan, x, y, c, packed, s); break;

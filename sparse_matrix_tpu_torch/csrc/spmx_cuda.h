@@ -4,8 +4,7 @@
 // Every entry point selects `device`, enqueues one kernel on `stream` (a
 // cudaStream_t passed as void*), never synchronises and allocates nothing:
 // the Python wrapper owns every buffer. The return value is
-// cudaGetLastError() after the launch (0 = launched). The aligned SpMM
-// accumulates into its output with atomics: the caller zeroes it.
+// cudaGetLastError() after the launch (0 = launched).
 #pragma once
 
 #include <stdint.h>
@@ -33,8 +32,8 @@ SPMX_API int spmx_dia(int device, const void* data, int values_bf16,
 // 128) f32 and `tickets` (r128,) int32 (zero between launches) for row
 // blocks of several segments. `ends`/`starts` are NULL for the aligned
 // kernel. vals 16-byte, lane 4-byte (int8) or 8-byte (int16) aligned. The
-// LanePack SpMM's plan has its own `scratch` (slots, 16 * 128) and
-// `tickets` (2 * r128).
+// aligned and LanePack SpMM plans have their own `scratch` (slots, 16 *
+// 128) and `tickets` (2 * r128).
 typedef struct {
   const float* vals;
   const void* lane;
@@ -150,12 +149,16 @@ SPMX_API int spmx_dia_spmm(int device, const void* data, int values_bf16,
                            float* y3, int64_t y_lo, int64_t y_rows_total,
                            void* stream);
 
-// packed K-column aligned SpMM:
-// y3[chunk_rb[c], q, l] += vals[c, l] * x3[col_off[c], q, lane[c, l]]
-SPMX_API int spmx_aligned_spmm(int device, const float* vals,
-                               const int8_t* lane, const int32_t* col_off,
-                               const int32_t* chunk_rb, int64_t num_chunks,
-                               int64_t cols, int k, const float* x3, float* y3,
+// aligned SpMM on an aligned plan with its segments (the plan of
+// spmx_aligned, with the SpMM's own scratch (slots, 16 * 128) and tickets
+// (2 * r128)), columns q0 .. q0 + kq - 1 of k (1 <= kq <= 16): per chunk c
+// and column q, row rb*128 + l of the chunk's row block gets vals[c, l] *
+// X[col_off*128 + lane[c, l], q] (X past cols reads 0), summed in plan
+// order within a segment and in segment order within a row block, each
+// product and sum rounded on its own. Layouts, store and add mode as
+// spmx_lanepack_spmm
+SPMX_API int spmx_aligned_spmm(const SpmxSegPlan* plan, const float* x, float* y, int k,
+                               int q0, int kq, int packed, int64_t y_blocks, int add,
                                void* stream);
 
 // the most columns one launch of spmx_lanepack_spmm takes (16), and one
@@ -235,12 +238,46 @@ SPMX_API int spmx_esc_expand(int device, const float* lv, int64_t n_lv,
                              int64_t num_products, int64_t num_slots, float* p,
                              void* stream);
 
-// fused banded triangular Jacobi sweeps, one cooperative launch:
-// x_0 = dinv * b, x_{k+1} = dinv * (b - N x_k) for k < sweeps, y = x_sweeps,
-// with N x = sum_b data[b, i] * x[i + offsets[b]] (x outside [0, rows) reads
-// 0); data (nb, rows); scratch (rows,) is a second iterate buffer; y and
-// scratch must not alias b, dinv or each other
-SPMX_API int spmx_trisweep(int device, const float* data,
-                           const int32_t* offsets, int nb, int64_t rows,
-                           const float* b, const float* dinv, int sweeps,
-                           float* scratch, float* y, void* stream);
+// A plan of the fused triangular sweeps (trisweep.cu), packed once by the
+// wrapper: N = DIA(data (nb, rows) f32, offsets (nb,) int32, all negative
+// or, with upper = 1, all positive; nb may be 0), reach = max |offset|;
+// chunks of chunk_rows = 2^chunk_shift rows (32 .. 65536), chunks =
+// ceil(rows / chunk_rows); tail = min(reach, chunk_rows); `scratch`
+// (chunks, levels, tail) f32 and `flags` (chunks, levels) uint32 (zero
+// when made) hold the rows each chunk publishes for levels < levels;
+// `state` (2,) uint32 (zero when made) the self-resetting ticket and the
+// launch epoch; halo = reach stages a chunk's neighbour rows of each level
+// in shared memory, halo = 0 reads them from L2. One launch at a time per
+// plan.
+typedef struct {
+  const float* data;
+  const int32_t* offsets;
+  float* scratch;
+  uint32_t* flags;
+  uint32_t* state;
+  int64_t rows;
+  int64_t chunks;
+  int64_t reach;
+  int32_t nb;
+  int32_t chunk_rows;
+  int32_t chunk_shift;
+  int32_t tail;
+  int32_t levels;
+  int32_t upper;
+  int32_t halo;
+  int32_t device;
+} SpmxTrisweepPlan;
+
+// the threads of one block of the trisweep kernel (512; fewer for chunks
+// of fewer rows)
+SPMX_API int spmx_trisweep_threads(void);
+
+// fused banded triangular Jacobi sweeps, one ordinary launch of one thread
+// block a chunk: x_0 = dinv * b, x_{k+1} = dinv * (b - N x_k) for k <
+// sweeps, y = x_sweeps, with N x = sum_b data[b, i] * x[i + offsets[b]] (x
+// outside [0, rows) reads 0), summed in band order, each product, sum,
+// difference and scaling rounded on its own; 0 <= sweeps <= levels (any
+// sweeps when no chunk publishes: one chunk, or reach 0); y must not
+// alias b or dinv
+SPMX_API int spmx_trisweep(const SpmxTrisweepPlan* plan, const float* b, const float* dinv,
+                           int sweeps, float* y, void* stream);

@@ -14,8 +14,10 @@ pointers into the C struct the kernel takes, and each call then checks only
 x and y and makes one ctypes call (the aligned, LanePack, BELL and
 stripe SpMV kernels; ``prepare_aligned``, ``prepare_lanepack``,
 ``prepare_bell``, ``prepare_stripe``). A :class:`PreparedSpmm` does the
-same for the LanePack and BELL SpMM kernels, whose X and Y carry K
-columns (``prepare_lanepack_spmm``, ``prepare_bell_spmm``).
+same for the aligned, LanePack and BELL SpMM kernels, whose X and Y carry
+K columns (``prepare_aligned_spmm``, ``prepare_lanepack_spmm``,
+``prepare_bell_spmm``), and a :class:`PreparedTrisweep` for the fused
+triangular sweeps (``prepare_trisweep``).
 """
 
 from __future__ import annotations
@@ -37,14 +39,15 @@ __all__ = [
     "prepare_bell",
     "prepare_stripe",
     "PreparedSpmm",
+    "prepare_aligned_spmm",
     "prepare_lanepack_spmm",
     "prepare_bell_spmm",
+    "PreparedTrisweep",
+    "prepare_trisweep",
     "launch_dia_spmm",
-    "launch_aligned_spmm",
     "launch_bcsr_spmm",
     "launch_block_spgemm",
     "launch_esc_expand",
-    "launch_trisweep",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
@@ -67,14 +70,20 @@ BLOCK_TILE = 64
 #: stripe
 STRIPE_GROUP_LEVELS = 8
 
-#: the most columns one launch of the LanePack SpMM kernel takes, and one
-#: of its warps (kMaxCols and kGroupCols of csrc/spmm_lanepack.cu, checked
-#: against ``spmx_lanepack_spmm_max_cols``/``_group_cols`` when the
-#: library loads): its scratch slots are 16 128-float rows wide, a wider X
-#: takes several launches, and a plan needs 16 / 8 tickets a row block
+#: the most columns one launch of the aligned and LanePack SpMM kernels
+#: takes, and one of their warps (kMaxCols and kGroupCols of
+#: csrc/spmm_segments.h, checked against ``spmx_lanepack_spmm_max_cols``/
+#: ``_group_cols`` when the library loads): their scratch slots are 16
+#: 128-float rows wide, a wider X takes several launches, and a plan needs
+#: 16 / 8 tickets a row block
 LANEPACK_SPMM_COLS = 16
 LANEPACK_SPMM_GROUP_COLS = 8
 LANEPACK_SPMM_GROUPS = LANEPACK_SPMM_COLS // LANEPACK_SPMM_GROUP_COLS
+
+#: the threads of one block of the trisweep kernel (kThreads of
+#: csrc/trisweep.cu, checked against ``spmx_trisweep_threads`` when the
+#: library loads)
+TRISWEEP_THREADS = 512
 
 
 def reset_launch_counts() -> None:
@@ -101,13 +110,10 @@ def _library() -> ctypes.CDLL:
         lib.spmx_dia_spmm.argtypes = [
             i32, vp, i32, vp, i32, i64, i64, i32, vp, i64, vp, i64, i64, vp,
         ]
-        lib.spmx_aligned_spmm.restype = i32
-        lib.spmx_aligned_spmm.argtypes = [
-            i32, vp, vp, vp, vp, i64, i64, i32, vp, vp, vp,
-        ]
         # (plan struct, x, y, k, q0, kq, packed, y_blocks, add, stream)
-        lib.spmx_lanepack_spmm.restype = i32
-        lib.spmx_lanepack_spmm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
+        for fn in (lib.spmx_aligned_spmm, lib.spmx_lanepack_spmm):
+            fn.restype = i32
+            fn.argtypes = [vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
         # (plan struct, x, y, k, stream)
         lib.spmx_bell_spmm.restype = i32
         lib.spmx_bell_spmm.argtypes = [vp, vp, vp, i32, vp]
@@ -119,10 +125,12 @@ def _library() -> ctypes.CDLL:
         lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, i32, vp, vp]
         lib.spmx_esc_expand.restype = i32
         lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
+        # (plan struct, b, dinv, sweeps, y, stream)
         lib.spmx_trisweep.restype = i32
-        lib.spmx_trisweep.argtypes = [i32, vp, vp, i32, i64, vp, vp, i32, vp, vp, vp]
+        lib.spmx_trisweep.argtypes = [vp, vp, vp, i32, vp, vp]
         for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
-                   lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols):
+                   lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols,
+                   lib.spmx_trisweep_threads):
             fn.restype = i32
             fn.argtypes = []
         cols = (lib.spmx_lanepack_spmm_max_cols(), lib.spmx_lanepack_spmm_group_cols())
@@ -131,6 +139,9 @@ def _library() -> ctypes.CDLL:
                                f"{cols[1]} a warp, LANEPACK_SPMM_COLS and _GROUP_COLS are "
                                f"{LANEPACK_SPMM_COLS} and {LANEPACK_SPMM_GROUP_COLS}: its scratch "
                                "slots and tickets would not match")
+        if lib.spmx_trisweep_threads() != TRISWEEP_THREADS:
+            raise RuntimeError(f"the trisweep kernel runs {lib.spmx_trisweep_threads()} threads "
+                               f"a block, TRISWEEP_THREADS is {TRISWEEP_THREADS}")
         if lib.spmx_block_tile() != BLOCK_TILE:
             raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
                                f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
@@ -169,6 +180,15 @@ class StripePlan(ctypes.Structure):
         "stripe_seg", "scratch", "tickets")]
     _fields_ += [(f, ctypes.c_int64) for f in ("num_segments", "cols", "rows")]
     _fields_ += [(f, ctypes.c_int32) for f in ("levels", "lane_bytes", "foreign_pad", "device")]
+
+
+class TrisweepPlan(ctypes.Structure):
+    """``SpmxTrisweepPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("data", "offsets", "scratch", "flags", "state")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("rows", "chunks", "reach")]
+    _fields_ += [(f, ctypes.c_int32) for f in ("nb", "chunk_rows", "chunk_shift", "tail",
+                                               "levels", "upper", "halo", "device")]
 
 
 class _LaunchRecord:
@@ -243,15 +263,15 @@ class PreparedLaunch(_LaunchRecord):
 class PreparedSpmm(_LaunchRecord):
     """One SpMM kernel's launches on one checked plan: ``launch(x, y,
     packed=False, add=False)`` takes X ``(cols, K)`` and Y ``(rows, K)``
-    row-major or, with ``packed`` (the LanePack SpMM only), packed X ``(>=
-    c128, K, 128)`` and Y ``(>= r128, K, 128)`` (``X[j, q]`` at ``[j //
-    128, q, j % 128]``), both contiguous f32 CUDA tensors on the plan's
-    device, Y 16-byte aligned. ``max_cols``: the LanePack SpMM takes any K
-    in launches of that many columns, ``(args, x, y, K, q0, columns,
-    packed, Y's row blocks, add, stream)``; None: the BELL SpMM, one
-    launch ``(args, x, y, K, stream)`` of at most 16 columns. Store mode
-    writes every row of Y (packed: and zeros on Y's row blocks past the
-    plan's); ``add=True`` adds (the LanePack SpMM only)."""
+    row-major or, with ``packed`` (the aligned and LanePack SpMM), packed X
+    ``(>= c128, K, 128)`` and Y ``(>= r128, K, 128)`` (``X[j, q]`` at ``[j
+    // 128, q, j % 128]``), both contiguous f32 CUDA tensors on the plan's
+    device, Y 16-byte aligned. ``max_cols``: the aligned and LanePack SpMM
+    take any K in launches of that many columns, ``(args, x, y, K, q0,
+    columns, packed, Y's row blocks, add, stream)``; None: the BELL SpMM,
+    one launch ``(args, x, y, K, stream)`` of at most 16 columns. Store
+    mode writes every row of Y (packed: and zeros on Y's row blocks past
+    the plan's); ``add=True`` adds (the aligned and LanePack SpMM)."""
 
     __slots__ = ("rows", "cols", "max_cols")
 
@@ -364,6 +384,18 @@ def prepare_lanepack(vals, lane, ends, starts, col_off, segments, rb_seg, scratc
         segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
 
 
+def _prepare_segmented_spmm(name, dtypes, *, cols, rows, **tensors) -> PreparedSpmm:
+    """The launch record of a segmented SpMM plan (:func:`_seg_plan`, its
+    scratch slots 16 128-float rows wide and 16 / 8 tickets a row block):
+    one launch a 16 columns."""
+    dev, args = _seg_plan(name, dtypes, cols=cols, rows=rows,
+                          scratch_width=LANEPACK_SPMM_COLS * 128,
+                          tickets_per_rb=LANEPACK_SPMM_GROUPS, **tensors)
+    return PreparedSpmm(name, f"spmx_{name}", args, dev, rows=rows, cols=cols,
+                        max_cols=LANEPACK_SPMM_COLS, empty=args.num_segments == 0,
+                        keep=tuple(tensors.values()))
+
+
 def prepare_lanepack_spmm(vals, lane, ends, starts, col_off, segments, rb_seg, scratch, tickets,
                           *, cols: int, rows: int) -> PreparedSpmm:
     """The LanePack SpMM kernel's launches on one LanePack plan and its
@@ -371,17 +403,24 @@ def prepare_lanepack_spmm(vals, lane, ends, starts, col_off, segments, rb_seg, s
     ``scratch`` ``(slots, 16 * 128)`` f32 and ``tickets`` ``(2 * r128,)``
     int32 zeros): ``launch(x, y, packed=..., add=...)`` (see
     :class:`PreparedSpmm`), one launch a 16 columns."""
-    dev, args = _seg_plan(
+    return _prepare_segmented_spmm(
         "lanepack_spmm",
         dict(vals=torch.float32, lane=torch.int16, ends=torch.int8, starts=torch.int8,
              **_SEG_DTYPES),
-        cols=cols, rows=rows, scratch_width=LANEPACK_SPMM_COLS * 128,
-        tickets_per_rb=LANEPACK_SPMM_GROUPS, vals=vals, lane=lane, ends=ends, starts=starts,
-        col_off=col_off, segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
-    return PreparedSpmm("lanepack_spmm", "spmx_lanepack_spmm", args, dev, rows=rows, cols=cols,
-                        max_cols=LANEPACK_SPMM_COLS, empty=args.num_segments == 0,
-                        keep=(vals, lane, ends, starts, col_off, segments, rb_seg, scratch,
-                              tickets))
+        cols=cols, rows=rows, vals=vals, lane=lane, ends=ends, starts=starts, col_off=col_off,
+        segments=segments, rb_seg=rb_seg, scratch=scratch, tickets=tickets)
+
+
+def prepare_aligned_spmm(vals, lane, col_off, segments, rb_seg, scratch, tickets, *, cols: int,
+                         rows: int) -> PreparedSpmm:
+    """The aligned SpMM kernel's launches on one aligned plan and its
+    segments (the arrays of :func:`prepare_aligned`, with the SpMM's own
+    ``scratch`` and ``tickets``, as :func:`prepare_lanepack_spmm`):
+    ``launch(x, y, packed=..., add=...)`` (see :class:`PreparedSpmm`)."""
+    return _prepare_segmented_spmm(
+        "aligned_spmm", dict(vals=torch.float32, lane=torch.int8, **_SEG_DTYPES),
+        cols=cols, rows=rows, vals=vals, lane=lane, col_off=col_off, segments=segments,
+        rb_seg=rb_seg, scratch=scratch, tickets=tickets)
 
 
 def _bell_plan(name, vals, lane, ds, *, bias: int, rows: int, cols: int):
@@ -557,27 +596,6 @@ def launch_dia_spmm(data, offsets, x3, y3, *, rows: int, cols: int, x_lo: int, y
          x3.data_ptr(), x_lo, y3.data_ptr(), y_lo, y3.shape[0])
 
 
-def launch_aligned_spmm(vals, lane, col_off, chunk_rb, x3, y3, *, cols: int) -> None:
-    """``y3 += aligned(vals, lane, col_off, chunk_rb) @ x3`` in the packed
-    ``(.., K, 128)`` layout; y3 is the accumulator."""
-    dev = _check("aligned_spmm",
-                 dict(vals=_F32, lane=torch.int8, col_off=torch.int32,
-                      chunk_rb=torch.int32, x3=_F32, y3=_F32),
-                 vals=vals, lane=lane, col_off=col_off, chunk_rb=chunk_rb, x3=x3, y3=y3)
-    chunks = vals.numel() // 128
-    if lane.numel() != vals.numel() or min(col_off.numel(), chunk_rb.numel()) < chunks:
-        raise ValueError("aligned_spmm: slot and chunk arrays disagree")
-    if x3.dim() != 3 or x3.shape[2] != 128 or y3.shape[1:] != x3.shape[1:]:
-        raise ValueError("aligned_spmm: x3 and y3 must be (.., K, 128) with one K")
-    if x3.shape[0] * 128 < cols:
-        raise ValueError("aligned_spmm: x3 does not cover the columns")
-    if chunks == 0:
-        return
-    _run("aligned_spmm", dev, _library().spmx_aligned_spmm, vals.data_ptr(),
-         lane.data_ptr(), col_off.data_ptr(), chunk_rb.data_ptr(), chunks, cols,
-         x3.shape[1], x3.data_ptr(), y3.data_ptr())
-
-
 def _check_bs(name: str, bs: int) -> None:
     if bs % 16 or not 16 <= bs <= 128:
         raise ValueError(f"{name}: block size {bs} must be a multiple of 16 in [16, 128]")
@@ -706,24 +724,88 @@ def launch_esc_expand(lv, rv, lv_lane, rv_lane, lv_off, rv_off, p, *, num_produc
          lv_off.data_ptr(), rv_off.data_ptr(), num_products, slots, p.data_ptr())
 
 
-def launch_trisweep(data, offsets, b, dinv, scratch, y, *, sweeps: int) -> None:
-    """``y = x_sweeps`` of the Jacobi sweeps ``x_0 = dinv * b``, ``x_{k+1} =
-    dinv * (b - N x_k)`` with ``N = DIA(data, offsets)`` (data ``(nb,
-    rows)``), all in one cooperative launch; ``scratch`` ``(rows,)`` holds
-    every other iterate. y and scratch must be distinct from b, dinv and
-    each other."""
-    dev = _check("trisweep",
-                 dict(data=_F32, offsets=torch.int32, b=_F32, dinv=_F32, scratch=_F32, y=_F32),
-                 data=data, offsets=offsets, b=b, dinv=dinv, scratch=scratch, y=y)
-    nb, rows = offsets.numel(), b.numel()
-    if data.shape != (nb, rows) or any(t.numel() != rows for t in (dinv, scratch, y)):
-        raise ValueError("trisweep: shapes disagree with (nb, rows)")
-    if len({b.data_ptr(), dinv.data_ptr(), scratch.data_ptr(), y.data_ptr()}) < 4:
-        raise ValueError("trisweep: y and scratch must not alias b, dinv or each other")
-    if not 0 <= sweeps < 2 ** 31:
-        raise ValueError("trisweep: sweeps must be in [0, 2^31)")
-    if rows == 0:
-        return
-    _run("trisweep", dev, _library().spmx_trisweep, data.data_ptr(), offsets.data_ptr(),
-         nb, rows, b.data_ptr(), dinv.data_ptr(), int(sweeps), scratch.data_ptr(),
-         y.data_ptr())
+class PreparedTrisweep(_LaunchRecord):
+    """The fused triangular sweeps on one checked plan: ``launch(b, dinv,
+    y, sweeps)`` checks b, dinv and y (contiguous f32 CUDA vectors of the
+    plan's rows on its device, y distinct from b and dinv) and ``0 <=
+    sweeps <= levels`` where a chunk publishes rows (more chunks than one
+    and a reach), and enqueues the kernel with one ctypes call of ``(args,
+    b, dinv, sweeps, y, stream)``; it writes every row of y. The plan's
+    scratch, flags and state are the caller's (one launch at a time)."""
+
+    __slots__ = ("rows", "levels", "publishes")
+
+    def __init__(self, args: TrisweepPlan, device: torch.device, *, levels: int, keep: tuple):
+        super().__init__("trisweep", "spmx_trisweep", args, device, empty=args.rows == 0,
+                         keep=keep)
+        self.rows, self.levels = int(args.rows), levels
+        self.publishes = args.chunks > 1 and args.tail > 0
+
+    def __call__(self, b: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, sweeps: int) -> None:
+        idx, n = self.device.index, self.rows
+        for what, t in (("b", b), ("dinv", dinv), ("y", y)):
+            if (not t.is_cuda or t.get_device() != idx or t.dtype is not _F32
+                    or not t.is_contiguous() or t.numel() != n):
+                raise self._refuse(what, t, n)
+        if y.data_ptr() in (b.data_ptr(), dinv.data_ptr()):
+            raise ValueError("trisweep: y must not alias b or dinv")
+        if not 0 <= sweeps < 2 ** 31 or (self.publishes and sweeps > self.levels):
+            raise ValueError(f"trisweep: sweeps {sweeps} outside [0, {self.levels}], the levels "
+                             "the plan's scratch holds")
+        if not self._empty:
+            self._enqueue(b.data_ptr(), dinv.data_ptr(), int(sweeps), y.data_ptr())
+
+
+#: the shared memory one block of the trisweep kernel may take (227 KB, the
+#: H100's limit a block, less its static variables)
+TRISWEEP_MAX_SMEM = 227 * 1024 - 64
+
+
+def prepare_trisweep(data, offsets_t, scratch, flags, state, *, offsets: tuple, rows: int,
+                     chunk_rows: int, levels: int, halo: int) -> PreparedTrisweep:
+    """The trisweep kernel's launch on one plan: ``data`` ``(nb, rows)`` f32
+    band planes of the strict part N, ``offsets_t`` its ``(nb,)`` int32
+    offsets on the card and ``offsets`` the same on the host, all negative
+    or all positive; chunks of ``chunk_rows`` rows, a power of two in [32,
+    65536]; ``halo`` the reach (the kernel stages a chunk's neighbour rows
+    in shared memory) or 0 (it reads them from L2); the block's shared
+    memory (``(nb + 4) * chunk_rows + halo`` floats and the offsets) must
+    fit; ``scratch`` ``(chunks * levels * tail,)`` f32, ``flags`` ``(chunks
+    * levels,)`` int32 zeros and ``state`` ``(2,)`` int32 zeros, ``tail =
+    min(max |offset|, chunk_rows)``: the rows each chunk publishes for
+    levels below ``levels``, their flags, and the kernel's ticket and
+    launch epoch. ``launch(b, dinv, y, sweeps)`` (see
+    :class:`PreparedTrisweep`)."""
+    dev = _check("trisweep", dict(data=_F32, offsets_t=torch.int32, scratch=_F32,
+                                  flags=torch.int32, state=torch.int32),
+                 data=data, offsets_t=offsets_t, scratch=scratch, flags=flags, state=state)
+    nb = len(offsets)
+    if offsets_t.numel() != nb or data.shape != (nb, rows):
+        raise ValueError("trisweep: data must be (len(offsets), rows), one offset a plane")
+    if not (all(o < 0 for o in offsets) or all(o > 0 for o in offsets)):
+        raise ValueError(f"trisweep: offsets {offsets} are not all of one sign (a strictly "
+                         "triangular N)")
+    t = int(chunk_rows)
+    if t < 32 or t > 1 << 16 or t & (t - 1):
+        raise ValueError(f"trisweep: chunk_rows {t} must be a power of two in [32, 65536]")
+    reach = max((abs(int(o)) for o in offsets), default=0)
+    if halo not in (0, reach):
+        raise ValueError(f"trisweep: halo {halo} must be 0 or the reach {reach}")
+    if (nb + 4) * t * 4 + -(-nb // 4) * 16 + halo * 4 > TRISWEEP_MAX_SMEM:
+        raise ValueError(f"trisweep: {nb} bands at {t} rows a chunk and {halo} staged rows "
+                         "take more shared memory than a block has")
+    chunks = -(-rows // t)
+    tail = min(reach, t)
+    if chunks >= 1 << 31 or not 0 <= levels < 1 << 31:
+        raise ValueError("trisweep: the kernel numbers chunks and levels with int32")
+    if (scratch.numel() != chunks * levels * tail or flags.numel() != chunks * levels
+            or state.numel() != 2):
+        raise ValueError(f"trisweep: scratch, flags and state must hold {chunks} chunks x "
+                         f"{levels} levels x {tail} rows, {chunks} x {levels} flags and 2 words")
+    args = TrisweepPlan(data=data.data_ptr(), offsets=offsets_t.data_ptr(),
+                        scratch=scratch.data_ptr(), flags=flags.data_ptr(),
+                        state=state.data_ptr(), rows=rows, chunks=chunks, reach=reach, nb=nb,
+                        chunk_rows=t, chunk_shift=t.bit_length() - 1, tail=tail, levels=levels,
+                        upper=int(nb > 0 and offsets[0] > 0), halo=halo, device=dev.index)
+    return PreparedTrisweep(args, dev, levels=levels,
+                            keep=(data, offsets_t, scratch, flags, state))

@@ -6,10 +6,13 @@ reference's callers hold it (the ``*_packed`` and ``*_matvec_multi``
 entry points, ``cg_solve_multi(..., rhs_axis=1)``); the others take X
 ``(cols, K)`` and return Y ``(rows, K)``:
 
-* :func:`spmm_aligned_packed`, :func:`aligned_matvec_multi`,
-  :func:`spmm_aligned` — the aligned SpMM kernel (``csrc/spmm_aligned.cu``)
-  on an ``AlignedPlan``; the plan's LanePack spill goes through the
-  LanePack SpMM kernel in add mode, one launch for up to 16 columns;
+* :func:`spmm_aligned_packed`, :func:`aligned_matvec_multi` (packed) and
+  :func:`spmm_aligned` (row-major X and Y, no relayout) — the aligned SpMM
+  kernel (``csrc/spmm_aligned.cu``) on an ``AlignedPlan``, through the
+  launch record of its device arrays (``spmm_launch``): one warp owns each
+  row-block segment, Y from ``torch.empty``, no atomics; the plan's
+  LanePack spill goes through the LanePack SpMM kernel in add mode, one
+  launch for up to 16 columns;
 * :func:`spmm_lanepack_packed`, :func:`lanepack_matvec_multi` (packed)
   and :func:`spmm_lanepack` (row-major X and Y, no relayout) — the
   LanePack SpMM kernel (``csrc/spmm_lanepack.cu``) on a ``LanePackPlan``,
@@ -243,36 +246,45 @@ def _aligned_spmm_torch(arrs, x3, *, rows: int):
     return torch.where(arrs["rb_mask"][:, None, None] > 0, y, 0.0)
 
 
-def _spmm_aligned_into(plan, arrs, x3, y3) -> None:
-    """``y3[:r128] += A @ x3`` (packed); ``y3`` zeroed by the caller. The
-    LanePack spill runs through the LanePack SpMM kernel, one launch for
-    all K columns; its x-window reads past ``cols`` give zero, so the
-    aligned layout's single guard row is enough."""
-    if on_cuda(x3):
-        from ..native.kernels import launch_aligned_spmm
+def _spmm_aligned_into(plan, arrs, x, y, *, packed: bool) -> None:
+    """``y = A @ x`` for an aligned plan and its arrays: x and y packed
+    (``(>= c128 + 1, K, 128)`` and ``(>= r128, K, 128)``) or row-major
+    ``(cols, K)`` and ``(rows, K)``. CUDA: the aligned SpMM kernel through
+    the arrays' launch record, which writes every row of y (packed: and
+    zeros on y's row blocks past r128); CPU: the plain version. The
+    LanePack spill then adds through the LanePack SpMM kernel, one launch
+    for up to 16 columns (its x-window reads past ``cols`` give zero)."""
+    if on_cuda(x):
+        from .spmv import _launch_record, _prepare_aligned_spmm
 
-        launch_aligned_spmm(arrs["vals"], arrs["lane"], arrs["col_off"], arrs["chunk_rb"],
-                            x3, y3, cols=plan.cols)
+        _launch_record(_prepare_aligned_spmm, arrs, plan, key="spmm_launch")(x, y, packed=packed)
     else:
-        y3[: plan.r128] += _aligned_spmm_torch(arrs, x3, rows=plan.rows)
+        y3 = _aligned_spmm_torch(arrs, x if packed else pack_rhs(x, plan.cols), rows=plan.rows)
+        if packed:
+            y[: plan.r128] = y3
+            y[plan.r128:] = 0
+        else:
+            y.copy_(unpack_rhs(y3, plan.rows))
     if plan.spill is not None:
-        _lanepack_spmm_into(plan.spill, arrs["spill"], x3, y3, packed=True, add=True)
+        _lanepack_spmm_into(plan.spill, arrs["spill"], x, y, packed=packed, add=True)
 
 
 def spmm_aligned_packed(plan, x3, *, device_arrays=None):
     """``Y = A @ X`` on an ``AlignedPlan``, packed layout in and out:
-    ``x3`` is (c128 + 1, K, 128), the result (r128, K, 128)."""
+    ``x3`` is (c128 + 1, K, 128), the result (r128, K, 128), allocated with
+    ``torch.empty`` and written whole."""
     x3 = _check_x3(x3, plan.cols, 1)
     arrs = device_arrays if device_arrays is not None else aligned_device_arrays(plan, x3.device)
-    y3 = torch.zeros((plan.r128, x3.shape[1], LANES), dtype=x3.dtype, device=x3.device)
-    _spmm_aligned_into(plan, arrs, x3, y3)
+    y3 = torch.empty((plan.r128, x3.shape[1], LANES), dtype=x3.dtype, device=x3.device)
+    _spmm_aligned_into(plan, arrs, x3, y3, packed=True)
     return y3
 
 
 def aligned_matvec_multi(plan, k: int, device, *, device_arrays=None):
     """Packed-layout multi-RHS matvec of a square aligned plan: maps
-    (c128 + 1, K, 128) to the same shape (guard row zero), for
-    ``cg_solve_multi(..., rhs_axis=1)``. Device arrays are built once."""
+    (c128 + 1, K, 128) to the same shape (guard row zero, written by the
+    kernel), for ``cg_solve_multi(..., rhs_axis=1)``. Device arrays are
+    built once."""
     if plan.rows != plan.cols:
         raise ValueError("packed multi-RHS matvec needs a square operator")
     arrs = device_arrays if device_arrays is not None else aligned_device_arrays(plan, device)
@@ -281,18 +293,22 @@ def aligned_matvec_multi(plan, k: int, device, *, device_arrays=None):
         x3 = _check_x3(x3, plan.cols, 1)
         if x3.shape[1] != k:
             raise ValueError(f"x3 has {x3.shape[1]} columns, the matvec was built for {k}")
-        y3 = torch.zeros_like(x3)
-        _spmm_aligned_into(plan, arrs, x3, y3)
+        y3 = torch.empty_like(x3)
+        _spmm_aligned_into(plan, arrs, x3, y3, packed=True)
         return y3
 
     return mv
 
 
 def spmm_aligned(plan, x, *, device_arrays=None):
-    """``Y = A @ X`` for ``X`` (cols, K) through the aligned SpMM kernel;
-    one relayout each way."""
-    y3 = spmm_aligned_packed(plan, pack_rhs(x, plan.cols), device_arrays=device_arrays)
-    return unpack_rhs(y3, plan.rows)
+    """``Y = A @ X`` for ``X`` (cols, K) through the aligned SpMM kernel on X
+    and Y as they are, row-major (no packing on the card), and the
+    LanePack SpMM kernel on the spill in add mode."""
+    x = _check_x(x, plan.cols)
+    arrs = device_arrays if device_arrays is not None else aligned_device_arrays(plan, x.device)
+    y = torch.empty((plan.rows, int(x.shape[1])), dtype=x.dtype, device=x.device)
+    _spmm_aligned_into(plan, arrs, x, y, packed=False)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -202,22 +202,33 @@ def _prepare_lanepack(arrs: dict, plan) -> kernels.PreparedLaunch:
     return _prepare_segment_launch("lanepack", arrs, plan)
 
 
-def _prepare_lanepack_spmm(arrs: dict, plan) -> kernels.PreparedSpmm:
-    """The LanePack SpMM kernel's launch record on a LanePack plan's
+def _prepare_segment_spmm(kind: str, arrs: dict, plan) -> kernels.PreparedSpmm:
+    """The aligned or LanePack SpMM kernel's launch record on the plan's
     ``arrs``: the segments of the SpMV kernel, with scratch slots 16
     columns wide (``spmm_scratch``) and two zeroed tickets a row block
     (``spmm_tickets``) of its own, every array checked once."""
     dev = arrs["vals"].device
     if "segments" not in arrs:
-        arrs.update(_segment_arrays("lanepack", plan, dev))
+        arrs.update(_segment_arrays(kind, plan, dev))
     arrs["spmm_scratch"] = torch.empty((arrs["seg_slots"], kernels.LANEPACK_SPMM_COLS * LANES),
                                        dtype=torch.float32, device=dev)
     arrs["spmm_tickets"] = torch.zeros(kernels.LANEPACK_SPMM_GROUPS * plan.r128,
                                        dtype=torch.int32, device=dev)
-    return kernels.prepare_lanepack_spmm(
-        arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"], arrs["col_off"],
-        arrs["segments"], arrs["rb_seg"], arrs["spmm_scratch"], arrs["spmm_tickets"],
-        cols=plan.cols, rows=plan.rows)
+    common = dict(col_off=arrs["col_off"], segments=arrs["segments"], rb_seg=arrs["rb_seg"],
+                  scratch=arrs["spmm_scratch"], tickets=arrs["spmm_tickets"], cols=plan.cols,
+                  rows=plan.rows)
+    if kind == "aligned":
+        return kernels.prepare_aligned_spmm(arrs["vals"], arrs["lane"], **common)
+    return kernels.prepare_lanepack_spmm(arrs["vals"], arrs["lane"], arrs["ends"],
+                                         arrs["starts"], **common)
+
+
+def _prepare_aligned_spmm(arrs: dict, plan) -> kernels.PreparedSpmm:
+    return _prepare_segment_spmm("aligned", arrs, plan)
+
+
+def _prepare_lanepack_spmm(arrs: dict, plan) -> kernels.PreparedSpmm:
+    return _prepare_segment_spmm("lanepack", arrs, plan)
 
 
 def _launch_record(prepare, arrs: dict, plan, key: str = "launch"):
@@ -238,10 +249,11 @@ def _segments_torch(kind: str, arrs, x, *, rows: int, cols: int, kw: int = 1):
     of the chunk's prefix sum), added chunk by chunk within each segment,
     then segment by segment within each row block; rows past ``rows``
     dropped. ``x`` is a vector (the SpMV kernels' order) or a (cols, K)
-    block, whose columns each take their own scan and sum (the LanePack
-    SpMM kernel's order); the result is (rows,) or (rows, K). The CPU
-    tests hold it to ``_aligned_torch``, ``_lanepack_torch`` and
-    ``ops.spmm._lanepack_spmm_torch``; no call path uses it."""
+    block, whose columns each take their own scan and sum (the aligned and
+    LanePack SpMM kernels' order; the aligned SpMM kernel gives these bits);
+    the result is (rows,) or (rows, K). The CPU tests hold it to
+    ``_aligned_torch``, ``_lanepack_torch``, ``ops.spmm._aligned_spmm_torch``
+    and ``ops.spmm._lanepack_spmm_torch``; no call path uses it."""
     vals = arrs["vals"]
     co = arrs["col_off"].long()
     c128 = -(-cols // LANES)
@@ -356,9 +368,9 @@ def spmv_lanepack(plan: LanePackPlan, x, *, device_arrays=None, allow_downcast=F
 def aligned_device_arrays(plan, device) -> dict:
     """An ``AlignedPlan``'s arrays on ``device`` (``vals`` f32 and ``lane``
     int8 as ``(chunks, 128)``, ``col_off``/``chunk_rb`` int32, ``rb_mask``),
-    its segments and, on CUDA, its launch record (as
-    :func:`lanepack_device_arrays`), plus ``spill``: the LanePack
-    sub-plan's arrays when the plan has one."""
+    its segments and, on CUDA, the launch records of the SpMV and SpMM
+    kernels (``launch``, ``spmm_launch``, as :func:`lanepack_device_arrays`),
+    plus ``spill``: the LanePack sub-plan's arrays when the plan has one."""
     chunks = plan.num_slabs * plan.vals.shape[1]
     arrs = dict(
         vals=_t(plan.vals.reshape(chunks, LANES), device),
@@ -370,6 +382,7 @@ def aligned_device_arrays(plan, device) -> dict:
     )
     if arrs["vals"].is_cuda:
         arrs["launch"] = _prepare_aligned(arrs, plan)
+        arrs["spmm_launch"] = _prepare_aligned_spmm(arrs, plan)
     if plan.spill is not None:
         arrs["spill"] = lanepack_device_arrays(plan.spill, device)
     return arrs

@@ -681,6 +681,157 @@ def test_aligned_spmm_spill_is_one_lanepack_spmm_launch(dev):
     assert got["aligned_spmm"] == 1 and got["lanepack_spmm"] == 1 and got["lanepack"] == 0
 
 
+def _masked_aligned_case():
+    """An aligned plan with no spill whose row blocks 0, 2 and 4 hold no
+    entry (700 x 512, five bands)."""
+    rng = np.random.default_rng(7)
+    r = np.repeat(np.arange(700), 5)
+    c = r + np.tile([-130, -1, 0, 1, 130], 700)
+    keep = (c >= 0) & (c < 512) & ~np.isin(r // 128, [0, 2, 4])
+    m = CsrMatrix.from_coo(700, 512, r[keep], c[keep],
+                           rng.standard_normal(int(keep.sum())).astype(np.float32))
+    plan = plan_aligned(m)
+    assert plan.spill is None
+    return m, plan
+
+
+def _aligned_spmm_call(plan, arrs, X, layout):
+    """``spmm_aligned`` (row-major) or ``spmm_aligned_packed`` unpacked."""
+    if layout == "rowmajor":
+        return spmm.spmm_aligned(plan, X, device_arrays=arrs)
+    return spmm.unpack_rhs(spmm.spmm_aligned_packed(plan, spmm.pack_rhs(X, plan.cols),
+                                                    device_arrays=arrs), plan.rows)
+
+
+@pytest.mark.parametrize("k", list(range(1, 21)))
+@pytest.mark.parametrize("layout", ["packed", "rowmajor"])
+def test_aligned_spmm_kernel_store_and_add_modes(dev, layout, k, monkeypatch):
+    """Store mode writes every row of a NaN-filled Y (empty row blocks 0;
+    packed: the row blocks past r128 zeroed) with the bits of the
+    segment-order plain version; two calls give equal bits; add mode adds
+    the same result onto Y bit for bit and leaves those row blocks alone;
+    one launch a 16 columns."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    m, plan = _masked_aligned_case()
+    arrs = spmv.aligned_device_arrays(plan, dev)
+    rec = arrs["spmm_launch"]
+    rng = np.random.default_rng(k)
+    X = torch.from_numpy(rng.standard_normal((512, k)).astype(np.float32)).to(dev)
+    packed = layout == "packed"
+    x = spmm.pack_rhs(X, 512) if packed else X
+    shape = (plan.r128 + 3, k, 128) if packed else (700, k)
+    y = torch.full(shape, float("nan"), device=dev)
+    before = kernels.launch_counts["aligned_spmm"]
+    rec(x, y, packed=packed)
+    assert kernels.launch_counts["aligned_spmm"] - before == -(-k // 16)
+    y2 = torch.full(shape, float("nan"), device=dev)
+    rec(x, y2, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    got = spmm.unpack_rhs(y, 700) if packed else y
+    if packed:
+        assert int(torch.count_nonzero(y[plan.r128:])) == 0
+    for rb in (0, 2, 4):
+        assert torch.all(got[rb * 128: (rb + 1) * 128] == 0)
+    want = spmv._segments_torch("aligned", arrs, X, rows=700, cols=512)
+    assert torch.equal(got, want)
+    assert torch.all(arrs["spmm_tickets"] == 0)
+    y0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    y_add = y0.clone()
+    rec(x, y_add, packed=packed, add=True)
+    if packed:
+        assert torch.equal(y_add[: plan.r128], y0[: plan.r128] + y[: plan.r128])
+        assert torch.equal(y_add[plan.r128:], y0[plan.r128:])
+    else:
+        assert torch.equal(y_add, y0 + y)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 20])
+@pytest.mark.parametrize("layout", ["packed", "rowmajor"])
+@pytest.mark.parametrize("g", [1, 2, spmv.SEGMENT_CHUNKS])
+def test_aligned_spmm_kernel_equals_segment_order_bitwise(dev, g, layout, k, monkeypatch):
+    """With no spill the aligned SpMM kernel equals ``_segments_torch`` on
+    the (cols, K) block bit for bit, row blocks cut into segments of g
+    chunks or whole, every call; each column within the f64 bound."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", g)
+    m = poisson_2d_csr(64, dtype=np.float32)
+    plan = plan_aligned(m)
+    assert plan.spill is None
+    arrs = spmv.aligned_device_arrays(plan, dev)
+    if g <= 2:
+        assert int(arrs["segments"][:, 3].max()) >= 0
+    X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
+    X = torch.from_numpy(X_np).to(dev)
+    want = spmv._segments_torch("aligned", arrs, X, rows=m.rows, cols=m.cols)
+    _run_multi("aligned_spmm", m, X_np, lambda: _aligned_spmm_call(plan, arrs, X, layout),
+               lambda: want)
+    y1, y2 = _aligned_spmm_call(plan, arrs, X, layout), _aligned_spmm_call(plan, arrs, X, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, want) and torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")])
+@pytest.mark.parametrize("layout", ["packed", "rowmajor"])
+def test_aligned_spmm_kernel_nonfinite_x(dev, layout, value, monkeypatch):
+    """A non-finite X (at X[0, q], which slab padding reads, and inside)
+    gives the segment-order plain version's NaN and inf entries."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    m, plan = _masked_aligned_case()
+    arrs = spmv.aligned_device_arrays(plan, dev)
+    for where in (0, 300):
+        X = torch.from_numpy(np.random.default_rng(5).standard_normal((512, 4))
+                             .astype(np.float32)).to(dev)
+        X[where, 1] = value
+        a = _aligned_spmm_call(plan, arrs, X, layout).cpu().numpy()
+        b = spmv._segments_torch("aligned", arrs, X, rows=700, cols=512).cpu().numpy()
+        np.testing.assert_array_equal(a, b)
+        assert not np.all(np.isfinite(b))
+
+
+def test_aligned_spmm_record_refuses_bad_inputs(dev):
+    """The aligned SpMM launch record refuses x on the CPU, another dtype,
+    shapes that do not fit (packed: too few row blocks of y) and a
+    misaligned y before anything launches."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    m = poisson_2d_csr(32, dtype=np.float32)
+    rec = spmv.aligned_device_arrays(plan_aligned(m), dev)["spmm_launch"]
+    X = torch.zeros((m.cols, 4), device=dev)
+    Y = torch.empty((m.rows, 4), device=dev)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="is on cpu"):
+        rec(X.cpu(), Y)
+    with pytest.raises(TypeError, match="dtype"):
+        rec(X.double(), Y)
+    with pytest.raises(ValueError, match="do not fit"):
+        rec(X[1:], Y)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rec(X, _misaligned(Y))
+    with pytest.raises(ValueError, match="do not fit"):
+        rec(spmm.pack_rhs(X, m.cols), torch.empty((1, 4, 128), device=dev), packed=True)
+    assert kernels.launch_counts == before
+
+
+def test_aligned_matmat_multi_rhs_cg_on_card_matches_cpu(dev):
+    """Aligned multi-RHS CG through ``SpmvOperator.matmat`` (B6 at K = 8 on
+    X and Y row-major): iterations within 2 of the CPU's, X within 1e-4."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers.cg import cg_solve_multi
+
+    a = poisson_2d_csr(48, dtype=np.float32)
+    B = torch.from_numpy(np.random.default_rng(9).standard_normal((a.rows, 8))
+                         .astype(np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        op = SpmvOperator(a, device=d, force="aligned")
+        res = cg_solve_multi(op.matmat, B.to(d), tol=1e-5, maxiter=2000, rhs_axis=-1)
+        out[d.type] = (res.iterations, res.x.double().cpu())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 2
+    assert torch.linalg.norm(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * torch.linalg.norm(out["cpu"][1])
+
+
 BELL_MATRICES = {
     "randlocal": lambda: corpus.random_local(np.random.default_rng(2), 4096, 12, 300),
     "powerlaw_spill": lambda: corpus.power_law_rows(np.random.default_rng(0), 4096, 16),
@@ -1331,6 +1482,127 @@ def test_trisweep_kernel_zero_rhs(dev):
     plan, b, dinv = _trisweep_inputs(_trisweep_case("fem_U"), dev)
     y = tw.trisweep(plan, torch.zeros_like(b), dinv, sweeps=4)
     assert y.shape == b.shape and not bool(y.any())
+
+
+@pytest.mark.parametrize("chunk_rows", [32, 64, 512, None])
+@pytest.mark.parametrize("case", ["poisson_L", "poisson_LT", "fem_L", "fem_U"])
+def test_trisweep_kernel_chunk_sizes(dev, case, chunk_rows):
+    """At chunk sizes below and above the factor's reach (Poisson 48^2:
+    48; fem: 43), with a ragged last chunk, and at the default: bit-equal
+    to the plain version at every sweep count of test_trisweep_kernel,
+    two solves giving equal bits, the ticket back at 0."""
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+
+    t = _trisweep_case(case)
+    plan0, b, dinv = _trisweep_inputs(t, dev)
+    plan = tw.TrisweepPlan(plan0.offsets, plan0.data.cpu().numpy(), plan0.rows, device=dev,
+                           chunk_rows=chunk_rows)
+    assert chunk_rows is None or plan.chunk_rows == chunk_rows
+    for sweeps in (0, 1, 4, 7):
+        y1 = tw.trisweep(plan, b, dinv, sweeps=sweeps)
+        y2 = tw.trisweep(plan, b, dinv, sweeps=sweeps)
+        plain = tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets, rows=plan.rows,
+                                   sweeps=sweeps)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, plain) and torch.equal(y1, y2), sweeps
+    assert int(plan._state[0]) == 0
+
+
+@pytest.mark.parametrize("chunk_rows", [4096, None])
+def test_trisweep_kernel_long_reach_reads_neighbours_from_l2(dev, chunk_rows):
+    """A reach past the rows the kernel stages (offsets -9000, -3, -1 on
+    30,000 rows): the neighbours' rows come from their slots in L2, from
+    one chunk back or, in chunks of 4096 rows, from three; bit-equal to
+    the plain version at 0 to 4 sweeps."""
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+
+    rng = np.random.default_rng(21)
+    rows, offsets = 30_000, (-9000, -3, -1)
+    data = rng.uniform(-0.3, 0.3, (3, rows)).astype(np.float32)
+    plan = tw.TrisweepPlan(offsets, data, rows, device=dev, chunk_rows=chunk_rows)
+    assert plan.halo == 0
+    b = torch.from_numpy(rng.standard_normal(rows).astype(np.float32)).to(dev)
+    dinv = torch.from_numpy(rng.uniform(0.5, 1.0, rows).astype(np.float32)).to(dev)
+    for sweeps in range(5):
+        y = tw.trisweep(plan, b, dinv, sweeps=sweeps)
+        plain = tw._trisweep_torch(plan.data, b, dinv, offsets=offsets, rows=rows, sweeps=sweeps)
+        torch.cuda.synchronize()
+        assert torch.equal(y, plain), sweeps
+
+
+def test_trisweep_kernel_deep_sweeps_many_chunks(dev):
+    """126 sweeps on Poisson 64^2's IC(0) L in chunks of 64 rows (its
+    reach): 64 chunks hand 126 levels down the rows; bit-equal to the
+    plain version and equal to the exact host solve."""
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+    from sparse_matrix_tpu_torch.solvers import ilu
+
+    lc = ilu.ic0(poisson_2d_csr(64, dtype=np.float32))
+    plan0, b, dinv = _trisweep_inputs(lc, dev)
+    plan = tw.TrisweepPlan(plan0.offsets, plan0.data.cpu().numpy(), plan0.rows, device=dev,
+                           chunk_rows=64)
+    y = tw.trisweep(plan, b, dinv, sweeps=126)
+    plain = tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets, rows=plan.rows,
+                               sweeps=126)
+    torch.cuda.synchronize()
+    assert torch.equal(y, plain)
+    want = ilu.trisolve_host(lc, b.cpu().numpy().astype(np.float64), lower=True)
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=2e-4, atol=2e-5)
+
+
+def test_trisweep_kernel_back_to_back_solves(dev):
+    """1,000 solves back to back, alternating two plans (L in chunks of 32
+    rows, U in chunks of 64), with nothing reset between them: every
+    result equals its plain version bit for bit; each plan's ticket ends
+    at 0 and its epoch counts its launches."""
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+
+    plans = []
+    for case, t_rows in (("poisson_L", 32), ("fem_U", 64)):
+        plan0, b, dinv = _trisweep_inputs(_trisweep_case(case), dev)
+        plan = tw.TrisweepPlan(plan0.offsets, plan0.data.cpu().numpy(), plan0.rows,
+                               device=dev, chunk_rows=t_rows)
+        want = tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets, rows=plan.rows,
+                                  sweeps=4)
+        plans.append((plan, b, dinv, want))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(1000):
+        plan, b, dinv, want = plans[i % 2]
+        bad += (tw.trisweep(plan, b, dinv, sweeps=4) != want).sum()
+    torch.cuda.synchronize()
+    assert int(bad) == 0
+    for plan, *_ in plans:
+        assert plan._state.tolist() == [0, 500]
+
+
+def test_trisweep_record_refuses_bad_inputs(dev):
+    """The trisweep launch record refuses b on the CPU, another dtype, a
+    wrong length, y aliasing b, and more sweeps than its scratch holds;
+    the wrapper makes a larger record instead."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import trisweep as tw
+
+    plan0, b, dinv = _trisweep_inputs(_trisweep_case("poisson_L"), dev)
+    plan = tw.TrisweepPlan(plan0.offsets, plan0.data.cpu().numpy(), plan0.rows, device=dev,
+                           chunk_rows=64)
+    rec = plan._record(2)
+    y = torch.empty_like(b)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="is on cpu"):
+        rec(b.cpu(), dinv, y, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        rec(b.double(), dinv, y, 2)
+    with pytest.raises(ValueError, match="elements"):
+        rec(b[1:], dinv, y, 2)
+    with pytest.raises(ValueError, match="alias"):
+        rec(b, dinv, b, 2)
+    with pytest.raises(ValueError, match="sweeps"):
+        rec(b, dinv, y, 3)
+    assert kernels.launch_counts == before
+    y3 = tw.trisweep(plan, b, dinv, sweeps=3)
+    assert plan.launch is not rec and plan.launch.levels == 3
+    assert torch.equal(y3, tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets,
+                                              rows=plan.rows, sweeps=3))
 
 
 @pytest.mark.parametrize("solver", ["ic_pcg", "bicgstab", "gmres"])

@@ -187,8 +187,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                  cols=128, rows=128, foreign_pad=False),
         "dia_spmm": lambda: kernels.launch_dia_spmm(f32[None], i32, f32[None, None], f32[None, None],
                                                     rows=128, cols=128, x_lo=0, y_lo=0),
-        "aligned_spmm": lambda: kernels.launch_aligned_spmm(f32, i8, i32, i32, f32[None, None],
-                                                            f32[None, None], cols=128),
+        "aligned_spmm": lambda: kernels.prepare_aligned_spmm(
+            f32[None], i8[None], i32, i32.repeat(1, 4), i32.repeat(2), torch.zeros(0, 2048),
+            i32.repeat(2), cols=128, rows=128),
         "lanepack_spmm": lambda: kernels.prepare_lanepack_spmm(
             f32[None], i16[None], i8[None], i8[None], i32, i32.repeat(1, 4), i32.repeat(2),
             torch.zeros(0, 2048), i32.repeat(2), cols=128, rows=128),
@@ -201,8 +202,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                             i32.repeat(2), blk),
         "esc_expand": lambda: kernels.launch_esc_expand(f32, f32, i16, i16, i32, i32,
                                                         torch.zeros(1024), num_products=5),
-        "trisweep": lambda: kernels.launch_trisweep(f32[None], i32, f32, f32.clone(),
-                                                    f32.clone(), f32.clone(), sweeps=2),
+        "trisweep": lambda: kernels.prepare_trisweep(f32[None], i32, f32[:0], i32[:0],
+                                                     i32.repeat(2), offsets=(-1,), rows=128,
+                                                     chunk_rows=128, levels=0, halo=1),
     }
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="needs CUDA"):

@@ -1,7 +1,8 @@
-"""The LanePack SpMM in its kernel's order, and the row-major SpMM call
-paths (sparse_matrix_tpu_torch/ops/spmv.py ``_segments_torch`` on a
-(cols, K) block; ops/spmm.py ``_lanepack_spmm_into``, ``spmm_lanepack``,
-``spmm_bell``).
+"""The aligned and LanePack SpMM in their kernels' order, and the
+row-major SpMM call paths (sparse_matrix_tpu_torch/ops/spmv.py
+``_segments_torch`` on a (cols, K) block; ops/spmm.py
+``_spmm_aligned_into``, ``spmm_aligned``, ``_lanepack_spmm_into``,
+``spmm_lanepack``, ``spmm_bell``).
 
 The LanePack SpMM kernel (csrc/spmm_lanepack.cu) gives each row block one
 writer: a warp sums a segment of the row block's chunks (at most G
@@ -22,6 +23,17 @@ kw 16, for G = 1, 2 and 32 (cut and whole row blocks), to:
 * the plain version's zero rows on empty and masked row blocks, and its
   NaN and inf rows for a non-finite x.
 
+The aligned SpMM kernel (csrc/spmm_aligned.cu) sums the same segments
+with no scan: each product rounded, added in plan order, segments in
+order. ``_segments_torch("aligned", ...)`` on the block is held, at K in
+{2, 8, 16} and G in {1, 2, 32}, to ``_aligned_spmm_torch`` unpacked
+(bit for bit where no row block is cut, the same additions in the same
+order; else within ``spmv_f64_bound``), to the JAX package's
+``spmm_aligned_packed`` (within the bound and ``2e-5 * max(1, max|Y|)``),
+to zero rows on empty and masked row blocks and to the plain version's
+NaN and inf entries for a non-finite X; ``_spmm_aligned_into`` and
+``spmm_aligned`` must write every row in store mode and add in add mode.
+
 The row-major paths: ``spmm_lanepack`` and ``spmm_bell`` take X (cols, K)
 and give Y (rows, K) with no packing on the card; on the CPU their results
 must equal the unpacked plain versions bit for bit, ``spmm_bell``'s with
@@ -38,11 +50,13 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from sparse_matrix_tpu.formats import aligned as ref_aligned  # noqa: E402
 from sparse_matrix_tpu.formats import bell as ref_bell  # noqa: E402
 from sparse_matrix_tpu.formats import csr as ref_csr  # noqa: E402
 from sparse_matrix_tpu.formats import lanepack as ref_lanepack  # noqa: E402
 from sparse_matrix_tpu.ops import spmm as ref_spmm  # noqa: E402
 from sparse_matrix_tpu_torch.bench import corpus  # noqa: E402
+from sparse_matrix_tpu_torch.formats.aligned import plan_aligned  # noqa: E402
 from sparse_matrix_tpu_torch.formats.bell import plan_bell  # noqa: E402
 from sparse_matrix_tpu_torch.formats.csr import CsrMatrix  # noqa: E402
 from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack  # noqa: E402
@@ -260,3 +274,128 @@ def test_row_major_spmm_refuses_malformed_x():
                      (torch.zeros(bp.cols, 8, dtype=torch.float64), TypeError)):
         with pytest.raises(err):
             spmm.spmm_bell(bp, bad)
+
+
+# (matrix): aligned shapes with no spill, small
+ALIGNED = {
+    "poisson": lambda: poisson_2d_csr(40, dtype=np.float32),
+    "banded_rect": lambda: _banded(900, 700, (-300, -129, -1, 0, 2, 131), seed=4),
+}
+
+
+def _banded(rows, cols, offsets, *, seed, skip_rbs=()):
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(rows), len(offsets))
+    c = r + np.tile(offsets, rows)
+    keep = (c >= 0) & (c < cols) & ~np.isin(r // 128, skip_rbs)
+    return CsrMatrix.from_coo(rows, cols, r[keep], c[keep],
+                              rng.standard_normal(int(keep.sum())).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _aligned_case(name):
+    m = ALIGNED[name]()
+    plan = plan_aligned(m)
+    assert plan.spill is None
+    return m, plan
+
+
+def _within_plain_bound(m, X_np, Y):
+    for q in range(X_np.shape[1]):
+        y64, bound = spmv.spmv_f64_bound(m, X_np[:, q])
+        err = np.abs(np.asarray(Y, np.float64)[:, q] - y64)
+        assert np.all(err <= bound), (q, float(np.max(err / np.maximum(bound, 1e-300))))
+
+
+def _aligned_plain(plan, arrs, X):
+    """``_aligned_spmm_torch`` on X (cols, K), unpacked to (rows, K)."""
+    return spmm.unpack_rhs(spmm._aligned_spmm_torch(arrs, spmm.pack_rhs(X, plan.cols),
+                                                    rows=plan.rows), plan.rows)
+
+
+@pytest.mark.parametrize("k", [2, 8, 16])
+@pytest.mark.parametrize("g", [1, 2, 32])
+@pytest.mark.parametrize("name", list(ALIGNED))
+def test_aligned_segment_order_spmm_matches_plain_and_reference(name, g, k, monkeypatch):
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", g)
+    m, plan = _aligned_case(name)
+    arrs = spmv.aligned_device_arrays(plan, "cpu")
+    cut = int(arrs["segments"][:, 3].max()) >= 0
+    assert cut or g > 2
+    X_np = _X(k + 40, m.cols, k)
+    X = torch.from_numpy(X_np)
+    y_seg = spmv._segments_torch("aligned", arrs, X, rows=m.rows, cols=m.cols)
+    y_plain = _aligned_plain(plan, arrs, X)
+    assert y_seg.shape == (m.rows, k) and y_seg.dtype == torch.float32
+    if not cut:
+        assert torch.equal(y_seg, y_plain)
+    _within_plain_bound(m, X_np, y_seg)
+    rp = ref_aligned.plan_aligned(_ref(m))
+    x3 = ref_spmm.pack_rhs(jnp.asarray(X_np), m.cols)
+    y_ref = np.asarray(ref_spmm.unpack_rhs(ref_spmm.spmm_aligned_packed(rp, x3), m.rows),
+                       dtype=np.float64)
+    _within_plain_bound(m, X_np, y_ref)
+    assert np.max(np.abs(y_seg.numpy() - y_ref)) <= 2e-5 * max(1.0, float(np.max(np.abs(y_ref))))
+    for q in (0, k - 1):  # column q of the block is the SpMV order on column q
+        y1 = spmv._segments_torch("aligned", arrs, X[:, q].contiguous(), rows=m.rows,
+                                  cols=m.cols)
+        assert torch.equal(y1, y_seg[:, q])
+
+
+@pytest.mark.parametrize("g", [2, 32])
+def test_aligned_segment_order_spmm_of_masked_and_empty_row_blocks(g, monkeypatch):
+    """Row blocks 0, 2 and 4 hold no entry: their rows are zero in every
+    column, as in the plain version."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", g)
+    m = _banded(700, 512, (-130, -1, 0, 1, 130), seed=7, skip_rbs=(0, 2, 4))
+    plan = plan_aligned(m)
+    assert plan.spill is None and plan.rb_mask[[0, 2, 4]].sum() == 0
+    arrs = spmv.aligned_device_arrays(plan, "cpu")
+    X_np = _X(8, 512, 8)
+    X = torch.from_numpy(X_np)
+    y = spmv._segments_torch("aligned", arrs, X, rows=700, cols=512)
+    for rb in (0, 2, 4):
+        assert torch.all(y[rb * 128: (rb + 1) * 128] == 0)
+    plain = _aligned_plain(plan, arrs, X)
+    assert torch.equal(y == 0, plain == 0)
+    _within_plain_bound(m, X_np, y)
+
+
+@pytest.mark.parametrize("where", ["x0", "inner"])
+@pytest.mark.parametrize("value", [np.inf, np.nan])
+@pytest.mark.parametrize("name", list(ALIGNED))
+def test_aligned_segment_order_spmm_nonfinite_rows(name, value, where, monkeypatch):
+    """A non-finite X gives the plain version's NaN and inf entries, column
+    by column (slab padding adds 0 * X[0, q] to row block 0)."""
+    monkeypatch.setattr(spmv, "SEGMENT_CHUNKS", 2)
+    m, plan = _aligned_case(name)
+    arrs = spmv.aligned_device_arrays(plan, "cpu")
+    X_np = _X(12, m.cols, 4)
+    X_np[0 if where == "x0" else m.cols // 2 + 3, 1] = value
+    X = torch.from_numpy(X_np)
+    a = spmv._segments_torch("aligned", arrs, X, rows=m.rows, cols=m.cols).numpy()
+    b = _aligned_plain(plan, arrs, X).numpy()
+    assert np.array_equal(np.isnan(a), np.isnan(b))
+    assert np.array_equal(np.isposinf(a), np.isposinf(b))
+    assert np.array_equal(np.isneginf(a), np.isneginf(b))
+    assert not np.all(np.isfinite(b[:, 1])) and np.all(np.isfinite(b[:, [0, 2, 3]]))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_spmm_aligned_into_store_and_add(packed):
+    """Store mode writes every row of y (packed: zeros on the row blocks
+    past r128); add mode adds the same result onto y; ``spmm_aligned``
+    (row-major, no packing on the card) is the unpacked packed result."""
+    m, plan = _aligned_case("banded_rect")
+    arrs = spmv.aligned_device_arrays(plan, "cpu")
+    X = torch.from_numpy(_X(3, m.cols, 5))
+    x = spmm.pack_rhs(X, m.cols) if packed else X
+    shape = (plan.r128 + 2, 5, 128) if packed else (m.rows, 5)
+    y = torch.full(shape, float("nan"))
+    spmm._spmm_aligned_into(plan, arrs, x, y, packed=packed)
+    want = _aligned_plain(plan, arrs, X)
+    got = spmm.unpack_rhs(y, m.rows) if packed else y
+    assert torch.equal(got, want)
+    assert torch.equal(spmm.spmm_aligned(plan, X, device_arrays=arrs), want)
+    if packed:
+        assert int(torch.count_nonzero(y[plan.r128:])) == 0
