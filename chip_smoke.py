@@ -31,8 +31,9 @@ Phases, each of which ends the run with an exception on failure:
    version, ``_segments_torch``, bit for bit; B8, whose cases have no
    spill, its plain version) must give equal bits on two calls. Each case
    has CUDA-event times (median of 30 calls, 5 for the block SpGEMM) of
-   the kernel through the wrapper a user calls (``ms``; for B2, B3, B4,
-   B5, B6, B7, B8, B10 and B13 also the bare launch, ``launch_ms``, and
+   the kernel through the wrapper a user calls (``ms``; for B1, B2, B3,
+   B4, B5, B6, B7, B8, B9, B10, B12 and B13 also the bare launch,
+   ``launch_ms``, and
    its device time with no host gaps, ``device_ms``, which the kernels
    line repeats for the first case), its
    plain version and
@@ -83,8 +84,10 @@ Phases, each of which ends the run with an exception on failure:
       taken and its cost estimates logged) on Poisson 2048^2,
       femlike_262k and uniform 8192, with the time of every other engine
       that fits; ``EscSpgemm(reduce="sort")`` on femlike_262k and
-      randlocal_262k with its phases (expansion, sort, run reduce) and a
-      re-multiply with fresh values; ``EscSpgemm`` with the SpMV reduction
+      randlocal_262k with its phases (expansion, run sums; the sort
+      reduction planned at construction), beside the per-call sort path
+      of earlier slices (expansion, sort, run reduce), and a re-multiply
+      with fresh values; ``EscSpgemm`` with the SpMV reduction
       and ``FixedSideSpgemm`` on uniform 8192; the hyper-sparse cell
       (uniform 16384 at 0.015 %): ``EscSpgemm`` against ``BlockSpgemm``
       against ``torch.sparse.mm``; ``transpose_device`` and ``add_device``
@@ -103,9 +106,14 @@ Phases, each of which ends the run with an exception on failure:
    three scipy float64 products), SpMV reductions against the SpMV bound
    of their selection matrix as well (ROADMAP C14).
 4. Launch counts: every kernel of a part must have run in that part.
-5. The ESC expansion kernel against its plain version on the plans part
-   f built, bit-equal on the real slots, with its times (beside the
-   reference gather engine's expansion as the yardstick) and its bound.
+5. The ESC expansion kernel on the plans part f built: bit-equal to its
+   two plain versions (the lane form on the real slots, the segment
+   schedule on every slot), on two calls and with CSR-order lhs values
+   read through the permutation, with its times (beside the reference
+   gather engine's expansion as the yardstick) and its bound; then, on
+   the sort-reduction engines, the run-sum kernel (no TPU kernel: the
+   sort reduction planned once) bit-equal to its plain version on the CPU
+   and on two calls, beside one ``index_add_`` as the library call.
 6. The trisweep kernel at sweeps = 4 on part g's factors (L and L^T of
    Poisson 2048^2's IC(0), L and U of femlike's ILU(0)): bit-equal to its
    plain version and on two calls, within the float64 running bound of
@@ -162,6 +170,9 @@ REPLACES = {
                      "sparse_matrix_tpu/ops/spgemm_block.py:72"),
     "esc_expand": ("sparse_matrix_tpu_torch/csrc/esc_expand.cu",
                    "sparse_matrix_tpu/ops/esc_expand.py:158"),
+    # no TPU kernel: the reference's XLA run reduce of the sort reduction
+    "esc_run_sum": ("sparse_matrix_tpu_torch/csrc/esc_run_sum.cu",
+                    "sparse_matrix_tpu/ops/device_sorted.py:204"),
     "trisweep": ("sparse_matrix_tpu_torch/csrc/trisweep.cu",
                  "sparse_matrix_tpu/ops/trisweep.py:88"),
 }
@@ -172,7 +183,7 @@ PARTS = {
     "multi_rhs": ("dia_spmm", "aligned_spmm"),
     "general_multi_rhs": ("lanepack_spmm", "bell_spmm"),
     "block_sparse": ("bcsr_spmm", "block_spgemm"),
-    "spgemm": ("esc_expand", "block_spgemm"),
+    "spgemm": ("esc_expand", "esc_run_sum", "block_spgemm"),
     "ilu": ("trisweep", "dia"),
 }
 SEED = 0
@@ -589,6 +600,7 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
     from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
     from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack
     from sparse_matrix_tpu_torch.formats.stripe import plan_stripe
+    from sparse_matrix_tpu_torch.native.kernels import launch_dia, launch_dia_spmm
     from sparse_matrix_tpu_torch.ops import spmm, spmv, spmv_bell, spmv_dia
 
     rng = np.random.default_rng(SEED)
@@ -611,6 +623,9 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
         vals = None
         if vdt is not None:  # oracle from the bf16-rounded values
             vals = torch.from_numpy(a2.vals.astype(np.float32)).to(vdt).double().numpy()
+        # the bare launches (B1 and B9 have no launch record: launch_dia
+        # and launch_dia_spmm check their tensors on every call)
+        y = torch.empty(dia.rows, device=dev)
         chk.check(
             "dia", f"poisson2048_{tag}", a2, x_np,
             lambda: spmv_dia.spmv_dia(dia, x, device_arrays=arrs),
@@ -618,9 +633,12 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
                                              rows=dia.rows, cols=dia.cols),
             plan_bytes=arrays_bytes("dia", arrs), vals=vals,
             value_bytes=arrs["data"].element_size(),
+            launch=lambda arrs=arrs, y=y: launch_dia(arrs["data"], arrs["offsets"], x, y,
+                                                     rows=dia.rows, cols=dia.cols),
         )
         mv = spmv_dia.dia_matvec_multi(dia, K_RHS, dev, device_arrays=arrs)
         x3 = spmv_dia.dia_pack_rhs(dia, xb)
+        lo = spmv_dia._dia_stream_geom(dia.offsets)[0]
         chk.check(
             "dia_spmm", f"poisson2048_{tag}_K{K_RHS}", a2, xb_np,
             lambda: mv(x3),
@@ -630,6 +648,9 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
             value_bytes=arrs["data"].element_size(),
             unpack=lambda y: spmv_dia.dia_unpack_rhs(dia, y) if y.dim() == 3 else y,
             vals=vals,
+            launch=lambda arrs=arrs, x3=x3, y3=torch.empty_like(x3), lo=lo: launch_dia_spmm(
+                arrs["data"], arrs["offsets"], x3, y3, rows=dia.rows, cols=dia.cols, x_lo=lo,
+                y_lo=lo),
         )
         del arrs, mv, x3
 
@@ -1486,28 +1507,42 @@ def time_engines(torch, dev, name, m, oracle, skip=()):
 
 
 def esc_phases(torch, eng):
-    """CUDA-event ms of EscSpgemm.multiply_device and of its phases:
-    expansion (the ESC expansion kernel), key sort, gather by the sort
-    order and run reduce."""
-    from sparse_matrix_tpu_torch.ops.device_sorted import _packed_run_reduce
+    """CUDA-event ms of ``EscSpgemm.multiply_device`` with the sort
+    reduction planned once, its device time with no host gaps, and its two
+    launches (the expansion, B12, and the run sums), beside the per-call
+    sort path of earlier slices on the same products (expansion, then
+    ``_packed_reduce_presort``: key sort, gather by the sort order, run
+    reduce), with that path's sort and gather-and-reduce alone."""
+    from sparse_matrix_tpu_torch.ops.device_sorted import (
+        _packed_reduce_presort,
+        _packed_run_reduce,
+    )
     from sparse_matrix_tpu_torch.ops.esc_expand import expand_products
 
-    xp = eng._xplan
+    xp, runs = eng._xplan, eng._runs
 
     def expand():
         return expand_products(xp, eng.lhs_vals_csc, eng.rhs_vals,
                                device_arrays=eng._expand_arrs)
 
     p = expand()
-    k_s, order = torch.sort(eng.out_key, stable=True)
+    val = torch.empty_like(p)
+    key = torch.from_numpy(xp.out_key).to(p.device)
+    k_s, order = torch.sort(key, stable=True)
     out = dict(
         multiply_device_ms=cuda_ms(torch, eng.multiply_device, reps=10, warmup=2),
+        multiply_device_device_ms=device_ms_per_call(torch, eng.multiply_device),
         expand_ms=cuda_ms(torch, expand, reps=10, warmup=2),
-        sort_ms=cuda_ms(torch, lambda: torch.sort(eng.out_key, stable=True), reps=10, warmup=2),
-        reduce_ms=cuda_ms(torch, lambda: _packed_run_reduce(k_s, p[order], eng.rows, eng.cols),
-                          reps=10, warmup=2),
+        run_sum_ms=cuda_ms(torch, lambda: runs["launch"](p, val), reps=10, warmup=2),
+        old_multiply_ms=cuda_ms(torch, lambda: _packed_reduce_presort(key, expand(), eng.rows,
+                                                                      eng.cols),
+                                reps=10, warmup=2),
+        old_sort_ms=cuda_ms(torch, lambda: torch.sort(key, stable=True), reps=10, warmup=2),
+        old_reduce_ms=cuda_ms(torch, lambda: _packed_run_reduce(k_s, p[order], eng.rows,
+                                                                eng.cols),
+                              reps=10, warmup=2),
     )
-    del p, k_s, order
+    del p, val, key, k_s, order
     return out
 
 
@@ -1586,9 +1621,11 @@ def part_spgemm(torch, dev, mats, ops, state):
         ratio2 = F64Product(_with_vals(m, nv), m).check(c2, f"{name} EscSpgemm re-multiply")
         log(f"main EscSpgemm {name} sort: products={eng.num_products} nnz(C)={c.nnz()} "
             f"plan {plan_s:.3f} s (host), multiply() {mult_s:.3f} s, "
-            f"multiply_device {phases['multiply_device_ms']:.4f} ms (expansion "
-            f"{phases['expand_ms']:.4f}, sort {phases['sort_ms']:.4f}, gather and run reduce "
-            f"{phases['reduce_ms']:.4f} ms), torch.sparse.mm {lib_ms:.4f} ms; "
+            f"multiply_device {phases['multiply_device_ms']:.4f} ms (device "
+            f"{phases['multiply_device_device_ms']:.4f}; expansion {phases['expand_ms']:.4f}, "
+            f"run sums {phases['run_sum_ms']:.4f}); the per-call sort path "
+            f"{phases['old_multiply_ms']:.4f} ms (sort {phases['old_sort_ms']:.4f}, gather and "
+            f"run reduce {phases['old_reduce_ms']:.4f}); torch.sparse.mm {lib_ms:.4f} ms; "
             f"{eng.num_products / phases['multiply_device_ms'] / 1e6:.2f} Gprod/s; max "
             f"err/bound {ratio:.3f}, re-multiply with fresh lhs values {ratio2:.3f}")
         esc[name] = (m, eng)
@@ -1678,16 +1715,37 @@ def part_spgemm(torch, dev, mats, ops, state):
 
 
 def phase_esc_kernel(torch, dev, chk, mats, state):
-    """The ESC expansion kernel (B12) against its plain version on the
-    card, bit-equal on the real slots, on the plans part f built (planned
-    here where part f did not): times of the kernel, the plain version
-    and the reference gather engine's expansion (``lhs_vals[src] *
+    """The ESC expansion kernel (B12) on the plans part f built (planned
+    here where part f did not): bit-equal to both plain versions, the lane
+    form ``_expand_torch`` (its int16 lanes uploaded here for this check
+    only: the engine keeps none) on the real slots with zero padding, and
+    the segment schedule ``_expand_segments_torch`` on every slot; equal
+    bits on two calls and through the permutation with CSR-order lhs
+    values. Times: the call through ``expand_products`` (``ms``), the bare
+    launch through the engine's launch record and its device time with no
+    host gaps (also with CSR-order lhs values), both plain versions and
+    the reference gather engine's expansion (``lhs_vals[src] *
     rhs_vals[q]``, two torch gathers and a multiply: the yardstick, no
-    single PyTorch call computes the expansion), and the bound: A and B
-    once in CSR (f32 values, int32 indices and offsets) and 4 bytes per
-    product written, over 3.35 TB/s."""
+    single PyTorch call computes the expansion); the bound: A and B once
+    in CSR (f32 values, int32 indices and offsets) and 4 bytes a product
+    written, over 3.35 TB/s.
+
+    Then, on the engines with the sort reduction, the run-sum kernel on
+    the kernel's products: bit-equal to its plain version on the CPU
+    (sequential adds in sorted order) and on two calls; times through the
+    launch record (with val's allocation), its device time, the plain
+    version on the card and, as the library call, one ``index_add_`` of
+    the products into a zero vector by each slot's run (atomic, in no
+    fixed order); the bound: the real products and their order read once,
+    the run offsets, val written once, one add a product."""
+    from sparse_matrix_tpu_torch.native.kernels import ESC_SEG_STAGE, ESC_STAGE
     from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm, expand_plan
-    from sparse_matrix_tpu_torch.ops.esc_expand import _expand_torch, expand_products
+    from sparse_matrix_tpu_torch.ops.esc_expand import (
+        _expand_segments_torch,
+        _expand_torch,
+        expand_device_arrays,
+        expand_products,
+    )
 
     for name in ("femlike_262k", "randlocal_262k", "uniform8192", "uniform16384"):
         if name in state["esc"]:
@@ -1697,48 +1755,135 @@ def phase_esc_kernel(torch, dev, chk, mats, state):
             eng = EscSpgemm(m, m, device=dev, reduce="sort")
         xp, arrs = eng._xplan, eng._expand_arrs
         lv, rv = eng.lhs_vals_csc, eng.rhs_vals
-        n = xp.num_products
+        n, slots = xp.num_products, xp.num_slabs * 1024
+        lv_csr = torch.from_numpy(m.vals).to(dev)
+        p_buf = torch.empty(slots, device=dev)
+        lanes = expand_device_arrays(xp, dev)
 
         def kernel(xp=xp, arrs=arrs, lv=lv, rv=rv):
             return expand_products(xp, lv, rv, device_arrays=arrs)
 
-        def plain(xp=xp, arrs=arrs, lv=lv, rv=rv):
-            return _expand_torch(lv, rv, arrs["lv_lane"], arrs["rv_lane"], arrs["lv_off"],
-                                 arrs["rv_off"], num_products=xp.num_products)
+        def launch(arrs=arrs, lv=lv, rv=rv, p=p_buf):
+            arrs["launch"](lv, rv, p)
 
-        pk, pp = kernel(), plain()
+        def launch_csr(arrs=arrs, lv=lv_csr, rv=rv, p=p_buf):
+            arrs["launch"](lv, rv, p, csr_order=True)
+
+        def plain(lanes=lanes, lv=lv, rv=rv, n=n):
+            return _expand_torch(lv, rv, lanes["lv_lane"], lanes["rv_lane"], lanes["lv_off"],
+                                 lanes["rv_off"], num_products=n)
+
+        def plain_segments(arrs=arrs, lv=lv, rv=rv, n=n, slots=slots):
+            return _expand_segments_torch(lv, rv, arrs["segments"], num_products=n,
+                                          num_slots=slots)
+
+        pk, pk2, pp = kernel(), kernel(), plain()
+        pf = expand_products(xp, lv_csr, rv, device_arrays=arrs, csr_order=True)
         torch.cuda.synchronize()
         if not (torch.equal(pk[:n], pp[:n]) and not bool(pk[n:].any())):
             raise AssertionError(f"esc_expand/{name}: kernel and plain version differ")
-        max_abs = float((pk - pp).abs().max())
-        del pk, pp
+        del pp
+        if not torch.equal(pk, plain_segments()):
+            raise AssertionError(f"esc_expand/{name}: kernel and segment-order plain version "
+                                 "differ")
+        if not (torch.equal(pk, pk2) and torch.equal(pk, pf)):
+            raise AssertionError(f"esc_expand/{name}: two calls, or CSR-order lhs values, give "
+                                 "other bits")
+        del pk2, pf
+        ms = cuda_ms(torch, kernel)
+        launch_ms = cuda_ms(torch, launch)
+        device_ms = device_ms_per_call(torch, launch)
+        csr_device_ms = device_ms_per_call(torch, launch_csr)
+        plain_ms = cuda_ms(torch, plain)
+        del lanes
+        segments_ms = cuda_ms(torch, plain_segments)
         src, q, _ = expand_plan(m, m)
         src = torch.from_numpy(src).to(dev).long()
         q = torch.from_numpy(q).to(dev).long()
-        lvals = torch.from_numpy(m.vals).to(dev)
-        ms = cuda_ms(torch, kernel)
-        plain_ms = cuda_ms(torch, plain)
-        yard_ms = cuda_ms(torch, lambda: lvals[src] * rv[q])
-        del src, q, lvals
+        yard_ms = cuda_ms(torch, lambda: lv_csr[src] * rv[q])
+        del src, q
         nbytes = 2 * (m.nnz() * 8 + (m.rows + 1) * 4) + 4 * n
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = n / F32_FLOP_PER_S * 1e3
+        tiles = arrs["tiles"].cpu().numpy()
+        # the tiles whose windows and segment starts the kernel stages
+        staged = float(np.mean((tiles[:, 2] - tiles[:, 1] <= ESC_STAGE)
+                               & (tiles[:, 4] - tiles[:, 3] <= ESC_STAGE)
+                               & (tiles[:, 5] - tiles[:, 0] + 2 <= ESC_SEG_STAGE)))
         row = dict(case=name, rows=m.rows, nnz=m.nnz(), products=n, slabs=xp.num_slabs,
-                   kw_lv=xp.kw_lv, kw_rv=xp.kw_rv, max_abs_err=max_abs, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, yardstick_ms=yard_ms,
+                   segments=int(arrs["segments"].shape[0] - 1), tiles=int(tiles.shape[0]),
+                   staged_tile_share=staged, max_abs_err=0.0, ms=ms, launch_ms=launch_ms,
+                   device_ms=device_ms, csr_order_device_ms=csr_device_ms, plain_ms=plain_ms,
+                   plain_segments_ms=segments_ms, library_ms=None, yardstick_ms=yard_ms,
                    yardstick="the gather engine's expansion lhs_vals[src] * rhs_vals[q]: two "
                              "torch gathers and a multiply (no single PyTorch call)",
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=int(nbytes), flops=float(n))
+                   bytes=int(nbytes), flops=float(n), bitwise_plain=True, bitwise_repeat=True)
         chk.cases["esc_expand"].append(row)
         log(f"kernel esc_expand   {name:34s} rows={m.rows} nnz={m.nnz()} products={n} "
-            f"kw={xp.kw_lv}/{xp.kw_rv} bit-equal to plain, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, gather yardstick {yard_ms:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s), {n / ms / 1e6:.2f} "
-            f"Gprod/s")
+            f"segments={row['segments']} tiles={row['tiles']} (staged {staged:.3f}) bit-equal "
+            f"to both plain versions and on two calls; kernel {ms:.4f} ms, bare launch "
+            f"{launch_ms:.4f}, device {device_ms:.4f} (CSR-order lhs {csr_device_ms:.4f}), plain "
+            f"{plain_ms:.4f}, segment-order plain {segments_ms:.4f}, gather yardstick "
+            f"{yard_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s), "
+            f"{n / device_ms / 1e6:.2f} Gprod/s on the device")
+        if eng._rspmv is None:
+            check_run_sum(torch, chk, name, eng, pk)
+        del pk, p_buf, lv_csr
     state["esc"].clear()
     torch.cuda.empty_cache()
+
+
+def check_run_sum(torch, chk, name, eng, p):
+    """The run-sum kernel of ``eng``'s planned sort reduction on the
+    products ``p`` (see :func:`phase_esc_kernel`)."""
+    from sparse_matrix_tpu_torch.ops.device_sorted import _run_sum_torch
+
+    runs = eng._runs
+    order, run_off = runs["order"], runs["run_off"]
+    cap, n, nnz = p.numel(), eng.num_products, runs["num_summed"]
+    v1, v2 = torch.empty_like(p), torch.empty_like(p)
+    runs["launch"](p, v1)
+    runs["launch"](p, v2)
+    want = _run_sum_torch(p.cpu(), order.cpu(), run_off.cpu())
+    torch.cuda.synchronize()
+    if not (torch.equal(v1, v2) and torch.equal(v1.cpu(), want)):
+        raise AssertionError(f"esc_run_sum/{name}: two calls or the plain version on the CPU "
+                             "give other bits")
+    lens = (run_off[1:] - run_off[:-1]).long()
+    run_of_slot = torch.empty(cap, dtype=torch.int64, device=p.device)
+    run_of_slot[order.long()] = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=p.device), lens, output_size=cap)
+    lib = torch.zeros(cap, device=p.device).index_add_(0, run_of_slot, p)
+    max_abs = float((lib - v1).abs().max())
+
+    def call():
+        val = torch.empty_like(p)
+        runs["launch"](p, val)
+        return val
+
+    ms = cuda_ms(torch, call)
+    device_ms = device_ms_per_call(torch, lambda: runs["launch"](p, v1))
+    plain_ms = cuda_ms(torch, lambda: _run_sum_torch(p, order, run_off))
+    library_ms = cuda_ms(torch, lambda: torch.zeros(cap, device=p.device).index_add_(
+        0, run_of_slot, p))
+    nbytes = 8 * n + 4 * (nnz + 1) + 4 * cap
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n / F32_FLOP_PER_S * 1e3
+    row = dict(case=name, products=n, nnz_c=nnz, cap=cap, max_abs_err=0.0,
+               max_abs_vs_library=max_abs, ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_call="torch.zeros(cap).index_add_(0, run of each slot, p): atomic",
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=int(nbytes),
+               flops=float(n), bitwise_plain=True, bitwise_repeat=True)
+    chk.cases["esc_run_sum"].append(row)
+    log(f"kernel esc_run_sum  {name:34s} products={n} nnz(C)={nnz} bit-equal to the plain "
+        f"version on the CPU and on two calls, max|k-index_add_|={max_abs:.3e}; kernel "
+        f"{ms:.4f} ms, device {device_ms:.4f}, plain {plain_ms:.4f}, library (index_add_) "
+        f"{library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s)")
+    del v1, v2, want, lib, run_of_slot
 
 
 def ilu_solve_and_check(torch, dev, tag, a, solve, *, setup_s=None):

@@ -1,10 +1,11 @@
-"""Times the SpMV kernels of one checkout of the port on the card: aligned
-(B2), LanePack (B3), BELL (B4) and stripe (B5), the aligned (B6),
-LanePack (B7) and BELL (B8) SpMM kernels and the fused triangular sweeps
-(B13), so that two checkouts compare in one run:
+"""Times the SpMV kernels of one checkout of the port on the card: DIA
+(B1), aligned (B2), LanePack (B3), BELL (B4) and stripe (B5), the DIA
+(B9), aligned (B6), LanePack (B7) and BELL (B8) SpMM kernels and the
+fused triangular sweeps (B13), so that two checkouts compare in one run:
 
     python3 sparse_matrix_tpu_torch/bench/spmv_times.py [--tree DIR]
-        [--kinds aligned,lanepack,bell,stripe,aligned_spmm,lanepack_spmm,bell_spmm,trisweep]
+        [--kinds dia,aligned,lanepack,bell,stripe,dia_spmm,aligned_spmm,lanepack_spmm,
+                 bell_spmm,trisweep]
 
 imports ``sparse_matrix_tpu_torch`` from the checkout at DIR (default: the
 one holding this file) and prints one JSON line with, per case:
@@ -21,7 +22,10 @@ one holding this file) and prints one JSON line with, per case:
   same x (a yardstick, used nowhere in the port);
 * ``bitwise_repeat``: whether two wrapper calls on one x gave equal bits.
 
-The cases: Poisson 1024^2 aligned; randlocal_262k aligned with its
+The cases: Poisson 2048^2 DIA (``spmv_dia``; the bare launch is
+``launch_dia``, which checks its tensors every call: B1 has no launch
+record) with f32 and bf16 band planes, and its DIA SpMM at K = 8 through
+``dia_matvec_multi`` (the bare launch ``launch_dia_spmm``); Poisson 1024^2 aligned; randlocal_262k aligned with its
 LanePack spill; femlike_262k, randlocal_262k and powerlaw_262k LanePack
 in the ``dense`` and ``per_rb`` packs (the planner's own ``kw``); BELL on
 Poisson 1024^2 (span 128, f32 and bf16 value planes), femlike_262k (span
@@ -82,8 +86,8 @@ import warnings
 
 import numpy as np
 
-KINDS = ("aligned", "lanepack", "bell", "stripe", "aligned_spmm", "lanepack_spmm", "bell_spmm",
-         "trisweep")
+KINDS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
+         "lanepack_spmm", "bell_spmm", "trisweep")
 TRISWEEP_SWEEPS = 4
 K_RHS = 8
 
@@ -138,6 +142,34 @@ def _bare_launch(torch, plan, arrs, x):
             rec(x, y, add=True)
 
     return run
+
+
+def _dia_case(torch, kind, m, variant, dev):
+    """(case name, wrapper call, bare launch, x, K) of a DIA case (B1, or
+    B9 at K = 8) with ``variant`` f32 or bf16 band planes."""
+    from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
+    from sparse_matrix_tpu_torch.native.kernels import launch_dia, launch_dia_spmm
+    from sparse_matrix_tpu_torch.ops import spmv_dia
+
+    dia = try_dia_from_csr(m, dtype=np.float32)
+    vdt = torch.bfloat16 if variant == "bf16" else None
+    arrs = spmv_dia.dia_device_arrays(dia, dev, values_dtype=vdt)
+    k = 1 if kind == "dia" else K_RHS
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((m.cols, k))
+                         .astype(np.float32)).to(dev)
+    if kind == "dia":
+        x = x[:, 0].contiguous()
+        y = torch.empty(m.rows, device=dev)
+        return (f"poisson2048_{variant}", lambda: spmv_dia.spmv_dia(dia, x, device_arrays=arrs),
+                lambda: launch_dia(arrs["data"], arrs["offsets"], x, y, rows=dia.rows,
+                                   cols=dia.cols), x, k)
+    mv = spmv_dia.dia_matvec_multi(dia, k, dev, device_arrays=arrs)
+    x3 = spmv_dia.dia_pack_rhs(dia, x)
+    y3 = torch.empty_like(x3)
+    lo = spmv_dia._dia_stream_geom(dia.offsets)[0]
+    return (f"poisson2048_{variant}_K{k}", lambda: mv(x3),
+            lambda: launch_dia_spmm(arrs["data"], arrs["offsets"], x3, y3, rows=dia.rows,
+                                    cols=dia.cols, x_lo=lo, y_lo=lo), x, k)
 
 
 def _spmm_case(torch, kind, name, variant, m, ops, dev):
@@ -375,11 +407,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
 
-    mats = {"poisson1024": poisson_2d_csr(1024, dtype=np.float32)}
+    mats = {"poisson1024": poisson_2d_csr(1024, dtype=np.float32),
+            "poisson2048": poisson_2d_csr(2048, dtype=np.float32)}
     for name, _tag, m in bench_classes(0):
         mats[name] = m
     # (kernel, matrix, variant)
-    cases = [("aligned", "poisson1024", None), ("aligned", "randlocal_262k", None)]
+    cases = [(kind, "poisson2048", v) for kind in ("dia", "dia_spmm") for v in ("f32", "bf16")]
+    cases += [("aligned", "poisson1024", None), ("aligned", "randlocal_262k", None)]
     cases += [("lanepack", name, pack)
               for name in ("femlike_262k", "randlocal_262k", "powerlaw_262k")
               for pack in ("dense", "per_rb")]
@@ -416,6 +450,29 @@ def main() -> int:
         if kind not in kinds:
             continue
         m = mats[name]
+        if kind in ("dia", "dia_spmm"):
+            case, call, launch, x, k = _dia_case(torch, kind, m, variant, dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
+                a = torch.sparse_csr_tensor(
+                    torch.from_numpy(m.offsets.astype(np.int64)),
+                    torch.from_numpy(m.indices.astype(np.int64)),
+                    torch.from_numpy(m.vals.astype(np.float32)), size=(m.rows, m.cols)).to(dev)
+            library_ms = _cuda_ms(torch, (lambda a=a, x=x: torch.mv(a, x)) if k == 1
+                                  else (lambda a=a, x=x: a @ x))
+            y1, y2 = call(), call()
+            torch.cuda.synchronize()
+            row = dict(kernel=kind, case=case, rows=m.rows, nnz=m.nnz(), k=k,
+                       ms=_cuda_ms(torch, call), launch_ms=_cuda_ms(torch, launch),
+                       device_ms=_device_ms(torch, launch), library_ms=library_ms,
+                       bitwise_repeat=bool(torch.equal(y1, y2)))
+            out["cases"].append(row)
+            print(f"{kind} {case}: {row['ms']:.4f} ms, launch {row['launch_ms']:.4f}, "
+                  f"device {row['device_ms']:.4f}, library {library_ms:.4f}, "
+                  f"bitwise repeat {row['bitwise_repeat']}", file=sys.stderr)
+            del call, launch, y1, y2, a, x
+            torch.cuda.empty_cache()
+            continue
         if kind in ("aligned_spmm", "lanepack_spmm", "bell_spmm"):
             if kind == "aligned_spmm":
                 case, call, launch = _aligned_spmm_case(torch, name, variant, m, ops, dev)

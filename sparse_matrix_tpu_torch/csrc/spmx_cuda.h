@@ -227,16 +227,60 @@ SPMX_API int spmx_block_spgemm(int device, const void* a_blocks_t,
                                const int32_t* offsets, int64_t num_c, int bs,
                                float* c, void* stream_handle);
 
-// ESC k-major expansion, per slot s of chunk c = s >> 7:
-// p[s] = lv[lv_off[c]*128 + lv_lane[s]] * rv[rv_off[c]*128 + rv_lane[s]] for
-// s < num_products (positions past n_lv / n_rv read 0), p[s] = 0 for
-// num_products <= s < num_slots; every element of p (num_slots,) is written
-SPMX_API int spmx_esc_expand(int device, const float* lv, int64_t n_lv,
-                             const float* rv, int64_t n_rv,
-                             const int16_t* lv_lane, const int16_t* rv_lane,
-                             const int32_t* lv_off, const int32_t* rv_off,
-                             int64_t num_products, int64_t num_slots, float* p,
-                             void* stream);
+// A k-major expansion plan driven by its segments (esc_expand.cu), packed
+// once by the wrapper: `segments` (num_segments + 1, 4) int32 rows (first
+// slot, lk, la, ra) of every contraction index k with lk * rk > 0, in k
+// order, and a sentinel row (num_products, 1, 0, 0); `tiles` (num_tiles, 8)
+// int32 rows (first segment, a_lo, a_hi, e_lo, e_hi, last segment, 0, 0) of
+// every tile of spmx_esc_expand_tile() slots: the segments holding its first
+// and last real slot (the sentinel for a tile of padding) and the lhs and
+// rhs positions its real slots read, [a_lo, a_hi) and [e_lo, e_hi); `perm`
+// (n_lv,) int32, the lhs CSC -> CSR value permutation. segments, tiles and
+// p 16-byte aligned; num_slots <= 2^30, a multiple of 8
+typedef struct {
+  const int32_t* segments;
+  const int32_t* tiles;
+  const int32_t* perm;
+  int64_t num_segments;
+  int64_t num_tiles;
+  int64_t num_products;
+  int64_t num_slots;
+  int32_t device;
+} SpmxEscPlan;
+
+// the slots one block of spmx_esc_expand takes (2048), the most values of
+// each operand window it stages in shared memory (2048) and the most
+// segment starts (1024); a tile past either is read from device memory
+SPMX_API int spmx_esc_expand_tile(void);
+SPMX_API int spmx_esc_expand_stage(void);
+SPMX_API int spmx_esc_expand_seg_stage(void);
+
+// slot start + r*lk + l of segment (start, lk, la, ra), l < lk, gets p =
+// lv[la + l] * rv[ra + r] (csr_order = 0: lv in CSC order) or
+// lv[perm[la + l]] * rv[ra + r] (csr_order = 1: lv in CSR order), one f32
+// multiply; p = 0 for num_products <= s < num_slots; every element of p
+// (num_slots,) is written
+SPMX_API int spmx_esc_expand(const SpmxEscPlan* plan, const float* lv, const float* rv,
+                             int csr_order, float* p, void* stream);
+
+// A sort reduction planned once (esc_run_sum.cu): `order` (cap,) int32, the
+// plan slot of each position of the stably sorted keys; `run_off`
+// (runs + 1,) int32, each run's first sorted position and the end;
+// num_summed <= runs: the runs summed (the rest of val is written 0);
+// cap <= 2^30
+typedef struct {
+  const int32_t* order;
+  const int32_t* run_off;
+  int64_t num_summed;
+  int64_t cap;
+  int32_t device;
+} SpmxRunSumPlan;
+
+// val[r] = p[order[run_off[r]]] + ... + p[order[run_off[r+1] - 1]], added in
+// that order from +0, each add rounded on its own, for r < num_summed;
+// val[r] = 0 for num_summed <= r < cap
+SPMX_API int spmx_esc_run_sum(const SpmxRunSumPlan* plan, const float* p, float* val,
+                              void* stream);
 
 // A plan of the fused triangular sweeps (trisweep.cu), packed once by the
 // wrapper: N = DIA(data (nb, rows) f32, offsets (nb,) int32, all negative

@@ -16,8 +16,11 @@ stripe SpMV kernels; ``prepare_aligned``, ``prepare_lanepack``,
 ``prepare_bell``, ``prepare_stripe``). A :class:`PreparedSpmm` does the
 same for the aligned, LanePack and BELL SpMM kernels, whose X and Y carry
 K columns (``prepare_aligned_spmm``, ``prepare_lanepack_spmm``,
-``prepare_bell_spmm``), and a :class:`PreparedTrisweep` for the fused
-triangular sweeps (``prepare_trisweep``).
+``prepare_bell_spmm``), a :class:`PreparedTrisweep` for the fused
+triangular sweeps (``prepare_trisweep``), a :class:`PreparedExpand` for
+the ESC expansion on one plan's segments (``prepare_esc_expand``) and a
+:class:`PreparedRunSum` for the run sums of a sort reduction planned once
+(``prepare_esc_run_sum``).
 """
 
 from __future__ import annotations
@@ -47,12 +50,15 @@ __all__ = [
     "launch_dia_spmm",
     "launch_bcsr_spmm",
     "launch_block_spgemm",
-    "launch_esc_expand",
+    "PreparedExpand",
+    "prepare_esc_expand",
+    "PreparedRunSum",
+    "prepare_esc_run_sum",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
            "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand",
-           "trisweep")
+           "esc_run_sum", "trisweep")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -84,6 +90,16 @@ LANEPACK_SPMM_GROUPS = LANEPACK_SPMM_COLS // LANEPACK_SPMM_GROUP_COLS
 #: csrc/trisweep.cu, checked against ``spmx_trisweep_threads`` when the
 #: library loads)
 TRISWEEP_THREADS = 512
+
+#: the slots one block of the ESC expansion kernel takes, and the most values
+#: of each operand window and the most segment starts of a tile it stages in
+#: shared memory (kTile, kStage and kSegStage of csrc/esc_expand.cu, checked
+#: against ``spmx_esc_expand_tile``/``_stage``/``_seg_stage`` when the
+#: library loads): a plan has one tile row a ESC_TILE slots, and a tile past
+#: either stage is read from device memory
+ESC_TILE = 2048
+ESC_STAGE = 2048
+ESC_SEG_STAGE = 1024
 
 
 def reset_launch_counts() -> None:
@@ -123,14 +139,19 @@ def _library() -> ctypes.CDLL:
         ]
         lib.spmx_block_spgemm.restype = i32
         lib.spmx_block_spgemm.argtypes = [i32, vp, vp, i32, vp, i64, vp, i64, i32, vp, vp]
+        # (plan struct, lv, rv, csr_order, p, stream)
         lib.spmx_esc_expand.restype = i32
-        lib.spmx_esc_expand.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp]
+        lib.spmx_esc_expand.argtypes = [vp, vp, vp, i32, vp, vp]
+        # (plan struct, p, val, stream)
+        lib.spmx_esc_run_sum.restype = i32
+        lib.spmx_esc_run_sum.argtypes = [vp, vp, vp, vp]
         # (plan struct, b, dinv, sweeps, y, stream)
         lib.spmx_trisweep.restype = i32
         lib.spmx_trisweep.argtypes = [vp, vp, vp, i32, vp, vp]
         for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
                    lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols,
-                   lib.spmx_trisweep_threads):
+                   lib.spmx_trisweep_threads, lib.spmx_esc_expand_tile,
+                   lib.spmx_esc_expand_stage, lib.spmx_esc_expand_seg_stage):
             fn.restype = i32
             fn.argtypes = []
         cols = (lib.spmx_lanepack_spmm_max_cols(), lib.spmx_lanepack_spmm_group_cols())
@@ -142,6 +163,13 @@ def _library() -> ctypes.CDLL:
         if lib.spmx_trisweep_threads() != TRISWEEP_THREADS:
             raise RuntimeError(f"the trisweep kernel runs {lib.spmx_trisweep_threads()} threads "
                                f"a block, TRISWEEP_THREADS is {TRISWEEP_THREADS}")
+        esc = (lib.spmx_esc_expand_tile(), lib.spmx_esc_expand_stage(),
+               lib.spmx_esc_expand_seg_stage())
+        if esc != (ESC_TILE, ESC_STAGE, ESC_SEG_STAGE):
+            raise RuntimeError(f"the ESC expansion kernel takes {esc[0]} slots a block and stages "
+                               f"{esc[1]} values and {esc[2]} segment starts; ESC_TILE, ESC_STAGE "
+                               f"and ESC_SEG_STAGE are {ESC_TILE}, {ESC_STAGE} and "
+                               f"{ESC_SEG_STAGE}: the plan's tiles would not match")
         if lib.spmx_block_tile() != BLOCK_TILE:
             raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
                                f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
@@ -189,6 +217,23 @@ class TrisweepPlan(ctypes.Structure):
     _fields_ += [(f, ctypes.c_int64) for f in ("rows", "chunks", "reach")]
     _fields_ += [(f, ctypes.c_int32) for f in ("nb", "chunk_rows", "chunk_shift", "tail",
                                                "levels", "upper", "halo", "device")]
+
+
+class EscPlan(ctypes.Structure):
+    """``SpmxEscPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("segments", "tiles", "perm")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("num_segments", "num_tiles", "num_products",
+                                               "num_slots")]
+    _fields_ += [("device", ctypes.c_int32)]
+
+
+class RunSumPlan(ctypes.Structure):
+    """``SpmxRunSumPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("order", "run_off")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("num_summed", "cap")]
+    _fields_ += [("device", ctypes.c_int32)]
 
 
 class _LaunchRecord:
@@ -695,35 +740,6 @@ def launch_block_spgemm(a_blocks_t, b_blocks, stream, offsets, c) -> None:
          length, offsets.data_ptr(), num_c, bs, c.data_ptr())
 
 
-def launch_esc_expand(lv, rv, lv_lane, rv_lane, lv_off, rv_off, p, *, num_products: int) -> None:
-    """``p[s] = lv[lv_off[s >> 7] * 128 + lv_lane[s]] * rv[rv_off[s >> 7] *
-    128 + rv_lane[s]]`` for every slot ``s < num_products`` (operand
-    positions past the end read 0), ``p[s] = 0`` on the rest; lanes
-    ``(S, 8, 128)`` int16, window rows ``(S * 8,)`` int32, values and p
-    f32; writes every element of p."""
-    for key, t in (("lv", lv), ("rv", rv), ("p", p)):
-        if t.dtype != _F32:
-            raise ValueError(f"esc_expand: {key} has dtype {t.dtype}; the kernel takes "
-                             "f32 (torch.float32) values only")
-    dev = _check("esc_expand",
-                 dict(lv=_F32, rv=_F32, lv_lane=torch.int16, rv_lane=torch.int16,
-                      lv_off=torch.int32, rv_off=torch.int32, p=_F32),
-                 lv=lv, rv=rv, lv_lane=lv_lane, rv_lane=rv_lane, lv_off=lv_off,
-                 rv_off=rv_off, p=p)
-    slots = p.numel()
-    if (
-        lv_lane.numel() != slots or rv_lane.numel() != slots or slots % 1024
-        or lv_off.numel() != slots // 128 or rv_off.numel() != slots // 128
-        or not 0 <= num_products <= slots
-    ):
-        raise ValueError("esc_expand: lane, window and product arrays disagree")
-    if slots == 0:
-        return
-    _run("esc_expand", dev, _library().spmx_esc_expand, lv.data_ptr(), lv.numel(),
-         rv.data_ptr(), rv.numel(), lv_lane.data_ptr(), rv_lane.data_ptr(),
-         lv_off.data_ptr(), rv_off.data_ptr(), num_products, slots, p.data_ptr())
-
-
 class PreparedTrisweep(_LaunchRecord):
     """The fused triangular sweeps on one checked plan: ``launch(b, dinv,
     y, sweeps)`` checks b, dinv and y (contiguous f32 CUDA vectors of the
@@ -809,3 +825,112 @@ def prepare_trisweep(data, offsets_t, scratch, flags, state, *, offsets: tuple, 
                         upper=int(nb > 0 and offsets[0] > 0), halo=halo, device=dev.index)
     return PreparedTrisweep(args, dev, levels=levels,
                             keep=(data, offsets_t, scratch, flags, state))
+
+
+def _vector_ok(t: torch.Tensor, idx: int, n: int) -> bool:
+    return (t.is_cuda and t.get_device() == idx and t.dtype is _F32 and t.is_contiguous()
+            and t.numel() == n)
+
+
+class PreparedExpand(_LaunchRecord):
+    """The ESC expansion kernel on one checked plan: ``launch(lv, rv, p,
+    csr_order=False)`` checks lv (the ``n_lv`` lhs values, CSC-permuted,
+    or in CSR order with ``csr_order``, read through the plan's ``perm``),
+    rv (the ``n_rv`` rhs values in CSR order) and p (``num_slots``, distinct
+    from both, 16-byte aligned), all contiguous f32 CUDA vectors on the
+    plan's device, and
+    enqueues the kernel with one ctypes call of ``(args, lv, rv, csr_order,
+    p, stream)``; it writes every slot of p."""
+
+    __slots__ = ("n_lv", "n_rv", "num_slots", "num_products")
+
+    def __init__(self, args: EscPlan, device: torch.device, *, n_lv: int, n_rv: int,
+                 keep: tuple):
+        super().__init__("esc_expand", "spmx_esc_expand", args, device,
+                         empty=args.num_slots == 0, keep=keep)
+        self.n_lv, self.n_rv = n_lv, n_rv
+        self.num_slots, self.num_products = int(args.num_slots), int(args.num_products)
+
+    def __call__(self, lv: torch.Tensor, rv: torch.Tensor, p: torch.Tensor,
+                 csr_order: bool = False) -> None:
+        idx = self.device.index
+        for what, t, n in (("lv", lv, self.n_lv), ("rv", rv, self.n_rv), ("p", p, self.num_slots)):
+            if not _vector_ok(t, idx, n) or (what == "p" and p.data_ptr() % 16):
+                raise self._refuse(what, t, n)
+        if p.data_ptr() in (lv.data_ptr(), rv.data_ptr()):
+            raise ValueError("esc_expand: p must not alias lv or rv")
+        if not self._empty:
+            self._enqueue(lv.data_ptr(), rv.data_ptr(), int(bool(csr_order)), p.data_ptr())
+
+
+def prepare_esc_expand(segments, tiles, perm, *, num_products: int, num_slots: int,
+                       n_lv: int, n_rv: int) -> PreparedExpand:
+    """The ESC expansion kernel's launch on one plan's segment descriptors
+    (``ops.esc_expand.expand_segment_arrays``): ``segments`` ``(G + 1, 4)``
+    int32 rows (first slot, lk, la, ra) and a sentinel row, ``tiles``
+    ``(ceil(num_slots / ESC_TILE), 8)`` int32 rows (first segment, lhs and
+    rhs windows, last segment), ``perm`` ``(n_lv,)`` int32, the lhs CSC-to-CSR value
+    permutation; ``num_slots <= 2^30``. ``launch(lv, rv, p,
+    csr_order=False)`` (see :class:`PreparedExpand`). The descriptors'
+    values are the host's, not read back here."""
+    dev = _check("esc_expand", dict(segments=torch.int32, tiles=torch.int32, perm=torch.int32),
+                 segments=segments, tiles=tiles, perm=perm)
+    num_tiles = -(-num_slots // ESC_TILE)
+    if (segments.dim() != 2 or segments.shape[1] != 4 or segments.shape[0] < 1
+            or tiles.shape != (num_tiles, 8) or perm.numel() != n_lv
+            or not 0 <= num_products <= num_slots or num_slots % 8):
+        raise ValueError(f"esc_expand: segment, tile and permutation arrays disagree with "
+                         f"{num_products} products in {num_slots} slots")
+    if num_slots > 1 << 30 or max(n_lv, n_rv, segments.shape[0]) >= 1 << 31:
+        raise ValueError(f"esc_expand: {num_slots} slots; the kernel numbers at most 2^30 slots "
+                         "and indexes segments and values with int32")
+    # the kernel reads segment and tile rows as int4
+    _check_aligned("esc_expand", 16, segments=segments, tiles=tiles)
+    args = EscPlan(segments=segments.data_ptr(), tiles=tiles.data_ptr(), perm=perm.data_ptr(),
+                   num_segments=segments.shape[0] - 1, num_tiles=num_tiles,
+                   num_products=num_products, num_slots=num_slots, device=dev.index)
+    return PreparedExpand(args, dev, n_lv=n_lv, n_rv=n_rv, keep=(segments, tiles, perm))
+
+
+class PreparedRunSum(_LaunchRecord):
+    """The run sums of a sort reduction planned once: ``launch(p, val)``
+    checks p (the ``cap`` products in plan order) and val (``cap``,
+    distinct from p), contiguous f32 CUDA vectors on the plan's device,
+    and enqueues the kernel with one ctypes call of ``(args, p, val,
+    stream)``; it writes every element of val."""
+
+    __slots__ = ("cap",)
+
+    def __init__(self, args: RunSumPlan, device: torch.device, *, keep: tuple):
+        super().__init__("esc_run_sum", "spmx_esc_run_sum", args, device, empty=args.cap == 0,
+                         keep=keep)
+        self.cap = int(args.cap)
+
+    def __call__(self, p: torch.Tensor, val: torch.Tensor) -> None:
+        idx = self.device.index
+        for what, t in (("p", p), ("val", val)):
+            if not _vector_ok(t, idx, self.cap):
+                raise self._refuse(what, t, self.cap)
+        if p.data_ptr() == val.data_ptr():
+            raise ValueError("esc_run_sum: val must not alias p")
+        if not self._empty:
+            self._enqueue(p.data_ptr(), val.data_ptr())
+
+
+def prepare_esc_run_sum(order, run_off, *, num_summed: int) -> PreparedRunSum:
+    """The run-sum kernel's launch on one planned sort reduction: ``order``
+    ``(cap,)`` int32, the plan slot of each sorted position; ``run_off``
+    ``(runs + 1,)`` int32 run bounds in sorted positions (the host's,
+    not read back here); the first ``num_summed`` runs are summed, the rest
+    of val written 0. ``launch(p, val)`` (see :class:`PreparedRunSum`)."""
+    dev = _check("esc_run_sum", dict(order=torch.int32, run_off=torch.int32),
+                 order=order, run_off=run_off)
+    cap = order.numel()
+    if order.dim() != 1 or run_off.dim() != 1 or not 0 <= num_summed < run_off.numel():
+        raise ValueError(f"esc_run_sum: {num_summed} runs summed of {run_off.numel() - 1}")
+    if cap > 1 << 30:
+        raise ValueError(f"esc_run_sum: {cap} sorted positions; the kernel indexes at most 2^30 "
+                         "with int32")
+    args = RunSumPlan(order=order.data_ptr(), run_off=run_off.data_ptr(), num_summed=num_summed,
+                      cap=cap, device=dev.index)
+    return PreparedRunSum(args, dev, keep=(order, run_off))

@@ -24,9 +24,15 @@ runs on the host, the numeric phase on the device.
 expansion kernel (``csrc/esc_expand.cu``, through
 :mod:`.esc_expand`) on CUDA tensors, its reduction the packed-key sort
 (``reduce="sort"``) or the selection-matrix SpMV of
-:class:`~.spgemm_spmv.ReduceSpmv` (``reduce="spmv"``). The reference's
-``as_pytree``/``params=`` (jit arguments) are not ported: there is no jit
-to feed.
+:class:`~.spgemm_spmv.ReduceSpmv` (``reduce="spmv"``). Its packed keys are
+plan data, so the sort reduction is planned once on the device
+(:func:`plan_sort_reduce`: the stable key order, the runs, each run's row
+and column, nnz) and a multiply sums each run in sorted order: the run-sum
+kernel (``csrc/esc_run_sum.cu``) on the card, the same bits on every call,
+and on the CPU :func:`_run_sum_torch`, which equals the per-call sort
+(:func:`_packed_reduce_presort`, still the gather engine's) bit for bit.
+The reference's ``as_pytree``/``params=`` (jit arguments) are not ported:
+there is no jit to feed.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ __all__ = [
     "add_device",
     "sub_device",
     "expand_plan",
+    "plan_sort_reduce",
     "EscSpgemm",
     "spgemm_esc_device",
 ]
@@ -107,6 +114,53 @@ def _packed_reduce_presort(key, p, rows: int, cols: int):
     data)."""
     k_s, order = torch.sort(key, stable=True)
     return _packed_run_reduce(k_s, p[order], rows, cols)
+
+
+def plan_sort_reduce(key, rows: int, cols: int, *, padded: bool) -> dict:
+    """The sort reduction of fixed packed keys ``key`` (``(cap,)`` int64
+    ``row * cols + col`` on the device; with ``padded``, the last run is
+    the padding slots' sentinel ``rows * cols``), computed once: ``order``
+    (cap,) int32, the stable key order (position -> slot); ``run_off``
+    (runs + 1,) int32, each run's first position and the end; ``row`` and
+    ``col`` (cap,) int32, each run's entry, then the sentinel row ``rows``
+    and column 0; ``nnz`` () int32, the runs less the sentinel's;
+    ``num_summed``, the same as an int. On CUDA also ``launch``, the
+    run-sum kernel's :class:`~..native.kernels.PreparedRunSum`."""
+    cap, dev = key.shape[0], key.device
+    k_s, order = torch.sort(key, stable=True)
+    head = torch.ones(cap, dtype=torch.bool, device=dev)
+    head[1:] = k_s[1:] != k_s[:-1]
+    first = torch.nonzero(head).flatten()
+    runs = first.numel()
+    ukey = k_s[first]
+    row = torch.full((cap,), rows, dtype=torch.int32, device=dev)
+    col = torch.zeros(cap, dtype=torch.int32, device=dev)
+    row[:runs] = (ukey // cols).to(torch.int32)
+    col[:runs] = (ukey % cols).to(torch.int32)
+    num_summed = runs - int(padded)
+    out = dict(order=order.to(torch.int32),
+               run_off=torch.cat([first, first.new_tensor([cap])]).to(torch.int32),
+               row=row, col=col, num_summed=num_summed,
+               nnz=torch.tensor(num_summed, dtype=torch.int32, device=dev))
+    if dev.type == "cuda":
+        from ..native.kernels import prepare_esc_run_sum
+
+        out["launch"] = prepare_esc_run_sum(out["order"], out["run_off"], num_summed=num_summed)
+    return out
+
+
+def _run_sum_torch(p, order, run_off):
+    """Plain version of the run sums: run r's products ``p[order[i]]``, i in
+    ``[run_off[r], run_off[r + 1])``, added into a zero in that order (the
+    CPU's ``index_add_`` is sequential), every run summed. The same adds as
+    :func:`_packed_reduce_presort` on the same keys."""
+    cap = order.shape[0]
+    lens = (run_off[1:] - run_off[:-1]).long()
+    run = torch.repeat_interleave(torch.arange(lens.numel(), device=p.device), lens,
+                                  output_size=cap)
+    total = torch.zeros(cap, dtype=p.dtype, device=p.device)
+    total.index_add_(0, run, p[order.long()])
+    return total
 
 
 def _offsets_from_sorted_rows(row, rows: int):
@@ -206,8 +260,17 @@ class EscSpgemm:
     and keeps the sort when plan-time values are not finite (the SpMV
     formats read zero-weight window slots, and ``0 * inf = NaN``).
 
+    With the expansion kernel the sort reduction is planned at
+    construction (:func:`plan_sort_reduce`, one ``torch.sort`` on the
+    device): a multiply is the expansion and one run-sum pass, no sort,
+    and its ``row``, ``col`` and ``nnz`` are the plan's tensors, the same
+    on every call (read-only). On CUDA the engine keeps the segment
+    descriptors of the expansion (:func:`~.esc_expand.expand_segment_arrays`),
+    not the plan's int16 lanes.
+
     ``multiply_device(lhs_vals=, rhs_vals=)`` takes fresh values with the
-    same patterns (CSR order) and re-multiplies without re-planning.
+    same patterns (CSR order) and re-multiplies without re-planning; the
+    kernel reads fresh lhs values through the plan's CSC permutation.
     """
 
     def __init__(self, lhs: CsrMatrix, rhs: CsrMatrix, *, device, dtype=np.float32,
@@ -225,15 +288,14 @@ class EscSpgemm:
         self._xplan = None
         self._rspmv = None
         if engine in ("auto", "pallas"):
-            from .esc_expand import expand_device_arrays, plan_expand_kmajor
+            from .esc_expand import expand_segment_arrays, plan_expand_kmajor
 
             xp = plan_expand_kmajor(lhs, rhs)
             if xp is not None:
                 self._xplan = xp
                 self.num_products = xp.num_products
                 self.lhs_vals_csc = self._up(lhs.vals[xp.perm_csc].astype(dtype))
-                self._expand_arrs = expand_device_arrays(xp, self.device)
-                self._lhs_perm = self._up(xp.perm_csc)
+                self._expand_arrs = expand_segment_arrays(xp, self.device)
                 self._padded = xp.num_slabs * 1024 > xp.num_products
                 if reduce == "auto" and not (np.isfinite(lhs.vals).all()
                                              and np.isfinite(rhs.vals).all()):
@@ -248,8 +310,9 @@ class EscSpgemm:
                     except ValueError:
                         if reduce == "spmv":
                             raise
-                if self._rspmv is None:  # the sort reduction sorts the packed keys
-                    self.out_key = self._up(xp.out_key)
+                if self._rspmv is None:  # the packed keys' order, planned once
+                    self._runs = plan_sort_reduce(self._up(xp.out_key), self.rows,
+                                                  self.cols, padded=self._padded)
             elif engine == "pallas":
                 raise ValueError("expansion kernel unavailable: the product has no scalar "
                                  "products, or an operand window exceeds the int16 lanes")
@@ -266,7 +329,7 @@ class EscSpgemm:
         return _t(a, self.device)
 
     def _vals(self, v) -> torch.Tensor:
-        return torch.as_tensor(v, dtype=self._dtype, device=self.device)
+        return torch.as_tensor(v, dtype=self._dtype, device=self.device).contiguous()
 
     @property
     def engine(self) -> str:
@@ -279,15 +342,19 @@ class EscSpgemm:
         if self._xplan is not None:
             from .esc_expand import expand_products
 
-            lv = (self.lhs_vals_csc if lhs_vals is None
-                  else self._vals(lhs_vals)[self._lhs_perm])
-            p = expand_products(self._xplan, lv, rv, device_arrays=self._expand_arrs)
+            fresh = lhs_vals is not None
+            lv = self._vals(lhs_vals) if fresh else self.lhs_vals_csc
+            p = expand_products(self._xplan, lv, rv, device_arrays=self._expand_arrs,
+                                csr_order=fresh)
             if self._rspmv is not None:
                 return self._rspmv.reduce(p)
-            row, col, val, nnz = _packed_reduce_presort(self.out_key, p, self.rows, self.cols)
-            if self._padded:
-                nnz = nnz - 1  # the sentinel-keyed run of the padding slots
-            return PaddedCoo(row, col, val, nnz, self.rows, self.cols)
+            runs = self._runs
+            if "launch" in runs:
+                val = torch.empty_like(p)
+                runs["launch"](p, val)
+            else:
+                val = _run_sum_torch(p, runs["order"], runs["run_off"])
+            return PaddedCoo(runs["row"], runs["col"], val, runs["nnz"], self.rows, self.cols)
         lv = self.lhs_vals if lhs_vals is None else self._vals(lhs_vals)
         row, col, val, nnz = _esc_impl(lv, rv, self.rhs_indices, self.src, self.q, self.out_r,
                                        rows=self.rows, cols=self.cols)

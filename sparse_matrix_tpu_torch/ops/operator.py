@@ -18,6 +18,16 @@ neither wall, so the port plans such a matrix unsplit, in the format its
 shards would take: a banded matrix goes to DIA as in the reference, an
 SMEM-bound LanePack winner is planned as one LanePack plan, and the rest
 runs the regular dispatch.
+
+**float64 on the card.** The reference runs float64 plans through XLA on
+the CPU (its TPU has no f64 ALU), and so does the port on
+``device="cpu"``. On a CUDA device every kernel takes f32 values (or bf16
+planes), so a float64 operator whose apply would reach a kernel (DIA,
+hybrid, aligned, LanePack, BELL, stripe) is refused at construction with
+one ``TypeError`` naming float64, the format and the card; ELL, which
+runs as plain PyTorch gathers, runs float64 there too. FP64 kernels (the
+H100 has FP64 units) are a possible later capability, not a parity
+requirement.
 """
 
 from __future__ import annotations
@@ -401,6 +411,16 @@ class SpmvOperator:
 
     # -- plan builders ------------------------------------------------------
 
+    def _kernel_values(self, fmt: str, dtype) -> None:
+        """Refuse float64 values of a kernel-backed format on a CUDA device
+        (see the module docstring); ELL and the CPU path take them."""
+        if self.device.type == "cuda" and np.dtype(dtype) == np.float64:
+            raise TypeError(
+                f"SpmvOperator: float64 {fmt} plans have no kernel on {self.device} "
+                f"({torch.cuda.get_device_name(self.device)}): the CUDA kernels take float32 "
+                "values; plan float32, force='ell', or use device='cpu' for float64"
+            )
+
     def _no_bf16(self, fmt: str):
         if self._values_dtype is not None:
             raise ValueError(
@@ -438,6 +458,7 @@ class SpmvOperator:
     def _set_aligned_plan(self, plan):
         from .spmv import aligned_device_arrays
 
+        self._kernel_values("aligned", plan.vals.dtype)
         self.format = "aligned"
         self._aligned = plan
         self._ali_arrs = aligned_device_arrays(plan, self.device)
@@ -448,6 +469,7 @@ class SpmvOperator:
     def _set_bell_plan(self, plan):
         from .spmv_bell import bell_device_arrays
 
+        self._kernel_values("bell", plan.vals.dtype)
         self.format = "bell"
         self._bell = plan
         self._bell_arrs = bell_device_arrays(plan, self.device, values_dtype=self._values_dtype)
@@ -464,6 +486,7 @@ class SpmvOperator:
     def _set_stripe_plan(self, plan: StripePlan):
         from .spmv import stripe_device_arrays
 
+        self._kernel_values("stripe", plan.vals.dtype)
         self.format = "stripe"
         self._stripe = plan
         self._stripe_arrs = stripe_device_arrays(plan, self.device)
@@ -471,6 +494,7 @@ class SpmvOperator:
     def _set_dia(self, dia: DiaMatrix):
         from .spmv_dia import dia_device_arrays
 
+        self._kernel_values(getattr(self, "format", None) or "dia", dia.data.dtype)
         self._dia = dia
         self._dia_arrs = dia_device_arrays(dia, self.device, values_dtype=self._values_dtype)
 
@@ -480,6 +504,7 @@ class SpmvOperator:
     def _set_lanepack_plan(self, plan: LanePackPlan):
         from .spmv import lanepack_device_arrays
 
+        self._kernel_values(getattr(self, "format", None) or "lanepack", plan.vals.dtype)
         # hybrid keeps its DIA part bf16-capable; the LanePack residual
         # stays f32 (it is the minority nnz by construction)
         if getattr(self, "format", None) != "hybrid":

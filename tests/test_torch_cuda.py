@@ -1324,41 +1324,238 @@ def _f32(m):
 
 
 def _expand_cases():
-    """A padded plan (random uniform squared) and an unpadded one (64 x 1
-    times 1 x 32: 2,048 products, two whole slabs)."""
+    """A padded plan (random uniform squared), an unpadded one (64 x 1 times
+    1 x 32: 2,048 products, two whole slabs), and the segment schedule's
+    edge cases: one k over three tiles (64 x 1 times 1 x 96), 2,048 ks of
+    one product in one tile (the identity squared), one entry a column
+    (lk = 1) and a row (rk = 1), and an lhs column of 3,000 entries (wider
+    than the kernel stages: read from device memory)."""
     u = _f32(corpus.random_uniform(np.random.default_rng(11), 700, 0.01))
     rng = np.random.default_rng(12)
-    col = CsrMatrix.from_coo(64, 1, np.arange(64), np.zeros(64, np.int64),
-                             rng.standard_normal(64).astype(np.float32))
-    row = CsrMatrix.from_coo(1, 32, np.zeros(32, np.int64), np.arange(32),
-                             rng.standard_normal(32).astype(np.float32))
-    return {"padded": (u, u), "unpadded": (col, row)}
+
+    def coo(rows, cols, r, c):
+        return CsrMatrix.from_coo(rows, cols, np.asarray(r), np.asarray(c),
+                                  rng.standard_normal(len(r)).astype(np.float32))
+
+    col = coo(64, 1, np.arange(64), np.zeros(64, np.int64))
+    row = coo(1, 32, np.zeros(32, np.int64), np.arange(32))
+    n = 300
+    return {
+        "padded": (u, u),
+        "unpadded": (col, row),
+        "multi_tile_k": (col, coo(1, 96, np.zeros(96, np.int64), np.arange(96))),
+        "tiny_ks": (coo(2048, 2048, np.arange(2048), np.arange(2048)),) * 2,
+        "lk1_rk1": (coo(n, n, rng.permutation(n), np.arange(n)),
+                    coo(n, n, np.arange(n), rng.permutation(n))),
+        "wide_window": (coo(3000, 3, np.arange(3000), np.zeros(3000, np.int64)),
+                        coo(3, 5, [0, 0, 1, 2, 2], [1, 4, 0, 2, 3])),
+    }
 
 
-@pytest.mark.parametrize("case", ["padded", "unpadded"])
+@pytest.mark.parametrize("case", ["padded", "unpadded", "multi_tile_k", "tiny_ks", "lk1_rk1",
+                                  "wide_window"])
 def test_esc_expand_kernel(dev, case):
+    """B12 on the plan's segments: bit-equal to both plain versions (the
+    lanes' and the segment schedule's) on the real slots, 0 on the padding,
+    equal bits on two calls, one launch a call, and fresh CSR-order lhs
+    values read through the plan's permutation."""
     from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops import esc_expand
 
     a, b = _expand_cases()[case]
     plan = esc_expand.plan_expand_kmajor(a, b)
-    assert (plan.num_slabs * 1024 > plan.num_products) == (case == "padded")
-    arrs = esc_expand.expand_device_arrays(plan, dev)
+    assert (plan.num_slabs * 1024 > plan.num_products) == (case in ("padded", "lk1_rk1",
+                                                                    "wide_window"))
+    arrs = esc_expand.expand_segment_arrays(plan, dev)
+    lanes = esc_expand.expand_device_arrays(plan, dev)
     lv = torch.from_numpy(a.vals[plan.perm_csc]).to(dev)
     rv = torch.from_numpy(b.vals).to(dev)
     before = kernels.launch_counts["esc_expand"]
     p = esc_expand.expand_products(plan, lv, rv, device_arrays=arrs)
     torch.cuda.synchronize()
     assert kernels.launch_counts["esc_expand"] == before + 1
-    plain = esc_expand._expand_torch(lv, rv, arrs["lv_lane"], arrs["rv_lane"], arrs["lv_off"],
-                                     arrs["rv_off"], num_products=plan.num_products)
-    n = plan.num_products
-    assert p.shape == plain.shape == (plan.num_slabs * 1024,)
-    assert torch.equal(p[:n], plain[:n]) and not p[n:].any()
-    cpu = esc_expand.expand_products(plan, lv.cpu(), rv.cpu())
-    assert torch.equal(p.cpu(), cpu)
-    with pytest.raises(ValueError, match="f32"):
+    n, slots = plan.num_products, plan.num_slabs * 1024
+    plain = esc_expand._expand_torch(lv, rv, lanes["lv_lane"], lanes["rv_lane"],
+                                     lanes["lv_off"], lanes["rv_off"], num_products=n)
+    seg = esc_expand._expand_segments_torch(lv, rv, arrs["segments"], num_products=n,
+                                            num_slots=slots)
+    assert p.shape == plain.shape == (slots,)
+    assert torch.equal(p[:n], plain[:n]) and torch.equal(p, seg) and not p[n:].any()
+    assert torch.equal(p, esc_expand.expand_products(plan, lv, rv, device_arrays=arrs))
+    assert torch.equal(p.cpu(), esc_expand.expand_products(plan, lv.cpu(), rv.cpu()))
+    fresh = torch.from_numpy(np.random.default_rng(13).standard_normal(a.nnz())
+                             .astype(np.float32)).to(dev)
+    got = esc_expand.expand_products(plan, fresh, rv, device_arrays=arrs, csr_order=True)
+    want = esc_expand._expand_segments_torch(fresh, rv, arrs["segments"], num_products=n,
+                                             num_slots=slots, perm=arrs["perm"])
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="dtype"):
         esc_expand.expand_products(plan, lv.double(), rv.double(), device_arrays=arrs)
+    with pytest.raises(ValueError, match="segments"):
+        esc_expand.expand_products(plan, lv, rv, device_arrays=lanes)
+
+
+def test_esc_records_refuse_bad_inputs(dev):
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import esc_expand
+    from sparse_matrix_tpu_torch.ops.device_sorted import plan_sort_reduce
+
+    a, b = _expand_cases()["padded"]
+    plan = esc_expand.plan_expand_kmajor(a, b)
+    arrs = esc_expand.expand_segment_arrays(plan, dev)
+    rec = arrs["launch"]
+    lv = torch.from_numpy(a.vals[plan.perm_csc]).to(dev)
+    rv = torch.from_numpy(b.vals).to(dev)
+    p = torch.empty(plan.num_slabs * 1024, device=dev)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="elements"):
+        rec(lv[:-1], rv, p)
+    with pytest.raises(ValueError, match="elements"):
+        rec(lv, rv, p[:-1024])
+    with pytest.raises(ValueError, match="contiguous"):
+        rec(lv, rv, torch.empty(2 * p.numel(), device=dev)[::2])
+    big = torch.empty(max(lv.numel(), p.numel()), device=dev)
+    with pytest.raises(ValueError, match="alias"):
+        rec(big[:lv.numel()], rv, big[:p.numel()])
+    with pytest.raises(ValueError, match="is on cpu"):
+        rec(lv.cpu(), rv, p)
+    with pytest.raises(ValueError, match="disagree"):
+        kernels.prepare_esc_expand(arrs["segments"], arrs["tiles"][:-1], arrs["perm"],
+                                   num_products=plan.num_products,
+                                   num_slots=plan.num_slabs * 1024, n_lv=a.nnz(), n_rv=b.nnz())
+    with pytest.raises(ValueError, match="2\\^30"):
+        kernels.prepare_esc_expand(arrs["segments"], arrs["tiles"].new_zeros((1 << 19) + 1, 8),
+                                   arrs["perm"], num_products=plan.num_products,
+                                   num_slots=(1 << 30) + 8, n_lv=a.nnz(), n_rv=b.nnz())
+    with pytest.raises(ValueError, match="aligned"):
+        rec(lv, rv, torch.empty(p.numel() + 1, device=dev)[1:])
+    runs = plan_sort_reduce(torch.from_numpy(plan.out_key).to(dev), a.rows, b.cols,
+                            padded=True)
+    with pytest.raises(ValueError, match="elements"):
+        runs["launch"](p[:-1], torch.empty_like(p))
+    with pytest.raises(ValueError, match="alias"):
+        runs["launch"](p, p)
+    with pytest.raises(TypeError, match="dtype"):
+        runs["launch"](p.double(), torch.empty_like(p))
+    with pytest.raises(ValueError, match="runs summed"):
+        kernels.prepare_esc_run_sum(runs["order"], runs["run_off"],
+                                    num_summed=runs["run_off"].numel())
+    assert kernels.launch_counts == before
+
+
+@pytest.mark.parametrize("case", ["padded", "unpadded", "multi_tile_k", "tiny_ks", "lk1_rk1",
+                                  "wide_window"])
+def test_esc_run_sum_kernel(dev, case):
+    """The run sums planned once: bit-equal to the plain version on the
+    CPU (sequential adds in sorted order), equal bits on two calls, zero
+    past the summed runs; signed zeros and inf/NaN products included."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops import esc_expand
+    from sparse_matrix_tpu_torch.ops.device_sorted import _run_sum_torch, plan_sort_reduce
+
+    a, b = _expand_cases()[case]
+    plan = esc_expand.plan_expand_kmajor(a, b)
+    padded = plan.num_slabs * 1024 > plan.num_products
+    runs = plan_sort_reduce(torch.from_numpy(plan.out_key).to(dev), a.rows, b.cols,
+                            padded=padded)
+    cpu = plan_sort_reduce(torch.from_numpy(plan.out_key), a.rows, b.cols, padded=padded)
+    for k in ("order", "run_off", "row", "col", "nnz"):
+        assert torch.equal(runs[k].cpu(), cpu[k]), k
+    p = esc_expand.expand_products(plan, torch.from_numpy(a.vals[plan.perm_csc]).to(dev),
+                                   torch.from_numpy(b.vals).to(dev))
+    n = plan.num_products
+    q = p.clone()
+    q[: min(n, 3)] = -0.0
+    if n > 6:
+        q[3] = float("inf")
+        q[5] = float("nan")
+    for prods in (p, q):
+        before = kernels.launch_counts["esc_run_sum"]
+        v1, v2 = torch.empty_like(prods), torch.empty_like(prods)
+        runs["launch"](prods, v1)
+        runs["launch"](prods, v2)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["esc_run_sum"] == before + 2
+        want = _run_sum_torch(prods.cpu(), cpu["order"], cpu["run_off"])
+        got = v1.cpu()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+        assert torch.equal(v1.isnan(), v2.isnan())
+        assert torch.equal(torch.nan_to_num(v1), torch.nan_to_num(v2))
+        assert not v1[runs["num_summed"]:].any()
+
+
+@pytest.mark.parametrize("case", ["padded", "multi_tile_k", "lk1_rk1", "wide_window"])
+def test_esc_spgemm_sort_repeats_bitwise(dev, case, monkeypatch):
+    """``EscSpgemm(reduce="sort").multiply_device`` on the card: no
+    ``torch.sort`` a call, equal bits on two calls, the CPU engine's
+    pattern and values within the SpGEMM bound against float64, and the
+    same for a re-multiply with fresh values."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm, padded_to_host
+
+    a, b = _expand_cases()[case]
+    eng = EscSpgemm(a, b, device=dev, reduce="sort")
+    assert "lv_lane" not in eng._expand_arrs and "launch" in eng._runs
+
+    def no_sort(*args, **kw):
+        raise AssertionError("torch.sort called in multiply_device")
+
+    before = dict(kernels.launch_counts)
+    monkeypatch.setattr(torch, "sort", no_sort)
+    c1, c2 = eng.multiply_device(), eng.multiply_device()
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["esc_expand"] == before["esc_expand"] + 2
+    assert kernels.launch_counts["esc_run_sum"] == before["esc_run_sum"] + 2
+    assert torch.equal(c1.val, c2.val) and int(c1.nnz) == int(c2.nnz)
+    c = padded_to_host(c1)
+    want = EscSpgemm(a, b, device="cpu", reduce="sort").multiply()
+    assert np.array_equal(c.offsets, want.offsets) and np.array_equal(c.indices, want.indices)
+    _spgemm_bounded(a, b, c)
+    rng = np.random.default_rng(14)
+    nl = rng.standard_normal(a.nnz()).astype(np.float32)
+    nr = rng.standard_normal(b.nnz()).astype(np.float32)
+    a2 = CsrMatrix(a.rows, a.cols, nl, a.indices, a.offsets, is_sorted=a.is_sorted)
+    b2 = CsrMatrix(b.rows, b.cols, nr, b.indices, b.offsets, is_sorted=b.is_sorted)
+    f1 = eng.multiply_device(lhs_vals=torch.from_numpy(nl).to(dev), rhs_vals=nr)
+    f2 = eng.multiply_device(lhs_vals=nl, rhs_vals=torch.from_numpy(nr).to(dev))
+    assert torch.equal(f1.val, f2.val)
+    _spgemm_bounded(a2, b2, padded_to_host(f1))
+
+
+@pytest.mark.parametrize("force", ["dia", "hybrid", "aligned", "lanepack", "bell", "stripe"])
+def test_float64_operator_refused_at_construction(dev, force):
+    """A float64 operator of a kernel-backed format is refused when it is
+    made on the card, with the format and the card named; the CPU still
+    runs it."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+
+    a = poisson_2d_csr(48, dtype=np.float64)
+    if force == "hybrid":
+        rng = np.random.default_rng(6)
+        r = np.r_[a.row_ids(), rng.integers(0, a.rows, 300)]
+        c = np.r_[a.indices.astype(np.int64), rng.integers(0, a.cols, 300)]
+        a = CsrMatrix.from_coo(a.rows, a.cols, r, c, np.r_[a.vals, rng.standard_normal(300)])
+    name = torch.cuda.get_device_name(dev)
+    with pytest.raises(TypeError, match=f"float64 {force} plans .*{name}"):
+        SpmvOperator(a, device=dev, dtype=torch.float64, force=force)
+    op = SpmvOperator(a, device="cpu", dtype=torch.float64, force=force)
+    assert op.format == force and op(torch.ones(a.cols, dtype=torch.float64)).dtype == torch.float64
+
+
+def test_float64_ell_operator_runs_on_card(dev):
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+
+    a = corpus.random_uniform(np.random.default_rng(15), 500, 0.02)
+    a = CsrMatrix(a.rows, a.cols, a.vals.astype(np.float64), a.indices, a.offsets, is_sorted=True)
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(a.cols))
+    op = SpmvOperator(a, device=dev, dtype=torch.float64, force="ell")
+    assert op.format == "ell"
+    y = op(x.to(dev)).cpu()
+    want = SpmvOperator(a, device="cpu", dtype=torch.float64, force="ell")(x)
+    assert y.dtype == torch.float64 and torch.allclose(y, want, rtol=1e-13, atol=1e-13)
 
 
 @pytest.mark.parametrize("reduce", ["sort", "spmv"])

@@ -162,7 +162,7 @@ def test_cuda_device_without_gpu_raises():
 @pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell", "stripe",
                                     "dia_spmm", "aligned_spmm", "lanepack_spmm",
                                     "bell_spmm", "bcsr_spmm", "block_spgemm",
-                                    "esc_expand", "trisweep"])
+                                    "esc_expand", "esc_run_sum", "trisweep"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     from sparse_matrix_tpu_torch.native import kernels
 
@@ -200,8 +200,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
             torch.zeros(1), f32[:, None], f32[:, None]),
         "block_spgemm": lambda: kernels.launch_block_spgemm(blk, blk, i32.repeat(1, 2),
                                                             i32.repeat(2), blk),
-        "esc_expand": lambda: kernels.launch_esc_expand(f32, f32, i16, i16, i32, i32,
-                                                        torch.zeros(1024), num_products=5),
+        "esc_expand": lambda: kernels.prepare_esc_expand(i32.repeat(2, 4), i32.repeat(1, 8),
+                                                         i32, num_products=5, num_slots=1024,
+                                                         n_lv=1, n_rv=1),
+        "esc_run_sum": lambda: kernels.prepare_esc_run_sum(i32, i32.repeat(2), num_summed=1),
         "trisweep": lambda: kernels.prepare_trisweep(f32[None], i32, f32[:0], i32[:0],
                                                      i32.repeat(2), offsets=(-1,), rows=128,
                                                      chunk_rows=128, levels=0, halo=1),
