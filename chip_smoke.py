@@ -59,7 +59,7 @@ Phases, each of which ends the run with an exception on failure:
    run a dense-block case, the block-tridiagonal 16384^2 matrix of whole
    128 x 128 blocks (every depth row live), so the tile's dense rate is on
    record. TF32 must be off.
-3. Main path, in seven parts, each with every launch count set to 0 just
+3. Main path, in eight parts, each with every launch count set to 0 just
    before it and read just after:
    a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
       dispatched to DIA), the same with bf16 band planes through
@@ -99,6 +99,15 @@ Phases, each of which ends the run with an exception on failure:
       diagonally dominant (``with_dominant_diagonal``), ``bicgstab_solve``
       and ``gmres_solve(restart=30)`` with and without the fused
       ``ilu_preconditioner``, and BiCGSTAB with ``ilut_preconditioner``.
+   h. AMG: ``amg_setup`` on Poisson 2048^2 with the defaults
+      (Jacobi, nu = 1, theta = 0.08, coarse 400), timed by phase
+      (strength and aggregation, prolongator smoothing, each Galerkin
+      product with its engine and products per second, the operator plans
+      of each level, the coarse pseudo-inverse and its upload) and logged
+      by level (n, nnz, P's nnz, the formats of A, P and P^T);
+      ``amg_pcg_solve`` to 1e-5 on a vector beside parts a and g, then on
+      a K=8 block; a save/load round trip of the 512^2 coarsening, whose
+      reloaded hierarchy must take the same iterations.
    Solves are checked for convergence and for their true residual (per
    column for the multi-RHS solves; the ILU solves within 10 tol |b|, the
    reference tests' acceptance), products against float64: SpGEMM
@@ -185,6 +194,11 @@ PARTS = {
     "block_sparse": ("bcsr_spmm", "block_spgemm"),
     "spgemm": ("esc_expand", "esc_run_sum", "block_spgemm"),
     "ilu": ("trisweep", "dia"),
+    # level 0's SpMV and the block V-cycle's DIA SpMM, then what the
+    # dispatch picks below it on the card: aligned P and P^T, the hybrid
+    # levels' LanePack residuals, the coarsest P as stripe, BELL at 512^2
+    "amg": ("dia", "dia_spmm", "aligned", "aligned_spmm", "lanepack", "lanepack_spmm",
+            "stripe", "bell"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -197,6 +211,9 @@ U_F32 = 2.0 ** -24  # unit roundoff of float32
 K_RHS = 8
 ILU_TOL = 1e-6  # the unsymmetric ILU solves of part g
 TRISWEEP_SWEEPS = 4  # the kernel phase's sweep count (the reference's default)
+# AMG-PCG steps queued for their device time: a V-cycle launches about a
+# hundred kernels, and the queue behind the hold takes about a thousand
+AMG_STEP_CALLS = 4
 # H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak and dense
 # bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -1048,13 +1065,15 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
     chk._csr.clear()
 
 
-def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, wall, step):
+def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, wall, step,
+                  calls=20):
     """Log iterations, residuals, wall and device ms per iteration and the
     host's share of the wall time (``rec``, ``true_res``, ``bound_true``
     relative to |b|, worst column for multi-RHS solves), and return them.
     ``step`` runs one iteration of the solver's own step function, without
-    its host read."""
-    dev_ms = device_ms_per_call(torch, step)
+    its host read; ``calls`` of them are queued for the device time (their
+    launches must fit the card's launch queue behind the hold)."""
+    dev_ms = device_ms_per_call(torch, step, calls=calls)
     it = max(iterations, 1)
     ms_it = wall * 1e3 / it
     log(f"main {tag}: format={fmt} tol={tol:g} iterations={iterations} "
@@ -1066,7 +1085,8 @@ def _report_solve(torch, tag, fmt, tol, iterations, rec, true_res, bound_true, w
                 ms_per_iter=ms_it, device_ms_per_iter=dev_ms)
 
 
-def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False, precond=None):
+def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False, precond=None,
+                    calls=20):
     """Run ``solve(b)``, check convergence and the true residual, print
     iterations, ms/iteration and the host's share of the wall time; the
     device time is that of ``cg_solve``'s iteration over ``op`` (of
@@ -1109,7 +1129,7 @@ def solve_and_check(torch, dev, tag, a, n, solve, op, tol=CG_TOL, ir=False, prec
             state = step_fn(op, *state)
 
     nums = _report_solve(torch, tag, op.format, tol, res.iterations, rec / bnorm,
-                         true_res / bnorm, bound_true / bnorm, wall, step)
+                         true_res / bnorm, bound_true / bnorm, wall, step, calls=calls)
     if not ok:
         raise AssertionError(f"{tag}: CG did not converge within the bounds")
     return res, nums
@@ -1474,7 +1494,7 @@ def block_bytes_estimate(m, bs=128) -> int:
 def time_engines(torch, dev, name, m, oracle, skip=()):
     """Host seconds of each SpGEMM engine that fits this product (the data
     for an H100 calibration of spgemm_auto), each result checked: the host
-    stand-in once, band convolution where banded, the dense matmul to 16384
+    library's hash engine once, band convolution where banded, the dense matmul to 16384
     rows, the dense-block engine to 4 GB of blocks, the ESC sort engine."""
     from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
     from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm
@@ -1986,6 +2006,129 @@ def part_ilu(torch, dev, mats, ops, state):
     torch.cuda.empty_cache()
 
 
+def part_amg(torch, dev, mats, ops, state):
+    """Part h: smoothed-aggregation AMG on Poisson 2048^2 (f32, the
+    defaults: Jacobi, nu = 1, theta = 0.08, coarse_size 400). Setup timed by
+    phase and level; AMG-PCG on a vector to tol, beside part a's CG and
+    part g's IC(0)-PCG; a K = K_RHS block solve on the same hierarchy; a
+    save/load round trip of the 512^2 coarsening."""
+    import tempfile
+
+    from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
+    from sparse_matrix_tpu_torch.solvers import amg, cg
+
+    a2 = mats["poisson2048"]
+    phases = []  # (level, phase, seconds since the previous phase ended, info)
+    clock = [time.perf_counter()]
+    t0 = clock[0]
+
+    def on_phase(level, name, **info):
+        now = time.perf_counter()
+        phases.append((level, name, now - clock[0], info))
+        clock[0] = now
+
+    hier = amg.amg_setup(a2, device=dev, on_phase=on_phase)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rec = state.setdefault("amg", {"setup_s": setup_s, "levels": []})
+    phase_s = {}
+    for _l, name, s, _i in phases:
+        phase_s[name] = phase_s.get(name, 0.0) + s
+    for li, lv in enumerate(hier.levels):
+        mine = [(name, s, info) for lvl, name, s, info in phases if lvl == li]
+        by = {name: s for name, s, _i in mine if name != "galerkin"}
+        info = {name: i for name, _s, i in mine}
+        gal = [(i["engine"], i["products"], s) for name, s, i in mine if name == "galerkin"]
+        log(f"main amg level {li}: n={lv.n} nnz={lv.nnz} P nnz={info['smooth']['p_nnz']} "
+            f"formats A/P/Pt={'/'.join(info['plan']['formats'])}; strength and aggregation "
+            f"{by['strength_aggregate']:.3f} s, prolongator smoothing {by['smooth']:.3f} s, "
+            "Galerkin " + "; ".join(f"{e} {n} products {s:.3f} s ({n / s / 1e6:.1f} Mprod/s)"
+                                    for e, n, s in gal)
+            + f"; operator plans {by['plan']:.3f} s")
+        rec["levels"].append(dict(n=lv.n, nnz=lv.nnz, p_nnz=info["smooth"]["p_nnz"],
+                                  formats=info["plan"]["formats"], galerkin=gal,
+                                  **{f"{k}_s": v for k, v in by.items()}))
+    coarse_n = hier.coarse_inv.shape[0]
+    rec.update(phase_s=phase_s, coarse_n=coarse_n)
+    log(f"main amg setup poisson2048: {len(hier.levels)} levels, coarse {coarse_n} rows, "
+        f"{setup_s:.3f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in phase_s.items()))
+    if hier.levels[0].a_op.format != "dia":
+        raise AssertionError(f"AMG level 0 dispatched to {hier.levels[0].a_op.format}")
+
+    op = hier.levels[0].a_op
+    m_inv = hier.preconditioner()
+    _, nums = solve_and_check(
+        torch, dev, "amg_pcg poisson2048 jacobi", a2, 2048,
+        lambda b: amg.amg_pcg_solve(a2, b, tol=CG_TOL, maxiter=200, hierarchy=hier),
+        op, precond=m_inv, calls=AMG_STEP_CALLS)
+    rec["pcg"] = nums
+    base = state["cg_poisson2048"]
+    ic = next(r for r in state["ilu"]["ic_pcg"] if r["sweeps"] == 4 and r["form"] == "fused")
+    for tag, other in (("plain CG (part a)", base), ("IC(0)-PCG 4 sweeps fused (part g)", ic)):
+        log(f"main amg_pcg poisson2048 against {tag} ({other['iterations']} iterations, "
+            f"{other['wall_s']:.3f} s, {other['ms_per_iter']:.4f} ms/iter): iterations "
+            f"x{nums['iterations'] / other['iterations']:.4f}, wall x"
+            f"{nums['wall_s'] / other['wall_s']:.4f}, ms/iter "
+            f"x{nums['ms_per_iter'] / other['ms_per_iter']:.3f}")
+    if nums["iterations"] * 10 > base["iterations"]:
+        raise AssertionError(f"AMG-PCG took {nums['iterations']} iterations against CG's "
+                             f"{base['iterations']}")
+
+    # the block solve: K_RHS columns through one block V-cycle an iteration
+    rng = np.random.default_rng(SEED)
+    b_np = rng.standard_normal((a2.rows, K_RHS)).astype(np.float32)
+    bb = torch.from_numpy(b_np).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = amg.amg_pcg_solve(a2, bb, tol=CG_TOL, maxiter=200, hierarchy=hier)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x_np = res.x.double().cpu().numpy()
+    bnorm = np.linalg.norm(b_np.astype(np.float64), axis=0)
+    rec_res = res.residual_norm.double().cpu().numpy() / bnorm
+    ax = np.stack([spmv_f64_bound(a2, x_np[:, q])[0] for q in range(K_RHS)], axis=1)
+    true_res = np.linalg.norm(b_np - ax, axis=0) / bnorm
+    bound_true = EPS_F32 * poisson_cond(2048)
+    colsum, bc = cg._rhs_layout(bb, -1)
+    z = m_inv(bb)
+    st = (torch.zeros_like(bb), bb.clone(), z, colsum(bb, z), colsum(bb, bb))
+    live = torch.ones(K_RHS, dtype=torch.bool, device=dev)
+
+    def step():
+        nonlocal st
+        st = cg._pcg_multi_step(op.matmat, m_inv, colsum, bc, live, *st)
+
+    rec["block"] = _report_solve(torch, f"amg_pcg poisson2048 K={K_RHS} block", op.format,
+                                 CG_TOL, res.iterations, float(rec_res.max()),
+                                 float(true_res.max()), bound_true, wall, step,
+                                 calls=AMG_STEP_CALLS)
+    if not (np.all(np.isfinite(x_np)) and np.all(rec_res <= CG_TOL * (1 + 1e-6))
+            and np.all(true_res <= bound_true)):
+        raise AssertionError(f"AMG block PCG: |r|/|b| {rec_res}, true {true_res}")
+    del hier, m_inv, op, st, z, bb, res
+    torch.cuda.empty_cache()
+
+    # save and load the 512^2 coarsening: the reloaded hierarchy solves alike
+    a5 = mats["poisson512"]
+    coarsening = amg.amg_coarsen(a5, device=dev)
+    b5 = torch.from_numpy(np.random.default_rng(SEED).standard_normal(a5.rows)
+                          .astype(np.float32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/coarsening512.npz"
+        amg.save_amg_coarsening(path, *coarsening)
+        loaded = amg.load_amg_coarsening(path)
+    runs = []
+    for c in (coarsening, loaded):
+        h = amg.amg_setup(a5, device=dev, coarsening=c)
+        runs.append(amg.amg_pcg_solve(a5, b5, tol=CG_TOL, maxiter=200, hierarchy=h))
+    diff = float((runs[0].x - runs[1].x).abs().max())
+    log(f"main amg save/load poisson512: {len(coarsening[0])} levels, iterations "
+        f"{runs[0].iterations} (built) / {runs[1].iterations} (reloaded), max |x1 - x2| {diff:g}")
+    if runs[0].iterations != runs[1].iterations:
+        raise AssertionError("the reloaded AMG coarsening solves in other iterations")
+    rec["save_load_512"] = dict(iterations=runs[0].iterations, max_abs_diff=diff)
+
+
 def phase_trisweep_kernel(torch, dev, chk, state):
     """The trisweep kernel (B13) at TRISWEEP_SWEEPS sweeps on part g's
     factors: bit-equal to its plain version on the card, within the
@@ -2190,7 +2333,8 @@ def main() -> int:
                      ("general_multi_rhs", part_general_multi_rhs),
                      ("block_sparse", part_block_sparse),
                      ("spgemm", lambda *a: part_spgemm(*a, state)),
-                     ("ilu", lambda *a: part_ilu(*a, state))):
+                     ("ilu", lambda *a: part_ilu(*a, state)),
+                     ("amg", lambda *a: part_amg(*a, state))):
         kernels.reset_launch_counts()
         fn(torch, dev, mats, ops)
         torch.cuda.synchronize()
@@ -2206,6 +2350,7 @@ def main() -> int:
     log(f"spgemm record: {json.dumps({k: state[k] for k in ('engine_s', 'esc_rows', 'hyper_sparse')})}")
     phase_trisweep_kernel(torch, dev, chk, state)
     log(f"ilu record: {json.dumps(state['ilu'])}")
+    log(f"amg record: {json.dumps(state['amg'])}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

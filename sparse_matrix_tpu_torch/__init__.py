@@ -2,8 +2,9 @@
 
 The package imports nothing of the JAX package: it keeps its own numpy
 copies of the host planners (``formats/``, ``utils/autotune.py``; the
-reference's native C++ runtime is not copied, apart from the three
-routines of the incomplete factorizations) and rebuilds the device side for
+reference's native C++ runtime is copied only where a solver needs it: the
+incomplete factorizations, the AMG setup sweeps and the hash SpGEMM
+engine, in ``native/src/spmx_host.cpp``) and rebuilds the device side for
 an NVIDIA Hopper GPU. Its modules mirror the reference's names:
 
     device.py           require_device, default_device (the device of
@@ -13,6 +14,9 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
     utils/autotune.py   the dispatch cost-model constants
     native/             nvcc build and ctypes bindings of csrc/*.cu; the
                         host runtime (native/src/spmx_host.cpp, g++)
+    utils/debugflags.py, utils/linprobe.py  the debug flag, its histogram
+                        store and the linear-probe tables of the hash
+                        SpGEMM's instrumentation
     ops/spmv_dia.py     DIA SpMV and SpMM (csrc/spmv_dia.cu,
                         csrc/spmm_dia.cu)
     ops/spmv.py         LanePack, aligned, stripe (csrc/spmv_lanepack.cu,
@@ -30,6 +34,8 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
     solvers/cg.py       CG, PCG, mixed-precision CG, multi-RHS CG and PCG
     solvers/ilu.py      ILU(0), IC(0), ILUT (host), TriangularJacobi and
                         the ILU/IC preconditioners, IC-PCG
+    solvers/amg.py      smoothed-aggregation AMG: host coarsening, the
+                        V-cycle over SpmvOperators, AMG-PCG
     solvers/bicgstab.py, solvers/gmres.py  BiCGSTAB and GMRES(m)
     solvers/poisson.py  the 2-D Poisson model problem
     bench/corpus.py     the bench's 262k-row matrix classes
@@ -84,6 +90,17 @@ _EXPORTS = {
     "save_ilu_factors": "solvers.ilu",
     "load_ilu_factors": "solvers.ilu",
     "poisson_2d_csr": "solvers.poisson",
+    "AmgHierarchy": "solvers.amg",
+    "AmgLevel": "solvers.amg",
+    "aggregate_strong": "solvers.amg",
+    "amg_coarsen": "solvers.amg",
+    "save_amg_coarsening": "solvers.amg",
+    "load_amg_coarsening": "solvers.amg",
+    "amg_preconditioner": "solvers.amg",
+    "amg_pcg_solve": "solvers.amg",
+    "amg_setup": "solvers.amg",
+    "strength_graph": "solvers.amg",
+    "tentative_prolongator": "solvers.amg",
 }
 
 __all__ = sorted(_EXPORTS)

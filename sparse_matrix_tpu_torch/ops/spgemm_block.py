@@ -58,6 +58,7 @@ __all__ = [
     "spgemm_cost_estimates",
     "spgemm_auto_engine",
     "spgemm_auto",
+    "spgemm_auto_with_engine",
 ]
 
 # pairs per step of the plain numeric phase: the gathered operands of all
@@ -414,19 +415,15 @@ def spgemm_cost_estimates(lhs: CsrMatrix, rhs: CsrMatrix, *,
 
 def spgemm_auto_engine(lhs: CsrMatrix, rhs: CsrMatrix, *, device=None) -> str:
     """The engine :func:`spgemm_auto` takes for this product on ``device``
-    (``None``: the default device): ``"host"``, ``"dia"`` (band
-    convolution), ``"dense"``, ``"esc"`` or ``"mxu"`` (the dense-block
-    engine), by the reference's rules in its order: tiny products on the
-    host; banded x banded through band convolution; on a CPU device the
-    host engine (the reference's test for a TPU backend); products below
-    the device floor (sync plus one-shot compile) on the host; else the
-    cheapest of :func:`spgemm_cost_estimates`.
-
-    The reference first sends an rhs with at most one entry per row to its
-    native column-relabel engine; the port has no native runtime and falls
-    through, as the reference does without its library (the values agree
-    within the float32 bound; the pattern may differ by cancellation
-    zeros).
+    (``None``: the default device): ``"colmap"`` (the host library's
+    column relabel), ``"host"``, ``"dia"`` (band convolution),
+    ``"dense"``, ``"esc"`` or ``"mxu"`` (the dense-block engine), by the
+    reference's rules in its order: an rhs with at most one entry per row
+    and float32 or float64 values through the column relabel; tiny
+    products on the host; banded x banded through band convolution; on a
+    CPU device the host engine (the reference's test for a TPU backend);
+    products below the device floor (sync plus one-shot compile) on the
+    host; else the cheapest of :func:`spgemm_cost_estimates`.
     """
     dev = default_device() if device is None else require_device(device)
     return _choose_engine(lhs, rhs, dev)[0]
@@ -442,6 +439,10 @@ def _choose_engine(lhs: CsrMatrix, rhs: CsrMatrix, dev: torch.device):
     # dims first: the estimators gather rhs row counts through lhs columns
     if lhs.cols != rhs.rows:
         raise ValueError("LHS cols != RHS rows")
+    # an rhs with at most one entry per row (tentative prolongators,
+    # diagonal scalings, selection matrices): one pass over lhs, no hash
+    if rhs.nnz() <= rhs.rows and _colmap_applies(lhs, rhs):
+        return "colmap", None
     # tiny products: every device engine pays at least the one-shot sync
     products = float(flops_per_row(lhs, rhs).sum())
     if products / _host_rate() <= autotune.get("device_call_sync_s"):
@@ -462,19 +463,39 @@ def _choose_engine(lhs: CsrMatrix, rhs: CsrMatrix, dev: torch.device):
     return min(costs, key=costs.get), None
 
 
+def _colmap_applies(lhs: CsrMatrix, rhs: CsrMatrix) -> bool:
+    """The column relabel's precondition: float32 or float64 values and no
+    rhs row with more than one entry."""
+    dtype = np.dtype(np.result_type(lhs.vals.dtype, rhs.vals.dtype))
+    return (dtype in (np.dtype(np.float32), np.dtype(np.float64))
+            and int(np.diff(rhs.offsets).max(initial=0)) <= 1)
+
+
 def spgemm_auto(lhs: CsrMatrix, rhs: CsrMatrix, *, output_sorted: bool = True,
                 device=None) -> CsrMatrix:
     """``C = A @ B`` through the engine :func:`spgemm_auto_engine` picks:
+    :func:`~..native.host.colmap_spgemm_native` (whose rows come back
+    sorted whatever ``output_sorted`` says, as the reference's),
     :func:`~.spgemm_host.spgemm_hash_host`,
     :func:`~.spgemm_dia.spgemm_dia`, :func:`spgemm_dense`,
     ``EscSpgemm(reduce="sort")`` or :func:`spgemm_block_device`, on
     ``device`` (``None``: :func:`~..device.default_device`)."""
+    return spgemm_auto_with_engine(lhs, rhs, output_sorted=output_sorted, device=device)[0]
+
+
+def spgemm_auto_with_engine(lhs: CsrMatrix, rhs: CsrMatrix, *, output_sorted: bool = True,
+                            device=None):
+    """:func:`spgemm_auto` and the name of the engine it took, ``(C,
+    engine)``."""
+    from ..native import host
     from .spgemm_host import spgemm_hash_host
 
     dev = default_device() if device is None else require_device(device)
     engine, dia_pair = _choose_engine(lhs, rhs, dev)
+    if engine == "colmap":
+        return host.colmap_spgemm_native(lhs, rhs), engine
     if engine == "host":
-        return spgemm_hash_host(lhs, rhs, output_sorted=output_sorted)
+        return spgemm_hash_host(lhs, rhs, output_sorted=output_sorted), engine
     if engine == "dia":
         from .spgemm_dia import spgemm_dia
 
@@ -489,4 +510,4 @@ def spgemm_auto(lhs: CsrMatrix, rhs: CsrMatrix, *, output_sorted: bool = True,
     else:
         out = spgemm_block_device(lhs, rhs, device=dev)
     return CsrMatrix(out.rows, out.cols, out.vals, out.indices, out.offsets,
-                     is_sorted=output_sorted)
+                     is_sorted=output_sorted), engine

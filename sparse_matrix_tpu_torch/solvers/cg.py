@@ -291,16 +291,26 @@ def pcg_solve_multi(
         live = rr > tol2
         if not bool(live.any()):
             break
-        ap = matvec_multi(p)
-        pap = colsum(p, ap)
-        alpha = torch.where(live, rz / torch.where(pap == 0, 1.0, pap), 0.0)
-        x = x + bc(alpha) * p
-        r = r - bc(alpha) * ap
-        z = precond(r)
-        rz_new = colsum(r, z)
-        beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
-        p = torch.where(bc(live), z + bc(beta) * p, p)
-        rz = torch.where(live, rz_new, rz)
-        rr = torch.where(live, colsum(r, r), rr)
+        x, r, p, rz, rr = _pcg_multi_step(matvec_multi, precond, colsum, bc, live,
+                                          x, r, p, rz, rr)
         k += 1
     return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
+
+
+def _pcg_multi_step(matvec_multi, precond, colsum, bc, live, x, r, p, rz, rr):
+    """One iteration of :func:`pcg_solve_multi` (its device work; the host
+    read of ``live.any()`` stays in the loop): the columns in ``live``
+    advance, the others keep their state. Returns the next
+    ``(x, r, p, rz, rr)``."""
+    ap = matvec_multi(p)
+    pap = colsum(p, ap)
+    alpha = torch.where(live, rz / torch.where(pap == 0, 1.0, pap), 0.0)
+    x = x + bc(alpha) * p
+    r = r - bc(alpha) * ap
+    z = precond(r)
+    rz_new = colsum(r, z)
+    beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
+    p = torch.where(bc(live), z + bc(beta) * p, p)
+    rz = torch.where(live, rz_new, rz)
+    rr = torch.where(live, colsum(r, r), rr)
+    return x, r, p, rz, rr
