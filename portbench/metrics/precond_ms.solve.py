@@ -1,0 +1,11 @@
+"""``precond_ms.solve`` (ms/solve, device trace): device time of the
+operations launched inside the benchmark's range around the ``M^-1``
+callable, over the solves of the traced sub-window."""
+
+
+def read(run):
+    tr = run.trace
+    if tr is None or not run.trace_requests:
+        return None
+    s = tr.device_s_in("portbench.precond")
+    return None if not s else s * 1e3 / run.trace_requests
