@@ -18,18 +18,22 @@ formats and, for one V-cycle on a vector and on an (n, k) block:
   device kernels by total device time, each with its calls and device ms
   per V-cycle, and ``profiled_device_ms``, the sum over every kernel per
   V-cycle;
-* ``by_level``: ms per V-cycle between CUDA events around each level's
-  own work (smoothing, residual, restriction, prolongation; the levels
-  below excluded), the V-cycle written out level by level. Where the host
-  enqueues a level's launches more slowly than the card runs them, the
-  host's gaps are in its time.
+* ``by_level``: device ms per V-cycle of each level's own work
+  (smoothing, residual, restriction, prolongation; the levels below
+  excluded; the last entry the coarse solve), read from a profiler trace
+  of ``reps`` V-cycles through the V-cycle's own spans
+  (``spmx.amg.level<l>``, ``spmx.amg.coarse``; ``utils/profiling.py``):
+  the device operations each level's span launched, less its lower
+  levels'. The host's gaps are not in it.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -87,47 +91,60 @@ def _kernels(torch, fn, reps: int, top: int):
                    for k, c, us in rows[:top]]
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _device_ms_in(events, names):
+    """Device ms of the operations launched inside the ranges of each of
+    ``names`` (the launching runtime call, found by its correlation id,
+    lies in one of the name's intervals), from a Chrome trace's events."""
+    launch, ops, spans = {}, [], {n: [] for n in names}
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat, args = ev.get("cat", ""), ev.get("args") or {}
+        if cat in DEVICE_CATS:
+            ops.append((args.get("correlation"), float(ev.get("dur", 0.0))))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = float(ev["ts"])
+        elif cat == "user_annotation" and ev.get("name") in spans:
+            spans[ev["name"]].append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+    out = {}
+    for name, iv in spans.items():
+        iv.sort()
+        starts = [s for s, _ in iv]
+        total = 0.0
+        for corr, dur in ops:
+            t = launch.get(corr)
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t <= iv[i][1]:
+                total += dur
+        out[name] = total / 1e3
+    return out
+
+
 def _by_level(torch, hier, r, reps: int):
-    """Ms per V-cycle of each level's own work: the V-cycle written out
-    level by level with CUDA events around each level's pre- and
-    post-smoothing, residual, restriction and prolongation."""
-    from sparse_matrix_tpu_torch.solvers import amg
+    """Ms per V-cycle of each level's own device work, from a profiler
+    trace of ``reps`` V-cycles: the device time launched inside the
+    V-cycle's span ``spmx.amg.level<l>`` less that inside the level below
+    it (``spmx.amg.coarse`` below the last level)."""
+    from sparse_matrix_tpu_torch.utils import profiling
 
     nlev = len(hier.levels)
-    ev = [[(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-           for _ in range(2)] for _ in range(nlev + 1)]
-
-    def cycle(rr, level):
-        if level == nlev:
-            s, e = ev[level][0]
-            s.record()
-            out = amg._coarse_solve(hier.coarse_inv, rr)
-            e.record()
-            return out
-        lv = hier.levels[level]
-        (s0, e0), (s1, e1) = ev[level]
-        s0.record()
-        x = hier._smooth(level, torch.zeros_like(rr), rr)
-        d = rr - amg._apply(lv.a_op, x)
-        rc = amg._apply(lv.pt_op, d)
-        e0.record()
-        ec = cycle(rc, level + 1)
-        s1.record()
-        x = x + amg._apply(lv.p_op, ec)
-        x = hier._smooth(level, x, rr)
-        e1.record()
-        return x
-
-    totals = np.zeros(nlev + 1)
-    cycle(r, 0)
-    for _ in range(reps):
-        cycle(r, 0)
-        torch.cuda.synchronize()
-        for lvl in range(nlev + 1):
-            pairs = ev[lvl][:1] if lvl == nlev else ev[lvl]
-            totals[lvl] += sum(s.elapsed_time(e) for s, e in pairs)
+    names = [f"spmx.amg.level{i}" for i in range(nlev)] + ["spmx.amg.coarse"]
+    hier.vcycle(r)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "vcycle.json"
+        with profiling.trace(path):
+            for _ in range(reps):
+                hier.vcycle(r)
+        data = json.loads(path.read_text())
+    inclusive = _device_ms_in(data["traceEvents"] if isinstance(data, dict) else data, names)
+    inc = [inclusive[n] / reps for n in names]
+    own = [inc[i] - inc[i + 1] for i in range(nlev)] + [inc[nlev]]
     return [dict(level=i, n=(hier.levels[i].n if i < nlev else hier.coarse_inv.shape[0]),
-                 device_ms=float(totals[i] / reps)) for i in range(nlev + 1)]
+                 device_ms=float(own[i])) for i in range(nlev + 1)]
 
 
 def main() -> int:

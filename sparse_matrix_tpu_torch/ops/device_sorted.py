@@ -45,6 +45,7 @@ import torch
 from ..device import require_device
 from ..formats.csr import INDEX_DTYPE, OFFSET_DTYPE, CsrMatrix
 from ..formats.device import DeviceCsr
+from ..utils.profiling import span
 from .spmv import _TORCH_DTYPES, _t
 
 __all__ = [
@@ -271,10 +272,16 @@ class EscSpgemm:
     ``multiply_device(lhs_vals=, rhs_vals=)`` takes fresh values with the
     same patterns (CSR order) and re-multiplies without re-planning; the
     kernel reads fresh lhs values through the plan's CSC permutation.
+
+    The construction (host plan and upload) is the span ``spmx.plan.esc``.
     """
 
     def __init__(self, lhs: CsrMatrix, rhs: CsrMatrix, *, device, dtype=np.float32,
                  engine: str = "auto", reduce: str = "auto", reduce_force=None):
+        with span("spmx.plan.esc"):
+            self._build(lhs, rhs, device, dtype, engine, reduce, reduce_force)
+
+    def _build(self, lhs, rhs, device, dtype, engine, reduce, reduce_force):
         if lhs.cols != rhs.rows:
             raise ValueError("LHS cols != RHS rows")
         if engine not in ("auto", "pallas", "xla"):
@@ -337,28 +344,35 @@ class EscSpgemm:
 
     def multiply_device(self, lhs_vals=None, rhs_vals=None) -> PaddedCoo:
         """``C = A @ B`` as row-sorted :class:`PaddedCoo` on the device,
-        with fresh same-pattern values where given (CSR order)."""
-        rv = self.rhs_vals if rhs_vals is None else self._vals(rhs_vals)
-        if self._xplan is not None:
-            from .esc_expand import expand_products
+        with fresh same-pattern values where given (CSR order). The call is
+        the span ``spmx.esc.multiply``; with the expansion kernel, the
+        expansion and the reduction are its children ``spmx.esc.expand``
+        and ``spmx.esc.reduce``."""
+        with span("spmx.esc.multiply"):
+            rv = self.rhs_vals if rhs_vals is None else self._vals(rhs_vals)
+            if self._xplan is not None:
+                from .esc_expand import expand_products
 
-            fresh = lhs_vals is not None
-            lv = self._vals(lhs_vals) if fresh else self.lhs_vals_csc
-            p = expand_products(self._xplan, lv, rv, device_arrays=self._expand_arrs,
-                                csr_order=fresh)
-            if self._rspmv is not None:
-                return self._rspmv.reduce(p)
-            runs = self._runs
-            if "launch" in runs:
-                val = torch.empty_like(p)
-                runs["launch"](p, val)
-            else:
-                val = _run_sum_torch(p, runs["order"], runs["run_off"])
-            return PaddedCoo(runs["row"], runs["col"], val, runs["nnz"], self.rows, self.cols)
-        lv = self.lhs_vals if lhs_vals is None else self._vals(lhs_vals)
-        row, col, val, nnz = _esc_impl(lv, rv, self.rhs_indices, self.src, self.q, self.out_r,
-                                       rows=self.rows, cols=self.cols)
-        return PaddedCoo(row, col, val, nnz, self.rows, self.cols)
+                fresh = lhs_vals is not None
+                lv = self._vals(lhs_vals) if fresh else self.lhs_vals_csc
+                with span("spmx.esc.expand"):
+                    p = expand_products(self._xplan, lv, rv, device_arrays=self._expand_arrs,
+                                        csr_order=fresh)
+                with span("spmx.esc.reduce"):
+                    if self._rspmv is not None:
+                        return self._rspmv.reduce(p)
+                    runs = self._runs
+                    if "launch" in runs:
+                        val = torch.empty_like(p)
+                        runs["launch"](p, val)
+                    else:
+                        val = _run_sum_torch(p, runs["order"], runs["run_off"])
+                return PaddedCoo(runs["row"], runs["col"], val, runs["nnz"], self.rows,
+                                 self.cols)
+            lv = self.lhs_vals if lhs_vals is None else self._vals(lhs_vals)
+            row, col, val, nnz = _esc_impl(lv, rv, self.rhs_indices, self.src, self.q,
+                                           self.out_r, rows=self.rows, cols=self.cols)
+            return PaddedCoo(row, col, val, nnz, self.rows, self.cols)
 
     def multiply(self) -> CsrMatrix:
         return padded_to_host(self.multiply_device())

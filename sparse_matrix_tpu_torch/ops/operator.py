@@ -47,6 +47,7 @@ from ..formats.lanepack import _cost_constants as _lanepack_cost_constants
 from ..formats.stripe import StripePlan, _mode_cost, _stripe_counts, plan_stripe
 from ..formats.stripe import _cost_constants as _stripe_cost_constants
 from ..utils import autotune
+from ..utils.profiling import span
 from .spmv import (
     _TORCH_DTYPES,
     _t,
@@ -115,7 +116,8 @@ class SpmvOperator:
     names one of them. ``values_dtype=torch.bfloat16`` stores the DIA band or BELL value
     planes half-width (the other formats raise); applies widen to ``dtype``
     before they accumulate. The host plan is built once; its arrays live on
-    ``device`` and ``__call__`` takes an ``x`` on that device.
+    ``device`` and ``__call__`` takes an ``x`` on that device. The plan and
+    its upload are the span ``spmx.plan.operator``.
     """
 
     # above this nnz the dispatch cost estimators run on sampled row bands
@@ -125,19 +127,20 @@ class SpmvOperator:
                  force: Optional[str] = None, values_dtype=None):
         if dtype not in _NP_DTYPES:
             raise TypeError(f"dtype must be one of {list(_NP_DTYPES)}, got {dtype}")
-        self.device = require_device(device)
-        self.dtype = dtype
-        self._values_dtype = values_dtype
-        self.rows, self.cols = m.rows, m.cols
-        self.nnz = m.nnz()
-        self._dia = None
-        self._plan = None
-        self._aligned = None
-        self._bell = None
-        self._stripe = None
-        self._ell = None
-        self._ell_spill = None
-        self._dispatch(m, _NP_DTYPES[dtype], force)
+        with span("spmx.plan.operator"):
+            self.device = require_device(device)
+            self.dtype = dtype
+            self._values_dtype = values_dtype
+            self.rows, self.cols = m.rows, m.cols
+            self.nnz = m.nnz()
+            self._dia = None
+            self._plan = None
+            self._aligned = None
+            self._bell = None
+            self._stripe = None
+            self._ell = None
+            self._ell_spill = None
+            self._dispatch(m, _NP_DTYPES[dtype], force)
 
     def _dispatch(self, m: CsrMatrix, dtype, force):
         if force == "stripe":

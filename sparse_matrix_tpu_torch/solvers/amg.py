@@ -31,6 +31,7 @@ arguments; the port runs eagerly).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ import torch
 
 from ..formats.csr import CsrMatrix
 from ..native import host
+from ..utils.profiling import span
 
 __all__ = [
     "AmgHierarchy",
@@ -313,6 +315,7 @@ class AmgHierarchy:
         # reference's ``w * dinv`` of every Jacobi sweep, made once
         self._wdinv = [torch.tensor(omega, dtype=lv.dinv.dtype, device=lv.dinv.device)
                        * lv.dinv for lv in levels]
+        self._spans = [f"spmx.amg.level{i}" for i in range(len(levels))]
 
     def _smooth(self, level: int, x, r):
         """nu sweeps toward ``A x = r`` starting from ``x``; broadcasts over
@@ -328,15 +331,19 @@ class AmgHierarchy:
     def vcycle(self, r: torch.Tensor, level: int = 0) -> torch.Tensor:
         """One V-cycle applied to a residual: returns ``M^-1 r``. ``r`` may
         be a vector (n,) or a column block (n, K), which runs every level
-        through the SpMM path."""
+        through the SpMM path. Each level's work, the levels below it
+        included, is the span ``spmx.amg.level<l>``; the coarse solve is
+        ``spmx.amg.coarse``."""
         if level == len(self.levels):
-            return _coarse_solve(self.coarse_inv, r)
-        lv = self.levels[level]
-        x = self._smooth(level, torch.zeros_like(r), r)
-        d = r - _apply(lv.a_op, x)
-        ec = self.vcycle(_apply(lv.pt_op, d), level + 1)
-        x = x + _apply(lv.p_op, ec)
-        return self._smooth(level, x, r)
+            with span("spmx.amg.coarse"):
+                return _coarse_solve(self.coarse_inv, r)
+        with span(self._spans[level]):
+            lv = self.levels[level]
+            x = self._smooth(level, torch.zeros_like(r), r)
+            d = r - _apply(lv.a_op, x)
+            ec = self.vcycle(_apply(lv.pt_op, d), level + 1)
+            x = x + _apply(lv.p_op, ec)
+            return self._smooth(level, x, r)
 
     def preconditioner(self) -> Callable:
         return lambda r: self.vcycle(r)
@@ -372,6 +379,24 @@ def _chebyshev_apply(lv: AmgLevel, x, r, *, degree: int, lam_max: float):
         if i + 1 < degree:
             res = r - _apply(lv.a_op, x)
     return x
+
+
+class _Phases:
+    """The set-up's phases: ``with phase(level, name) as info:`` runs a
+    phase in the span ``spmx.plan.amg.<name>`` and, where it ends, calls
+    ``on_phase(level, name, **info)``, so span and callback mark the same
+    points."""
+
+    def __init__(self, on_phase: Optional[Callable]):
+        self.on_phase = on_phase
+
+    @contextlib.contextmanager
+    def __call__(self, level: int, name: str):
+        info = {}
+        with span("spmx.plan.amg." + name):
+            yield info
+        if self.on_phase is not None:
+            self.on_phase(level, name, **info)
 
 
 def amg_setup(
@@ -410,7 +435,7 @@ def amg_setup(
     n=, nnz=, formats=)`` once a level's three operators are on the
     device, ``on_phase(levels, "pinv", coarse_n=)`` after the coarse
     pseudo-inverse and ``on_phase(levels, "upload")`` once it is on the
-    device.
+    device. Each phase is also the span ``spmx.plan.amg.<phase>``.
     """
     from ..device import require_device
     from ..ops.operator import _NP_DTYPES, SpmvOperator
@@ -422,7 +447,7 @@ def amg_setup(
         raise RuntimeError("the AMG coarse solve runs in FP32: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     np_dtype = _NP_DTYPES[dtype]
-    emit = on_phase if on_phase is not None else (lambda *_a, **_k: None)
+    phase = _Phases(on_phase)
     if coarsening is not None:
         host_levels, cur = coarsening
     else:
@@ -443,10 +468,11 @@ def amg_setup(
 
     levels: List[AmgLevel] = []
     for li, (cur_l, p, dinv, lam) in enumerate(host_levels):
-        ops = (_op(cur_l), _op(p), _op(p.transpose()))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        emit(li, "plan", n=cur_l.rows, nnz=cur_l.nnz(), formats=tuple(op.format for op in ops))
+        with phase(li, "plan") as info:
+            ops = (_op(cur_l), _op(p), _op(p.transpose()))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            info.update(n=cur_l.rows, nnz=cur_l.nnz(), formats=tuple(op.format for op in ops))
         levels.append(AmgLevel(a_op=ops[0], p_op=ops[1], pt_op=ops[2],
                                dinv=torch.from_numpy(dinv.astype(np_dtype)).to(dev),
                                lam=lam, n=cur_l.rows, nnz=cur_l.nnz()))
@@ -454,12 +480,13 @@ def amg_setup(
             print(f"amg level {li}: n={cur_l.rows} nnz={cur_l.nnz()} (P nnz={p.nnz()}), "
                   f"fmt={ops[0].format}/{ops[1].format}/{ops[2].format}")
 
-    pinv = np.linalg.pinv(cur.to_dense().astype(np.float64)).astype(np_dtype)
-    emit(len(levels), "pinv", coarse_n=cur.rows)
-    coarse_inv = torch.from_numpy(pinv).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    emit(len(levels), "upload")
+    with phase(len(levels), "pinv") as info:
+        pinv = np.linalg.pinv(cur.to_dense().astype(np.float64)).astype(np_dtype)
+        info["coarse_n"] = cur.rows
+    with phase(len(levels), "upload"):
+        coarse_inv = torch.from_numpy(pinv).to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     outer = None
     if values_dtype is not None and host_levels:
         # the full-precision finest operator for the outer Krylov matvec
@@ -485,9 +512,10 @@ def amg_coarsen(a, *, theta: float = 0.08, smooth_prolongator: bool = True,
     ``on_phase``, a callable, is called at the end of each phase of a
     level (the caller times them): ``on_phase(level, "strength_aggregate")``,
     ``on_phase(level, "smooth", p_nnz=)`` and, for each Galerkin product,
-    ``on_phase(level, "galerkin", engine=, products=)``.
+    ``on_phase(level, "galerkin", engine=, products=)``. Each phase is
+    also the span ``spmx.plan.amg.<phase>``.
     """
-    emit = on_phase if on_phase is not None else (lambda *_a, **_k: None)
+    phase = _Phases(on_phase)
     levels = []
     cur = a
     while cur.rows > coarse_size and len(levels) < max_levels:
@@ -495,54 +523,58 @@ def amg_coarsen(a, *, theta: float = 0.08, smooth_prolongator: bool = True,
         # and past 10 % a direct coarse solve is cheaper than more products
         if cur.nnz() > 0.1 * cur.rows * cur.rows and cur.rows <= 20_000:
             break
-        res = host.amg_strength_native(cur.rows, cur.offsets, cur.indices, cur.vals, theta)
-        if res is None:
-            res = _strength_numpy(cur.rows, cur.offsets, cur.indices, cur.vals, theta)
-        dvec, abssum, so, si = res
-        agg, n_agg = aggregate_strong(cur.rows, so, si)
-        emit(len(levels), "strength_aggregate")
+        level = len(levels)
+        with phase(level, "strength_aggregate"):
+            res = host.amg_strength_native(cur.rows, cur.offsets, cur.indices, cur.vals, theta)
+            if res is None:
+                res = _strength_numpy(cur.rows, cur.offsets, cur.indices, cur.vals, theta)
+            dvec, abssum, so, si = res
+            agg, n_agg = aggregate_strong(cur.rows, so, si)
         if n_agg >= cur.rows:  # no coarsening possible (e.g. diagonal A)
             break
-        # P in A's value dtype, so every product stays on one engine
-        p = tentative_prolongator(agg, n_agg, dtype=cur.vals.dtype)
-        dinv = np.where(dvec != 0.0, 1.0 / np.where(dvec == 0.0, 1.0, dvec), 1.0)
-        lam = float(np.max(abssum * np.abs(dinv))) if cur.nnz() else 1.0
-        if smooth_prolongator:
-            omega_p = (4.0 / 3.0) / lam
-            fused = host.colmap_smoothed_native(cur, omega_p * dinv, p)
-            if fused is not None:
-                p = fused
-            else:
-                from ..ops.spgemm_block import spgemm_auto
-
-                s_mat = _jacobi_smoother_matrix(cur, omega_p * dinv)
-                if s_mat is not None:
-                    p = spgemm_auto(s_mat, p, output_sorted=True, device=device)
-                else:
-                    # rows without an explicit diagonal: the identity widens
-                    # the pattern, so subtract by union merge
-                    p = p - spgemm_auto(_scale_rows(cur, omega_p * dinv), p,
-                                        output_sorted=False, device=device)
-        emit(len(levels), "smooth", p_nnz=p.nnz())
-        level = len(levels)
+        with phase(level, "smooth") as info:
+            # P in A's value dtype, so every product stays on one engine
+            p = tentative_prolongator(agg, n_agg, dtype=cur.vals.dtype)
+            dinv = np.where(dvec != 0.0, 1.0 / np.where(dvec == 0.0, 1.0, dvec), 1.0)
+            lam = float(np.max(abssum * np.abs(dinv))) if cur.nnz() else 1.0
+            if smooth_prolongator:
+                p = _smoothed_prolongator(cur, p, (4.0 / 3.0) / lam * dinv, device)
+            info["p_nnz"] = p.nnz()
         levels.append((cur, p, dinv, lam))
-        cur = _galerkin(p, cur, device, None if on_phase is None else
-                        (lambda engine, n, level=level:
-                         on_phase(level, "galerkin", engine=engine, products=n)))
+        cur = _galerkin(p, cur, device, phase, level)
     return levels, cur
 
 
-def _galerkin(p, a, device=None, on_product: Optional[Callable] = None):
+def _smoothed_prolongator(a, p0, ws: np.ndarray, device) -> CsrMatrix:
+    """``(I - diag(ws) A) P0`` in one fused host pass where the library
+    takes it, else through ``spgemm_auto``."""
+    fused = host.colmap_smoothed_native(a, ws, p0)
+    if fused is not None:
+        return fused
+    from ..ops.spgemm_block import spgemm_auto
+
+    s_mat = _jacobi_smoother_matrix(a, ws)
+    if s_mat is not None:
+        return spgemm_auto(s_mat, p0, output_sorted=True, device=device)
+    # rows without an explicit diagonal: the identity widens the pattern,
+    # so subtract by union merge
+    return p0 - spgemm_auto(_scale_rows(a, ws), p0, output_sorted=False, device=device)
+
+
+def _galerkin(p, a, device, phase: _Phases, level: int):
     """Coarse operator ``P^T A P`` through ``spgemm_auto``, the last product
     sorted (level operators feed format planners that expect sorted CSR).
-    ``on_product(engine, products)`` is called after each product."""
+    Each product is one ``galerkin`` phase of level ``level``, with its
+    engine and scalar products."""
     from ..ops.spgemm_block import spgemm_auto_with_engine
 
     def run(lhs, rhs, output_sorted):
-        out, engine = spgemm_auto_with_engine(lhs, rhs, output_sorted=output_sorted,
-                                              device=device)
-        if on_product is not None:
-            on_product(engine, int(host.flops_per_row_native(lhs, rhs).sum()))
+        with phase(level, "galerkin") as info:
+            out, engine = spgemm_auto_with_engine(lhs, rhs, output_sorted=output_sorted,
+                                                  device=device)
+            if phase.on_phase is not None:
+                info.update(engine=engine,
+                            products=int(host.flops_per_row_native(lhs, rhs).sum()))
         return out
 
     ap = run(a, p, False)

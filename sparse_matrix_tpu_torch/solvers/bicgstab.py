@@ -13,7 +13,8 @@ from typing import Callable
 
 import torch
 
-from .cg import CgResult, _tol2_t
+from ..utils.profiling import span
+from .cg import CgResult, _flag, _matvec, _precond, _tol2_t
 
 __all__ = ["bicgstab_solve"]
 
@@ -26,13 +27,14 @@ def _guard(v: torch.Tensor) -> torch.Tensor:
 
 
 def _bicgstab_step(matvec, m_inv, r_hat, x, p, r, rho):
-    """One iteration: the next ``(x, p, r, rho, rr, ok)``."""
-    p_hat = m_inv(p)
-    v = matvec(p_hat)
+    """One iteration: the next ``(x, p, r, rho, rr, ok)``; ``m_inv`` None
+    is the identity."""
+    p_hat = _precond(m_inv, p)
+    v = _matvec(matvec, p_hat)
     alpha = rho / _guard(torch.dot(r_hat, v))
     s = r - alpha * v
-    s_hat = m_inv(s)
-    t = matvec(s_hat)
+    s_hat = _precond(m_inv, s)
+    t = _matvec(matvec, s_hat)
     tt = torch.dot(t, t)
     omega = torch.dot(t, s) / torch.where(tt < _EPS, _EPS, tt)
     x = x + alpha * p_hat + omega * s_hat
@@ -60,19 +62,18 @@ def bicgstab_solve(
     residual, so the stopping test needs no unpreconditioned re-check);
     pass e.g. :func:`~.ilu.ilu_preconditioner`.
     """
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    if m_inv is None:
-        m_inv = lambda v: v  # noqa: E731
-    r = b - matvec(x)
-    r_hat = r
-    rho = torch.dot(r_hat, r)
-    p = r
-    rr = torch.dot(r, r)
-    tol2 = _tol2_t(tol, torch.dot(b, b))
-    live = rr > tol2
-    k = 0
-    while k < maxiter and bool(live):
-        x, p, r, rho, rr, ok = _bicgstab_step(matvec, m_inv, r_hat, x, p, r, rho)
-        live = (rr > tol2) & ok
-        k += 1
-    return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
+    with span("spmx.solve"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        r = b - _matvec(matvec, x)
+        r_hat = r
+        rho = torch.dot(r_hat, r)
+        p = r
+        rr = torch.dot(r, r)
+        tol2 = _tol2_t(tol, torch.dot(b, b))
+        live = rr > tol2
+        k = 0
+        while k < maxiter and _flag(live):
+            x, p, r, rho, rr, ok = _bicgstab_step(matvec, m_inv, r_hat, x, p, r, rho)
+            live = (rr > tol2) & ok
+            k += 1
+        return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))

@@ -6,7 +6,10 @@ and stopping rule (iterate while ``rs > tol^2 * |b|^2`` and
 ``lax.while_loop``. Each iteration reads the residual norm to the host
 once to test the stopping rule; that read waits for the device, so every
 iteration pays one host-device synchronisation (CUDA graphs would remove
-it; see PERF.md). The matvec is any callable on tensors, typically an
+it; see PERF.md). Spans (``utils/profiling.py``, off by default) mark
+each solve (``spmx.solve``), its outer matvecs (``spmx.krylov.matvec``),
+its ``M^-1`` (``spmx.krylov.precond``) and its host reads
+(``spmx.krylov.sync``). The matvec is any callable on tensors, typically an
 :class:`~sparse_matrix_tpu_torch.ops.operator.SpmvOperator`.
 """
 
@@ -16,6 +19,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 __all__ = [
     "CgResult",
@@ -42,7 +47,37 @@ def _tol2_t(tol: float, b_norm2: torch.Tensor) -> torch.Tensor:
 
 
 def _tol2(tol: float, b_norm2: torch.Tensor) -> float:
-    return float(_tol2_t(tol, b_norm2))
+    t = _tol2_t(tol, b_norm2)
+    with span("spmx.krylov.sync"):
+        return float(t)
+
+
+def _matvec(matvec, v):
+    """``matvec(v)``, the Krylov loop's outer matvec, in its span."""
+    with span("spmx.krylov.matvec"):
+        return matvec(v)
+
+
+def _precond(precond, v):
+    """``precond(v)``, the loop's ``M^-1``, in its span; ``precond`` None
+    is the identity."""
+    if precond is None:
+        return v
+    with span("spmx.krylov.precond"):
+        return precond(v)
+
+
+def _above(v: torch.Tensor, bound: float) -> bool:
+    """The stopping test ``v > bound``: one host read of ``v``, which
+    waits for the device."""
+    with span("spmx.krylov.sync"):
+        return float(v) > bound
+
+
+def _flag(flag: torch.Tensor) -> bool:
+    """A stopping test's host read of a 0-d flag."""
+    with span("spmx.krylov.sync"):
+        return bool(flag)
 
 
 def cg_solve(
@@ -57,22 +92,23 @@ def cg_solve(
 
     Convergence: ||r||_2 <= tol * ||b||_2.
     """
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - matvec(x)
-    p = r
-    rs = torch.dot(r, r)
-    tol2 = _tol2(tol, torch.dot(b, b))
-    k = 0
-    while k < maxiter and float(rs) > tol2:
-        x, r, p, rs = _cg_step(matvec, x, r, p, rs)
-        k += 1
-    return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rs))
+    with span("spmx.solve"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        r = b - _matvec(matvec, x)
+        p = r
+        rs = torch.dot(r, r)
+        tol2 = _tol2(tol, torch.dot(b, b))
+        k = 0
+        while k < maxiter and _above(rs, tol2):
+            x, r, p, rs = _cg_step(matvec, x, r, p, rs)
+            k += 1
+        return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rs))
 
 
 def _cg_step(matvec, x, r, p, rs):
     """One iteration of :func:`cg_solve` (its device work; the stopping
     test's host read stays in the loop): the next ``(x, r, p, rs)``."""
-    ap = matvec(p)
+    ap = _matvec(matvec, p)
     alpha = rs / torch.dot(p, ap)
     x = x + alpha * p
     r = r - alpha * ap
@@ -84,7 +120,7 @@ def _cg_step(matvec, x, r, p, rs):
 def _ir_inner_step(matvec_lo, d, q, p, rs):
     """One inner iteration of :func:`cg_solve_ir` (CG on ``A_lo d = r``
     with guarded divisions): the next ``(d, q, p, rs)``."""
-    ap = matvec_lo(p)
+    ap = _matvec(matvec_lo, p)
     pap = torch.dot(p, ap)
     alpha = rs / torch.where(pap == 0, 1.0, pap)
     d = d + alpha * p
@@ -114,9 +150,6 @@ def cg_solve_ir(
     solving ``A_lo d = r`` to ``inner_tol`` relative; then ``x += d``.
     ``iterations`` counts inner matvecs and ``maxiter`` bounds that count.
     """
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    tol2 = _tol2(tol, torch.dot(b, b))
-
     def inner(r, budget):
         d = torch.zeros_like(r)
         q = r
@@ -124,22 +157,25 @@ def cg_solve_ir(
         rs = torch.dot(r, r)
         itol2 = _tol2(inner_tol, rs)
         k = 0
-        while k < inner_maxiter and k < budget and float(rs) > itol2:
+        while k < inner_maxiter and k < budget and _above(rs, itol2):
             d, q, p, rs = _ir_inner_step(matvec_lo, d, q, p, rs)
             k += 1
         return d, k
 
-    r0 = b - matvec_hi(x)
-    rr = torch.dot(r0, r0)
-    k = 0
-    while k < maxiter and float(rr) > tol2:
-        r = b - matvec_hi(x)
-        d, ki = inner(r, maxiter - k)
-        x = x + d
-        r2 = b - matvec_hi(x)
-        rr = torch.dot(r2, r2)
-        k += ki
-    return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
+    with span("spmx.solve"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        tol2 = _tol2(tol, torch.dot(b, b))
+        r0 = b - _matvec(matvec_hi, x)
+        rr = torch.dot(r0, r0)
+        k = 0
+        while k < maxiter and _above(rr, tol2):
+            r = b - _matvec(matvec_hi, x)
+            d, ki = inner(r, maxiter - k)
+            x = x + d
+            r2 = b - _matvec(matvec_hi, x)
+            rr = torch.dot(r2, r2)
+            k += ki
+        return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
 
 
 def jacobi_preconditioner(m, device, dtype=torch.float32) -> Callable:
@@ -171,28 +207,29 @@ def pcg_solve(
     """Preconditioned CG: ``precond`` applies M^-1 (e.g.
     :func:`jacobi_preconditioner`); convergence on the true residual
     ||r||_2 <= tol * ||b||_2."""
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - matvec(x)
-    z = precond(r)
-    p = z
-    rz = torch.dot(r, z)
-    rr = torch.dot(r, r)
-    tol2 = _tol2(tol, torch.dot(b, b))
-    k = 0
-    while k < maxiter and float(rr) > tol2:
-        x, r, p, rz, rr = _pcg_step(matvec, precond, x, r, p, rz)
-        k += 1
-    return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
+    with span("spmx.solve"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        r = b - _matvec(matvec, x)
+        z = _precond(precond, r)
+        p = z
+        rz = torch.dot(r, z)
+        rr = torch.dot(r, r)
+        tol2 = _tol2(tol, torch.dot(b, b))
+        k = 0
+        while k < maxiter and _above(rr, tol2):
+            x, r, p, rz, rr = _pcg_step(matvec, precond, x, r, p, rz)
+            k += 1
+        return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
 
 
 def _pcg_step(matvec, precond, x, r, p, rz):
     """One iteration of :func:`pcg_solve` (its device work; the stopping
     test's host read stays in the loop): the next ``(x, r, p, rz, rr)``."""
-    ap = matvec(p)
+    ap = _matvec(matvec, p)
     alpha = rz / torch.dot(p, ap)
     x = x + alpha * p
     r = r - alpha * ap
-    z = precond(r)
+    z = _precond(precond, r)
     rz_new = torch.dot(r, z)
     p = z + (rz_new / rz) * p
     return x, r, p, rz_new, torch.dot(r, r)
@@ -233,18 +270,20 @@ def cg_solve_multi(
     converged column freezes until all have converged or ``maxiter`` is
     reached. One host read per iteration tests the stopping rule.
     ``residual_norm`` is the (K,) recursive residual norms."""
-    colsum, bc = _rhs_layout(b, rhs_axis)
-    x = torch.zeros_like(b)
-    r = b - matvec_multi(x)
-    p = r
-    rs = colsum(r, r)
-    tol2 = _tol2_t(tol, colsum(b, b))
-    live = rs > tol2
-    k = 0
-    while k < maxiter and bool(live.any()):
-        x, r, p, rs, live = _cg_multi_step(matvec_multi, colsum, bc, tol2, live, x, r, p, rs)
-        k += 1
-    return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rs))
+    with span("spmx.solve"):
+        colsum, bc = _rhs_layout(b, rhs_axis)
+        x = torch.zeros_like(b)
+        r = b - _matvec(matvec_multi, x)
+        p = r
+        rs = colsum(r, r)
+        tol2 = _tol2_t(tol, colsum(b, b))
+        live = rs > tol2
+        k = 0
+        while k < maxiter and _flag(live.any()):
+            x, r, p, rs, live = _cg_multi_step(matvec_multi, colsum, bc, tol2, live,
+                                               x, r, p, rs)
+            k += 1
+        return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rs))
 
 
 def _cg_multi_step(matvec_multi, colsum, bc, tol2, live, x, r, p, rs):
@@ -252,7 +291,7 @@ def _cg_multi_step(matvec_multi, colsum, bc, tol2, live, x, r, p, rs):
     read of ``live.any()`` stays in the loop): the columns in ``live``
     advance, the others keep their state. Returns the next
     ``(x, r, p, rs, live)``."""
-    ap = matvec_multi(p)
+    ap = _matvec(matvec_multi, p)
     pap = colsum(p, ap)
     alpha = torch.where(live, rs / torch.where(pap == 0, 1.0, pap), 0.0)
     x = x + bc(alpha) * p
@@ -278,23 +317,24 @@ def pcg_solve_multi(
     the (n, K) layout :func:`jacobi_preconditioner` broadcasts). Each column
     runs its own PCG recurrence on the M-inner product r.z and converges
     on its true residual; converged columns freeze."""
-    colsum, bc = _rhs_layout(b, rhs_axis)
-    x = torch.zeros_like(b)
-    r = b - matvec_multi(x)
-    z = precond(r)
-    p = z
-    rz = colsum(r, z)
-    rr = colsum(r, r)
-    tol2 = _tol2_t(tol, colsum(b, b))
-    k = 0
-    while k < maxiter:
-        live = rr > tol2
-        if not bool(live.any()):
-            break
-        x, r, p, rz, rr = _pcg_multi_step(matvec_multi, precond, colsum, bc, live,
-                                          x, r, p, rz, rr)
-        k += 1
-    return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
+    with span("spmx.solve"):
+        colsum, bc = _rhs_layout(b, rhs_axis)
+        x = torch.zeros_like(b)
+        r = b - _matvec(matvec_multi, x)
+        z = _precond(precond, r)
+        p = z
+        rz = colsum(r, z)
+        rr = colsum(r, r)
+        tol2 = _tol2_t(tol, colsum(b, b))
+        k = 0
+        while k < maxiter:
+            live = rr > tol2
+            if not _flag(live.any()):
+                break
+            x, r, p, rz, rr = _pcg_multi_step(matvec_multi, precond, colsum, bc, live,
+                                              x, r, p, rz, rr)
+            k += 1
+        return CgResult(x=x, iterations=k, residual_norm=torch.sqrt(rr))
 
 
 def _pcg_multi_step(matvec_multi, precond, colsum, bc, live, x, r, p, rz, rr):
@@ -302,12 +342,12 @@ def _pcg_multi_step(matvec_multi, precond, colsum, bc, live, x, r, p, rz, rr):
     read of ``live.any()`` stays in the loop): the columns in ``live``
     advance, the others keep their state. Returns the next
     ``(x, r, p, rz, rr)``."""
-    ap = matvec_multi(p)
+    ap = _matvec(matvec_multi, p)
     pap = colsum(p, ap)
     alpha = torch.where(live, rz / torch.where(pap == 0, 1.0, pap), 0.0)
     x = x + bc(alpha) * p
     r = r - bc(alpha) * ap
-    z = precond(r)
+    z = _precond(precond, r)
     rz_new = colsum(r, z)
     beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
     p = torch.where(bc(live), z + bc(beta) * p, p)

@@ -17,7 +17,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .cg import CgResult
+from ..utils.profiling import span
+from .cg import CgResult, _matvec, _precond
 
 __all__ = ["gmres_solve"]
 
@@ -27,7 +28,7 @@ _EPS = 1e-30
 def _arnoldi_cycle(matvec, m_inv, b, x, m: int, tol_abs: float):
     """One GMRES(m) cycle from ``x``: returns ``(x_new, |b - A x_new|)``."""
     np_dtype = torch.empty(0, dtype=b.dtype).numpy().dtype
-    r = b - matvec(x)
+    r = b - _matvec(matvec, x)
     beta = torch.sqrt(torch.dot(r, r))
     basis = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
     basis[0] = r / torch.clamp(beta, min=_EPS)
@@ -35,19 +36,19 @@ def _arnoldi_cycle(matvec, m_inv, b, x, m: int, tol_abs: float):
     cs = np.zeros(m, np_dtype)
     sn = np.zeros(m, np_dtype)
     g = np.zeros(m + 1, np_dtype)
-    g[0] = beta.cpu().numpy()
+    g[0] = _read(beta)
     eps = np_dtype.type(_EPS)
     for j in range(m):
         if abs(g[j]) <= tol_abs:
             break
-        w = matvec(m_inv(basis[j]))
+        w = _matvec(matvec, _precond(m_inv, basis[j]))
         # Gram-Schmidt against the j + 1 basis vectors built so far
         hcol_t = basis[: j + 1] @ w
         w = w - hcol_t @ basis[: j + 1]
         hnext = torch.sqrt(torch.dot(w, w))
         basis[j + 1] = w / torch.clamp(hnext, min=_EPS)
         hcol = np.zeros(m + 1, np_dtype)
-        hcol[: j + 2] = torch.cat([hcol_t, hnext[None]]).cpu().numpy()
+        hcol[: j + 2] = _read(torch.cat([hcol_t, hnext[None]]))
         for i in range(j):  # the earlier rotations, on the new column
             a = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
             hcol[i + 1] = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
@@ -67,9 +68,15 @@ def _arnoldi_cycle(matvec, m_inv, b, x, m: int, tol_abs: float):
         si = g[i] - h[i] @ y
         y[i] = si / h[i, i] if abs(h[i, i]) > eps else 0
     y_t = torch.from_numpy(y).to(b.device)
-    x_new = x + m_inv(y_t @ basis[:m])
-    r_new = b - matvec(x_new)
+    x_new = x + _precond(m_inv, y_t @ basis[:m])
+    r_new = b - _matvec(matvec, x_new)
     return x_new, torch.sqrt(torch.dot(r_new, r_new))
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """A host read of ``t`` for the rotations and the stopping test."""
+    with span("spmx.krylov.sync"):
+        return t.cpu().numpy()
 
 
 def gmres_solve(
@@ -90,16 +97,15 @@ def gmres_solve(
     sees the true residual, and only the cycle's update pays one extra
     ``m_inv``); pair with :func:`~.ilu.ilu_preconditioner`.
     """
-    if m_inv is None:
-        m_inv = lambda v: v  # noqa: E731
-    m = min(restart, b.shape[0])
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    b_norm = float(torch.sqrt(torch.dot(b, b)))
-    tol_abs = tol * (b_norm if b_norm > 0 else 1.0)
-    r0 = b - matvec(x)
-    res = torch.sqrt(torch.dot(r0, r0))
-    k = 0
-    while k < maxiter and float(res) > tol_abs:
-        x, res = _arnoldi_cycle(matvec, m_inv, b, x, m, tol_abs)
-        k += m
-    return CgResult(x=x, iterations=k, residual_norm=res)
+    with span("spmx.solve"):
+        m = min(restart, b.shape[0])
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        b_norm = float(_read(torch.sqrt(torch.dot(b, b))))
+        tol_abs = tol * (b_norm if b_norm > 0 else 1.0)
+        r0 = b - _matvec(matvec, x)
+        res = torch.sqrt(torch.dot(r0, r0))
+        k = 0
+        while k < maxiter and float(_read(res)) > tol_abs:
+            x, res = _arnoldi_cycle(matvec, m_inv, b, x, m, tol_abs)
+            k += m
+        return CgResult(x=x, iterations=k, residual_norm=res)

@@ -34,6 +34,7 @@ import torch
 
 from ..formats.csr import CsrMatrix
 from ..native import host
+from ..utils.profiling import span
 
 __all__ = [
     "IluFactors",
@@ -248,27 +249,32 @@ class TriangularJacobi:
                 raise ValueError("factor is not fusable (not banded or too small)")
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
-        if b.dim() == 1 and self._fused is not None:
-            from ..ops.trisweep import trisweep
+        """The approximate solve ``T x = b``, in the span
+        ``spmx.ilu.sweep``."""
+        with span("spmx.ilu.sweep"):
+            if b.dim() == 1 and self._fused is not None:
+                from ..ops.trisweep import trisweep
 
-            return trisweep(self._fused, b, self.dinv, sweeps=self.sweeps)
-        dinv = self.dinv if b.dim() == 1 else self.dinv[:, None]
-        apply_n = self.n_op if b.dim() == 1 else self.n_op.matmat
-        x = dinv * b
-        for _ in range(self.sweeps):
-            x = dinv * (b - apply_n(x))
-        return x
+                return trisweep(self._fused, b, self.dinv, sweeps=self.sweeps)
+            dinv = self.dinv if b.dim() == 1 else self.dinv[:, None]
+            apply_n = self.n_op if b.dim() == 1 else self.n_op.matmat
+            x = dinv * b
+            for _ in range(self.sweeps):
+                x = dinv * (b - apply_n(x))
+            return x
 
 
 def ilu_preconditioner(a, *, device, sweeps: int = 4, dtype=torch.float32, force=None,
                        fused=None, values_dtype=None) -> Callable:
     """``M^-1 r ~= U^-1 L^-1 r`` from ILU(0), both solves by Jacobi sweeps
-    on ``device``. For unsymmetric systems (BiCGStab, GMRES)."""
-    f = ilu0(a)
-    kw = dict(device=device, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
-              values_dtype=values_dtype)
-    sl = TriangularJacobi(f.l, **kw)
-    su = TriangularJacobi(f.u, **kw)
+    on ``device``. For unsymmetric systems (BiCGStab, GMRES). The
+    factorization and both sweep plans are the span ``spmx.plan.ilu``."""
+    with span("spmx.plan.ilu"):
+        f = ilu0(a)
+        kw = dict(device=device, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
+                  values_dtype=values_dtype)
+        sl = TriangularJacobi(f.l, **kw)
+        su = TriangularJacobi(f.u, **kw)
     return lambda r: su(sl(r))
 
 
@@ -277,12 +283,14 @@ def ic_preconditioner(a, *, device, sweeps: int = 4, dtype=torch.float32, force=
     """Symmetric PSD ``M^-1 ~= L^-T L^-1`` from IC(0). Both solves use the
     same sweep count, so the lower-solve polynomial ``S`` and the
     upper-solve polynomial are exact transposes and ``M^-1 = S^T S`` for
-    any sweep count, as PCG requires."""
-    lc = ic0(a)
-    kw = dict(device=device, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
-              values_dtype=values_dtype)
-    sl = TriangularJacobi(lc, **kw)
-    su = TriangularJacobi(lc.transpose(), **kw)
+    any sweep count, as PCG requires. The factorization and both sweep
+    plans are the span ``spmx.plan.ilu``."""
+    with span("spmx.plan.ilu"):
+        lc = ic0(a)
+        kw = dict(device=device, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
+                  values_dtype=values_dtype)
+        sl = TriangularJacobi(lc, **kw)
+        su = TriangularJacobi(lc.transpose(), **kw)
     return lambda r: su(sl(r))
 
 
@@ -410,10 +418,12 @@ def ilut(a, *, tau: float = 1e-3, p: int = 10) -> IluFactors:
 def ilut_preconditioner(a, *, device, tau: float = 1e-3, p: int = 10, sweeps: int = 4,
                         dtype=torch.float32, force=None) -> Callable:
     """``M^-1 r ~= U^-1 L^-1 r`` from ILUT, the stronger (more fill) sibling
-    of :func:`ilu_preconditioner`; its solves take the loop form."""
-    f = ilut(a, tau=tau, p=p)
-    sl = TriangularJacobi(f.l, device=device, sweeps=sweeps, dtype=dtype, force=force)
-    su = TriangularJacobi(f.u, device=device, sweeps=sweeps, dtype=dtype, force=force)
+    of :func:`ilu_preconditioner`; its solves take the loop form. The
+    factorization and both sweep plans are the span ``spmx.plan.ilu``."""
+    with span("spmx.plan.ilu"):
+        f = ilut(a, tau=tau, p=p)
+        sl = TriangularJacobi(f.l, device=device, sweeps=sweeps, dtype=dtype, force=force)
+        su = TriangularJacobi(f.u, device=device, sweeps=sweeps, dtype=dtype, force=force)
     return lambda r: su(sl(r))
 
 

@@ -1918,3 +1918,55 @@ def test_amg_float64_refused_on_card(dev):
     for kw in ({}, {"values_dtype": torch.bfloat16}):
         with pytest.raises(TypeError, match="float64"):
             amg.amg_setup(a, device=dev, dtype=torch.float64, **kw)
+
+
+def test_spans_hold_their_device_work(dev, tmp_path):
+    """AMG-PCG and an ESC refresh on the card under ``profiling.trace``: the
+    Chrome trace holds the program's spans on the clock of the kernels they
+    launched (each level's span holds the device time of the levels below
+    it, each stopping-test read a device-to-host copy), and the spans launch
+    nothing and change no bit."""
+    import json
+
+    from sparse_matrix_tpu_torch.bench.amg_times import _device_ms_in
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.device_sorted import EscSpgemm
+    from sparse_matrix_tpu_torch.solvers import amg
+    from sparse_matrix_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = poisson_2d_csr(128, dtype=np.float32)
+    hier = amg.amg_setup(a, device=dev, coarse_size=100)
+    eng = EscSpgemm(a, a, device=dev, reduce="sort")
+    b = torch.from_numpy(np.random.default_rng(22).standard_normal(a.rows)
+                         .astype(np.float32)).to(dev)
+
+    def solve_and_refresh():
+        before = dict(kernels.launch_counts)
+        res = amg.amg_pcg_solve(a, b, tol=1e-5, maxiter=100, hierarchy=hier)
+        c = eng.multiply_device()
+        torch.cuda.synchronize()
+        grown = {k: v - before.get(k, 0) for k, v in kernels.launch_counts.items()}
+        return res, c, grown
+
+    res_off, c_off, grown_off = solve_and_refresh()
+    path = tmp_path / "spans.json"
+    with profiling.trace(path):
+        res_on, c_on, grown_on = solve_and_refresh()
+    assert profiling.take() == []  # spans were off: the trace alone holds them
+    assert grown_on == grown_off and res_on.iterations == res_off.iterations
+    assert torch.equal(res_on.x, res_off.x) and torch.equal(c_on.val, c_off.val)
+    data = json.loads(path.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    assert [e.get("name") for e in events if e.get("ph") == "X"].count("spmx.esc.multiply") == 1
+    nlev = len(hier.levels)
+    assert nlev >= 2
+    levels = [f"spmx.amg.level{i}" for i in range(nlev)] + ["spmx.amg.coarse"]
+    ms = _device_ms_in(events, levels + ["spmx.krylov.sync", "spmx.esc.expand",
+                                         "spmx.esc.reduce", "spmx.esc.multiply"])
+    for upper, lower in zip(levels, levels[1:]):
+        assert ms[upper] > ms[lower] > 0
+    assert ms["spmx.krylov.sync"] > 0  # the reads' device-to-host copies
+    assert ms["spmx.esc.expand"] > 0 and ms["spmx.esc.reduce"] > 0
+    assert ms["spmx.esc.multiply"] == pytest.approx(ms["spmx.esc.expand"]
+                                                    + ms["spmx.esc.reduce"])

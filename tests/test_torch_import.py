@@ -11,8 +11,9 @@
   ``sparse_matrix_tpu``.
 * The capability rules of tests/test_capability_discipline.py, applied to
   the port: no unseeded or global RNG, environment reads only in
-  ``native/build.py``, wall clocks only in chip_smoke.py, no bare
-  ``open()``.
+  ``native/build.py``, wall clocks (the ``_ns`` forms too) only in
+  chip_smoke.py and in ``utils/profiling.py``'s spans, which read the
+  clock only while they are on, no bare ``open()``.
 * No silent CPU fallback: ``device="cuda"`` without a GPU raises, the
   kernel wrappers refuse CPU tensors, and a missing nvcc raises.
 """
@@ -30,6 +31,9 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "sparse_matrix_tpu_torch"
 ENV_ALLOWED = {"native/build.py"}
+CLOCK_ALLOWED = {"chip_smoke.py", "utils/profiling.py"}
+WALL_CLOCKS = ("time.time", "time.perf_counter", "time.monotonic",
+               "time.time_ns", "time.perf_counter_ns", "time.monotonic_ns")
 
 _BLOCK_JAX = """
 import importlib.abc, sys
@@ -137,7 +141,7 @@ def test_capability_discipline_in_port():
                 problems.append(f"{rel}:{node.lineno}: global RNG {d}")
             if d.startswith("torch.") and d.split(".")[-1] in ("manual_seed", "seed", "rand", "randn"):
                 problems.append(f"{rel}:{node.lineno}: torch global RNG {d}")
-            if d in ("time.time", "time.perf_counter", "time.monotonic") and rel != "chip_smoke.py":
+            if d in WALL_CLOCKS and rel not in CLOCK_ALLOWED:
                 problems.append(f"{rel}:{node.lineno}: wall clock {d}")
             if d == "open":
                 problems.append(f"{rel}:{node.lineno}: bare open()")
