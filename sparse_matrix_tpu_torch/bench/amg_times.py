@@ -25,6 +25,11 @@ formats and, for one V-cycle on a vector and on an (n, k) block:
   (``spmx.amg.level<l>``, ``spmx.amg.coarse``; ``utils/profiling.py``):
   the device operations each level's span launched, less its lower
   levels'. The host's gaps are not in it.
+
+The vector's ``graph`` row times the ``M^-1`` that PCG calls
+(``hier.preconditioner()``), which replays the V-cycle captured as one
+CUDA graph: its ``wall_ms`` and ``device_ms`` as above, beside the eager
+V-cycle's.
 """
 
 from __future__ import annotations
@@ -190,6 +195,16 @@ def main() -> int:
         out[tag] = dict(wall_ms=wall, device_ms=dev_ms, host_share=max(0.0, 1 - dev_ms / wall),
                         profiled_device_ms=prof_ms, kernels=kern,
                         by_level=_by_level(torch, hier, r, args.reps))
+        if r.dim() == 1:
+            m_inv = hier.preconditioner()
+            m_inv(r)  # the capture
+
+            def replays(r=r, m_inv=m_inv):
+                for _ in range(args.reps):
+                    m_inv(r)
+
+            out[tag]["graph"] = dict(wall_ms=_events_ms(torch, replays) / args.reps,
+                                     device_ms=_device_ms(torch, lambda: m_inv(r), args.reps))
     print(json.dumps(out))
     return 0
 

@@ -21,9 +21,13 @@ Counterpart of ``sparse_matrix_tpu/solvers/amg.py``:
   or Chebyshev, identical pre and post), restriction by ``P^T``, and the
   coarsest solve one dense ``coarse_inv @ r`` (a float64 pseudo-inverse
   from the host, cast to ``dtype``; one FP32 ``torch.matmul``, refused while
-  TF32 matmuls are allowed, ROADMAP.md C5). It runs eagerly: each level's
-  applies and vector updates are launched from Python, and PCG reads one
-  scalar to the host an iteration.
+  TF32 matmuls are allowed, ROADMAP.md C5). :meth:`AmgHierarchy.vcycle`
+  runs eagerly: each level's applies and vector updates are launched from
+  Python. The ``M^-1`` of :meth:`AmgHierarchy.preconditioner` replays that
+  V-cycle as one CUDA graph on a residual vector on the card (captured at
+  its first such call), so PCG's host launches one graph an iteration
+  instead of its ~100 small kernels; PCG reads one scalar to the host an
+  iteration.
 
 Not ported: ``AmgHierarchy.as_pytree``, ``vcycle_p`` and ``_smooth_p`` (jit
 arguments; the port runs eagerly).
@@ -32,13 +36,13 @@ arguments; the port runs eagerly).
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..formats.csr import CsrMatrix
-from ..native import host
+from ..native import host, kernels
 from ..utils.profiling import span
 
 __all__ = [
@@ -276,13 +280,58 @@ def _apply(op, v):
     return op(v) if v.dim() == 1 else op.matmat(v)
 
 
-def _coarse_solve(coarse_inv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """``coarse_inv @ r`` in FP32: refused while TF32 matmuls are allowed
-    (ROADMAP.md C5)."""
-    if coarse_inv.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+def _refuse_tf32(device: torch.device) -> None:
+    """The coarse solve runs in FP32: raise while TF32 matmuls are allowed
+    on a card (ROADMAP.md C5)."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the AMG coarse solve runs in FP32: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _coarse_solve(coarse_inv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``coarse_inv @ r`` in FP32 (:func:`_refuse_tf32`)."""
+    _refuse_tf32(coarse_inv.device)
     return coarse_inv @ r
+
+
+class _CapturedVcycle(NamedTuple):
+    """One V-cycle of a hierarchy captured as a CUDA graph: ``graph``
+    replays ``vcycle(static_in)`` into ``static_out``; ``key`` is what the
+    capture read (:meth:`AmgHierarchy._graph_key`); ``launches`` the
+    kernel launches a replay runs, by ``kernels.launch_counts`` key."""
+
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: Dict[str, int]
+
+
+def _capture_vcycle(hier: "AmgHierarchy", r: torch.Tensor, key: tuple) -> _CapturedVcycle:
+    """Capture ``hier.vcycle`` on a copy of ``r`` by ``torch.cuda.graphs``'
+    rules: one eager V-cycle on a side stream first (it makes any launch
+    record not yet made, and cuBLAS's state for the coarse product), then
+    the capture. Every kernel of the V-cycle enqueues on PyTorch's current
+    stream, which the capture swaps for its own, and allocates through
+    PyTorch's allocator; nothing on its path reads the device, so the
+    graph holds exactly the eager kernels in their order. The launches
+    counted during the capture ran nothing: they are taken back, kept in
+    ``launches``, and counted again by each replay."""
+    with torch.cuda.device(r.device):
+        static_in = r.clone(memory_format=torch.contiguous_format)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            hier.vcycle(static_in)
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(kernels.launch_counts)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = hier.vcycle(static_in)
+    launches = {k: v - before[k] for k, v in kernels.launch_counts.items() if v != before[k]}
+    for k, v in launches.items():
+        kernels.launch_counts[k] -= v
+    return _CapturedVcycle(key, graph, static_in, static_out, launches)
 
 
 class AmgLevel(NamedTuple):
@@ -316,6 +365,8 @@ class AmgHierarchy:
         self._wdinv = [torch.tensor(omega, dtype=lv.dinv.dtype, device=lv.dinv.device)
                        * lv.dinv for lv in levels]
         self._spans = [f"spmx.amg.level{i}" for i in range(len(levels))]
+        self._rows = levels[0].n if levels else coarse_inv.shape[0]  # rows of the finest level
+        self._graph: Optional[_CapturedVcycle] = None
 
     def _smooth(self, level: int, x, r):
         """nu sweeps toward ``A x = r`` starting from ``x``; broadcasts over
@@ -346,7 +397,45 @@ class AmgHierarchy:
             return self._smooth(level, x, r)
 
     def preconditioner(self) -> Callable:
-        return lambda r: self.vcycle(r)
+        """``M^-1`` for PCG (:meth:`_m_inv`)."""
+        return self._m_inv
+
+    def _m_inv(self, r: torch.Tensor) -> torch.Tensor:
+        """``M^-1 r``: a residual vector on the hierarchy's CUDA device, of
+        the finest level's size and dtype, replays the V-cycle as one CUDA
+        graph (:meth:`_replay`); any other input (a CPU tensor, an (n, K)
+        block, another shape) runs the eager :meth:`vcycle`. Either way
+        the caller gets a tensor of its own."""
+        if (r.is_cuda and r.dim() == 1 and r.shape[0] == self._rows and r.dtype == self.dtype
+                and r.device == self.device):
+            return self._replay(r)
+        return self.vcycle(r)
+
+    def _graph_key(self) -> tuple:
+        """What a captured V-cycle read of the hierarchy's attributes: a
+        change to any of it recaptures. (The input's shape, dtype and
+        device are the hierarchy's on every replay; ``omega`` is fixed when
+        the hierarchy is built, in ``_wdinv``.)"""
+        return (self.smoother, self.nu, self.cheb_degree)
+
+    def _replay(self, r: torch.Tensor) -> torch.Tensor:
+        """One V-cycle by replaying the graph captured at the first call
+        with this key (the span ``spmx.amg.graph``): ``r`` copied in, the
+        graph launched, its output cloned, all on the current stream. Each
+        replay adds the graph's kernel launches to ``kernels.launch_counts``."""
+        _refuse_tf32(self.device)
+        key = self._graph_key()
+        if self._graph is None or self._graph.key != key:
+            self._graph = None  # the old graph's memory goes back before the capture
+            self._graph = _capture_vcycle(self, r, key)
+        g = self._graph
+        with span("spmx.amg.graph"):
+            g.static_in.copy_(r)
+            g.graph.replay()
+            out = g.static_out.clone()
+        for k, v in g.launches.items():
+            kernels.launch_counts[k] += v
+        return out
 
     def __repr__(self) -> str:  # pragma: no cover
         rows = ", ".join(f"{lv.n}({lv.nnz}nnz)" for lv in self.levels)
@@ -443,9 +532,7 @@ def amg_setup(
     dev = require_device(device)
     if a.rows != a.cols:
         raise ValueError("AMG requires a square operator")
-    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the AMG coarse solve runs in FP32: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    _refuse_tf32(dev)
     np_dtype = _NP_DTYPES[dtype]
     phase = _Phases(on_phase)
     if coarsening is not None:

@@ -221,6 +221,30 @@ def test_vcycle_matches_reference(smoother, k):
         assert _rel(got[:, 3].numpy(), one.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("k", [None, 8])
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+def test_preconditioner_off_the_card_stays_eager(smoother, k, monkeypatch):
+    """``preconditioner()`` on a CPU vector or an (n, K) block runs the
+    eager V-cycle: the bits of ``hier.vcycle``, in a tensor of the
+    caller's own, with no graph captured and no kernel launch counted."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    def no_capture(*_args):
+        raise AssertionError("a CUDA graph was captured off the card")
+
+    monkeypatch.setattr(amg, "_capture_vcycle", no_capture)
+    a = poisson_2d_csr(32, dtype=np.float32)
+    hier = amg.amg_setup(a, coarse_size=100, smoother=smoother, device=CPU)
+    shape = (a.rows,) if k is None else (a.rows, k)
+    r = torch.from_numpy(np.random.default_rng(14).standard_normal(shape).astype(np.float32))
+    before = dict(kernels.launch_counts)
+    m_inv = hier.preconditioner()
+    got = m_inv(r)
+    assert torch.equal(got, hier.vcycle(r)) and got.data_ptr() != r.data_ptr()
+    assert torch.equal(m_inv(r), got)
+    assert hier._graph is None and kernels.launch_counts == before
+
+
 def _check_solution(a, x, b):
     dense = a.to_dense().astype(np.float64)
     np.testing.assert_allclose(dense @ np.asarray(x, np.float64), b, atol=5e-4)

@@ -1920,12 +1920,154 @@ def test_amg_float64_refused_on_card(dev):
             amg.amg_setup(a, device=dev, dtype=torch.float64, **kw)
 
 
+def _amg_graph_case(dev, n, smoother):
+    """A hierarchy on Poisson n^2 on the card and four residual vectors."""
+    from sparse_matrix_tpu_torch.solvers import amg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = poisson_2d_csr(n, dtype=np.float32)
+    hier = amg.amg_setup(a, device=dev, smoother=smoother)
+    rs = torch.from_numpy(np.random.default_rng(23).standard_normal((4, a.rows))
+                          .astype(np.float32)).to(dev)
+    return a, hier, rs
+
+
+def _launched(fn):
+    """``fn()`` with the spans on: its result, the kernel launches it
+    counted (``kernels.launch_counts``, once the device is done) and the
+    V-cycle replays it made (``spmx.amg.graph`` spans)."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.utils import profiling
+
+    profiling.take()
+    before = dict(kernels.launch_counts)
+    profiling.enable()
+    try:
+        out = fn()
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize()
+    grown = {k: kernels.launch_counts[k] - before[k] for k in before}
+    return out, grown, sum(s.name == "spmx.amg.graph" for s in profiling.take())
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+@pytest.mark.parametrize("n", [128, 256])
+def test_amg_graph_replay_equals_eager_vcycle(dev, n, smoother):
+    """``M^-1`` on a residual vector on the card replays the V-cycle
+    captured as one CUDA graph: bit-equal to the eager ``hier.vcycle`` over
+    several residuals; one ``spmx.amg.graph`` span a replay, and each
+    replay counts the eager V-cycle's kernel launches (the capture counts
+    none); each answer the caller's own, unchanged by the next call; eager
+    applies of every level's operators between replays (their scratch and
+    tickets used in stream order) change no bit."""
+    _a, hier, rs = _amg_graph_case(dev, n, smoother)
+    m_inv = hier.preconditioner()
+    first = m_inv(rs[0])  # captures, then replays
+    graph = hier._graph
+    assert graph is not None and graph.static_out.data_ptr() != first.data_ptr()
+    kept = first.clone()
+    _, eager, replays = _launched(lambda: hier.vcycle(rs[0]))
+    assert replays == 0 and sum(eager.values()) > 0
+    assert graph.launches == {k: v for k, v in eager.items() if v}
+    rest, grown, replays = _launched(lambda: [m_inv(r) for r in rs[1:]])
+    assert replays == len(rs) - 1
+    assert grown == {k: (len(rs) - 1) * v for k, v in eager.items()}
+    outs = [first] + rest
+    assert torch.equal(first, kept)
+    for r, got in zip(rs, outs):
+        assert torch.equal(got, hier.vcycle(r))
+    for r, want in zip(rs, outs):
+        for lv in hier.levels:
+            for op in (lv.a_op, lv.p_op, lv.pt_op):
+                op(torch.ones(op.cols, device=dev))
+        assert torch.equal(m_inv(r), want)
+    assert hier._graph is graph
+
+
+@pytest.mark.parametrize("smoother,knob", [("jacobi", "nu"), ("chebyshev", "cheb_degree")])
+def test_amg_graph_refuses_tf32_and_recaptures(dev, smoother, knob):
+    """The graph path refuses TF32 on every call, not only at capture, and
+    launches nothing then; a change to the smoother's sweep count
+    recaptures, and the new graph equals the eager V-cycle."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    _a, hier, rs = _amg_graph_case(dev, 128, smoother)
+    m_inv = hier.preconditioner()
+    old = m_inv(rs[0])
+    graph = hier._graph
+    before = dict(kernels.launch_counts)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            m_inv(rs[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert kernels.launch_counts == before
+    setattr(hier, knob, getattr(hier, knob) + 1)
+    new = m_inv(rs[0])
+    assert hier._graph is not graph and hier._graph.key != graph.key
+    assert torch.equal(new, hier.vcycle(rs[0])) and not torch.equal(new, old)
+    assert torch.equal(m_inv(rs[1]), hier.vcycle(rs[1]))
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+@pytest.mark.parametrize("n", [128, 256])
+def test_amg_pcg_graph_equals_eager_pcg(dev, n, smoother):
+    """``amg_pcg_solve`` on a vector (the graph path) takes the iterations,
+    gives the bits and counts the kernel launches of a PCG driven by the
+    eager ``hier.vcycle``, with one replay an ``M^-1``."""
+    from sparse_matrix_tpu_torch.solvers import amg, cg
+
+    a, hier, rs = _amg_graph_case(dev, n, smoother)
+    hier.preconditioner()(rs[1])  # the capture
+    res, grown, replays = _launched(
+        lambda: amg.amg_pcg_solve(a, rs[0], tol=1e-5, maxiter=100, hierarchy=hier))
+    eager, grown_eager, _ = _launched(
+        lambda: cg.pcg_solve(hier.levels[0].a_op, rs[0], hier.vcycle, tol=1e-5, maxiter=100))
+    assert replays == res.iterations + 1
+    assert res.iterations == eager.iterations and res.iterations <= 30
+    assert torch.equal(res.x, eager.x)
+    assert grown == grown_eager
+
+
+def _kernels_in(events, name):
+    """The device kernels launched inside the ranges ``name`` of a Chrome
+    trace, counted by kernel name (the launching runtime call, found by its
+    correlation id, lies in one of the ranges; a graph's kernels share its
+    launch's id)."""
+    import bisect
+    from collections import Counter
+
+    launch, ops, iv = {}, [], []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat, args = ev.get("cat", ""), ev.get("args") or {}
+        if cat == "kernel":
+            ops.append((args.get("correlation"), ev.get("name")))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = float(ev["ts"])
+        elif cat == "user_annotation" and ev.get("name") == name:
+            iv.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+    iv.sort()
+    starts = [s for s, _ in iv]
+    out = Counter()
+    for corr, kname in ops:
+        t = launch.get(corr)
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= iv[i][1]:
+            out[kname] += 1
+    return dict(out)
+
+
 def test_spans_hold_their_device_work(dev, tmp_path):
     """AMG-PCG and an ESC refresh on the card under ``profiling.trace``: the
     Chrome trace holds the program's spans on the clock of the kernels they
-    launched (each level's span holds the device time of the levels below
-    it, each stopping-test read a device-to-host copy), and the spans launch
-    nothing and change no bit."""
+    launched (each level's span of an eager V-cycle holds the device time
+    of the levels below it, each replay's ``spmx.amg.graph`` the eager
+    V-cycle's kernels, each stopping-test read a device-to-host copy), and
+    the spans launch nothing and change no bit."""
     import json
 
     from sparse_matrix_tpu_torch.bench.amg_times import _device_ms_in
@@ -1949,23 +2091,35 @@ def test_spans_hold_their_device_work(dev, tmp_path):
         grown = {k: v - before.get(k, 0) for k, v in kernels.launch_counts.items()}
         return res, c, grown
 
+    solve_and_refresh()  # the first M^-1 on a vector captures the V-cycle's graph
     res_off, c_off, grown_off = solve_and_refresh()
     path = tmp_path / "spans.json"
     with profiling.trace(path):
         res_on, c_on, grown_on = solve_and_refresh()
+        hier.vcycle(b)  # the eager V-cycle, whose level spans amg_times.py reads
     assert profiling.take() == []  # spans were off: the trace alone holds them
     assert grown_on == grown_off and res_on.iterations == res_off.iterations
     assert torch.equal(res_on.x, res_off.x) and torch.equal(c_on.val, c_off.val)
     data = json.loads(path.read_text())
     events = data["traceEvents"] if isinstance(data, dict) else data
-    assert [e.get("name") for e in events if e.get("ph") == "X"].count("spmx.esc.multiply") == 1
+    names = [e.get("name") for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    assert names.count("spmx.esc.multiply") == 1
+    assert names.count("spmx.amg.graph") == res_on.iterations + 1
     nlev = len(hier.levels)
     assert nlev >= 2
     levels = [f"spmx.amg.level{i}" for i in range(nlev)] + ["spmx.amg.coarse"]
-    ms = _device_ms_in(events, levels + ["spmx.krylov.sync", "spmx.esc.expand",
-                                         "spmx.esc.reduce", "spmx.esc.multiply"])
+    assert all(names.count(n) == 1 for n in levels)  # the replays open no level span
+    ms = _device_ms_in(events, levels + ["spmx.amg.graph", "spmx.krylov.sync",
+                                         "spmx.esc.expand", "spmx.esc.reduce",
+                                         "spmx.esc.multiply"])
     for upper, lower in zip(levels, levels[1:]):
         assert ms[upper] > ms[lower] > 0
+    # each replay holds the eager V-cycle's kernels (and the copies in and out)
+    graph_kernels = _kernels_in(events, "spmx.amg.graph")
+    vcycle_kernels = _kernels_in(events, "spmx.amg.level0")
+    assert graph_kernels == {k: (res_on.iterations + 1) * v for k, v in vcycle_kernels.items()}
+    assert ms["spmx.amg.graph"] > ms["spmx.amg.level0"] > 0
     assert ms["spmx.krylov.sync"] > 0  # the reads' device-to-host copies
     assert ms["spmx.esc.expand"] > 0 and ms["spmx.esc.reduce"] > 0
     assert ms["spmx.esc.multiply"] == pytest.approx(ms["spmx.esc.expand"]
