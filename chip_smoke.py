@@ -59,7 +59,7 @@ Phases, each of which ends the run with an exception on failure:
    run a dense-block case, the block-tridiagonal 16384^2 matrix of whole
    128 x 128 blocks (every depth row live), so the tile's dense rate is on
    record. TF32 must be off.
-3. Main path, in eight parts, each with every launch count set to 0 just
+3. Main path, in nine parts, each with every launch count set to 0 just
    before it and read just after:
    a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
       dispatched to DIA), the same with bf16 band planes through
@@ -108,6 +108,11 @@ Phases, each of which ends the run with an exception on failure:
       ``amg_pcg_solve`` to 1e-5 on a vector beside parts a and g, then on
       a K=8 block; a save/load round trip of the 512^2 coarsening, whose
       reloaded hierarchy must take the same iterations.
+   i. HPCG (HPCG 3.1's 104^3 local grid, float64): ``hpcg_hierarchy``
+      (4 levels, each A on the f64 DIA kernel, SymGS plans) timed, then
+      one set of ``amg_pcg_solve`` at tol 0 and 50 iterations on b = A 1
+      after the set that captures the V-cycle's graph, held to the plain
+      reference's set (``reference/hpcg.py``) on the card.
    Solves are checked for convergence and for their true residual (per
    column for the multi-RHS solves; the ILU solves within 10 tol |b|, the
    reference tests' acceptance), products against float64: SpGEMM
@@ -133,6 +138,14 @@ Phases, each of which ends the run with an exception on failure:
    yardstick, checked against the host solve) and its bound (the planes,
    b and dinv read once and y written once over 3.35 TB/s); and on
    Poisson 64^2, depth(L) - 1 = 126 sweeps equal to the exact host solve.
+7. The SymGS kernel (no TPU kernel) on part i's 104^3 level in float64:
+   one step against its plain version (``_symgs_torch``) on the same
+   inputs on the card, within ``symgs_f64_bound``, equal bits on two
+   calls, with its times and bound (two sweep directions, each the level's
+   matrix in its smallest plain form with 8-byte values, r read once and x
+   read and written once, over 3.35 TB/s; no library call computes it);
+   the level's f64 DIA SpMV against its plain version within 2 nb f64
+   roundoffs of |A||x|, beside ``torch.mv`` on the f64 CSR tensor.
 
 The last two lines are the kernels' JSON record (each kernel with its
 worst ``ms / library_ms`` over its cases, ``worst_library_factor``) and
@@ -184,6 +197,8 @@ REPLACES = {
                     "sparse_matrix_tpu/ops/device_sorted.py:204"),
     "trisweep": ("sparse_matrix_tpu_torch/csrc/trisweep.cu",
                  "sparse_matrix_tpu/ops/trisweep.py:88"),
+    # no TPU kernel: the JAX package has no Gauss-Seidel smoother
+    "symgs": ("sparse_matrix_tpu_torch/csrc/symgs_dia.cu", "no TPU kernel"),
 }
 # the kernels each part of the main path must launch
 PARTS = {
@@ -199,6 +214,9 @@ PARTS = {
     # levels' LanePack residuals, the coarsest P as stripe, BELL at 512^2
     "amg": ("dia", "dia_spmm", "aligned", "aligned_spmm", "lanepack", "lanepack_spmm",
             "stripe", "bell"),
+    # HPCG 104^3: every level's A on the f64 DIA kernel, every smoothing
+    # step on the SymGS kernel
+    "hpcg": ("symgs", "dia"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -211,13 +229,21 @@ U_F32 = 2.0 ** -24  # unit roundoff of float32
 K_RHS = 8
 ILU_TOL = 1e-6  # the unsymmetric ILU solves of part g
 TRISWEEP_SWEEPS = 4  # the kernel phase's sweep count (the reference's default)
+# part i: HPCG 3.1's local grid (hpcg.dat), its multigrid levels and a set's
+# iterations; a set is held to the plain reference's within the limits of
+# the benchmark's hpcg104.mg_pcg cell (sound runs read 1e-15 and below)
+HPCG_GRID = (104, 104, 104)
+HPCG_LEVELS = 4
+HPCG_ITERS = 50
+HPCG_LIMIT = 1e-9
 # AMG-PCG steps queued for their device time: a V-cycle launches about a
 # hundred kernels, and the queue behind the hold takes about a thousand
 AMG_STEP_CALLS = 4
-# H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak and dense
-# bf16 tensor-core peak
+# H100 SXM data sheet: HBM3 bandwidth, f32 and f64 (non-tensor-core) peaks
+# and dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 BF16_TC_FLOP_PER_S = 989e12
 # timed calls of a block SpGEMM case (tens of ms for the library at uniform 8192)
 SPGEMM_REPS = 5
@@ -2233,6 +2259,185 @@ def phase_trisweep_kernel(torch, dev, chk, state):
         f"(rtol 2e-4, atol 2e-5)")
 
 
+def part_hpcg(torch, dev, mats, ops, state):
+    """Part i: one HPCG set on 104^3 in float64 (HPCG 3.1's local grid):
+    ``hpcg_hierarchy`` (4 stencil-regenerated levels, every A on the f64
+    DIA kernel, a SymGS plan a level), then ``amg_pcg_solve`` at tol 0 and
+    50 iterations on HPCG's b = A 1 from x0 = 0, once to capture the
+    V-cycle's graph and once timed; the set must run 50 iterations, take
+    the graph, and lie within ``HPCG_LIMIT`` of the plain reference's
+    float64 set on the card, in x and in ``||b - A x|| / ||b||``."""
+    from sparse_matrix_tpu_torch.reference import hpcg as ref
+    from sparse_matrix_tpu_torch.solvers import amg
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_hierarchy
+
+    nx, ny, nz = HPCG_GRID
+    t0 = time.perf_counter()
+    h = hpcg_hierarchy(nx, ny, nz, device=dev, levels=HPCG_LEVELS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ops_all = [lv.a_op for lv in h.levels] + [h.coarse_level.a_op]
+    formats = [op.format for op in ops_all]
+    if formats != ["dia"] * HPCG_LEVELS or h.dtype != torch.float64:
+        raise AssertionError(f"HPCG levels dispatched to {formats} in {h.dtype}")
+    b = ref.hpcg_rhs(nx, ny, nz, dtype=torch.float64, device=dev)
+    a0 = h.levels[0].a_op
+
+    def one_set():
+        return amg.amg_pcg_solve(a0, b, hierarchy=h, tol=0.0, maxiter=HPCG_ITERS)
+
+    one_set()  # the graph's capture
+    torch.cuda.synchronize()
+    if h._graph is None:
+        raise AssertionError("the HPCG V-cycle took no CUDA graph")
+    t0 = time.perf_counter()
+    res = one_set()
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    want = ref.cg_set(b, nx, ny, nz, levels=HPCG_LEVELS, maxiter=HPCG_ITERS)
+
+    def residual(x):
+        r = b - ref.apply_a(x.reshape(nz, ny, nx)).reshape(-1)
+        return float(r.norm() / b.norm())
+
+    x_err = float((res.x - want.x).norm() / want.x.norm())
+    res_got, res_ref = residual(res.x), residual(want.x)
+    rec = dict(grid=list(HPCG_GRID), levels=HPCG_LEVELS, setup_s=setup_s, set_ms=set_ms,
+               iterations=int(res.iterations), residual=res_got, ref_residual=res_ref,
+               x_error=x_err)
+    state["hpcg"] = rec
+    log(f"main hpcg {nx}x{ny}x{nz} f64: setup {setup_s:.3f} s, one set of "
+        f"{res.iterations} iterations {set_ms:.3f} ms (wall, one graph replay a V-cycle), "
+        f"|b - A x|/|b| {res_got:.3e} (reference {res_ref:.3e}), |x - x_ref|/|x_ref| "
+        f"{x_err:.3e}")
+    if not (res.iterations == HPCG_ITERS and x_err <= HPCG_LIMIT
+            and abs(res_got - res_ref) <= HPCG_LIMIT):
+        raise AssertionError(f"HPCG set off the reference: {rec}")
+    state["hpcg_hier"] = h
+
+
+def phase_symgs_kernel(torch, dev, chk, state):
+    """The SymGS kernel on part i's finest level (104^3, f64, 8 colours):
+    one step (16 colour passes) against the plain version
+    (``_symgs_torch``) on the same inputs on the card, within
+    ``symgs_f64_bound``, and equal bits on two calls; then the level's f64
+    DIA SpMV against its plain version within 2 * nb f64 roundoffs of
+    each row's |A||x|. Each with its times and bound."""
+    from sparse_matrix_tpu_torch.ops.spmv_dia import _spmv_dia_torch
+    from sparse_matrix_tpu_torch.ops.symgs import _color_pass, _symgs_torch, parity_colors
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_problem
+
+    h = state.pop("hpcg_hier")
+    lv = h.levels[0]
+    plan, op = lv.symgs, lv.a_op
+    nx, ny, nz = HPCG_GRID
+    m, _b = hpcg_problem(nx, ny, nz)
+    n, nnz = m.rows, m.nnz()
+    data, offsets = op._dia_arrs["data"], op._dia.offsets  # natural order, f64
+    nb, diag = len(offsets), offsets.index(0)
+    colors = parity_colors(nx, ny, nz)
+    order = np.argsort(colors, kind="stable")
+    passes = []
+    for c in range(plan.colors):
+        rows = torch.from_numpy(order[plan.color_start[c]:plan.color_start[c + 1]])
+        passes.append(tuple(t.to(dev) for t in _color_pass(data, offsets, diag, rows)))
+    rng = np.random.default_rng(SEED + 16)
+    x0 = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    r = torch.from_numpy(rng.standard_normal(n)).to(dev)
+
+    def kernel():
+        return plan.step(x0.clone(), r)
+
+    def plain():
+        return _symgs_torch(passes, x0.clone(), r)
+
+    xk, xp = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(kernel(), xk):
+        raise AssertionError("symgs/hpcg104: two calls on one input differ in their bits")
+    bound = symgs_f64_bound(torch, r, x0, xk, 2 * plan.colors, nb)
+    err = float((xk - xp).abs().max())
+    if not (bool(torch.isfinite(xk).all()) and err <= bound):
+        raise AssertionError(f"symgs/hpcg104: max |kernel - plain| {err:.3e} > {bound:.3e}")
+    x_bare = x0.clone()
+    ms = cuda_ms(torch, kernel)
+    device_ms = device_ms_per_call(torch, lambda: plan._launch(r, x_bare))
+    plain_ms = cuda_ms(torch, plain, reps=10, warmup=2)
+    # a step is two sweep directions, each the level's matrix in its
+    # smallest plain form, r read once and x read and written once
+    nbytes = 2 * (plain_form_bytes(m, 8) + 8 * n + 16 * n)
+    flops = 2.0 * 2 * nnz
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOP_PER_S * 1e3
+    row = dict(case="hpcg104_f64", rows=n, nnz=nnz, colors=plan.colors,
+               launches=2 * plan.colors, max_abs_err=err, max_err_over_bound=err / bound,
+               bitwise_repeat=True, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=int(nbytes),
+               flops=flops)
+    chk.cases["symgs"].append(row)
+    log(f"kernel symgs        hpcg104_f64 rows={n} colours={plan.colors} "
+        f"{2 * plan.colors} launches, equal bits on two calls, max|k-plain|={err:.3e} "
+        f"(bound {bound:.3e}); kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; "
+        f"{flops:.4g} flop / 34 TFLOP/s), {ms / row['bound_ms']:.2f}x the bound")
+    del passes, xk, xp, x_bare
+
+    # the f64 DIA SpMV on the same level
+    x = torch.from_numpy(rng.standard_normal(n)).to(dev)
+
+    def dia_plain(d=data, v=x):
+        return _spmv_dia_torch(d, v, offsets=offsets, rows=n, cols=n)
+
+    yk, yp = op(x), dia_plain()
+    torch.cuda.synchronize()
+    if not torch.equal(op(x), yk):
+        raise AssertionError("dia/hpcg104_f64: two calls on one input differ in their bits")
+    absax = dia_plain(data.abs(), x.abs())
+    excess = ((yk - yp).abs() - 2 * nb * 2.0 ** -53 * absax).max()
+    err = float((yk - yp).abs().max())
+    if not (bool(torch.isfinite(yk).all()) and float(excess) <= 0):
+        raise AssertionError(f"dia/hpcg104_f64: off the plain version by more than {2 * nb} "
+                             "f64 roundoffs of |A||x|")
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(m.offsets.astype(np.int64)), torch.from_numpy(m.indices.astype(np.int64)),
+        torch.from_numpy(m.vals), size=(n, n), check_invariants=False).to(dev)
+    lib_err = float((torch.mv(csr, x) - yk).abs().max())
+    ms = cuda_ms(torch, lambda: op(x))
+    plain_ms = cuda_ms(torch, dia_plain)
+    library_ms = cuda_ms(torch, lambda: torch.mv(csr, x))
+    matrix_bytes = plain_form_bytes(m, 8)
+    nbytes = matrix_bytes + 8 * 2 * n
+    flops = 2.0 * nnz
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOP_PER_S * 1e3
+    row = dict(case="hpcg104_f64", rows=n, nnz=nnz, k=1, max_abs_err=err,
+               max_abs_vs_library=lib_err, bitwise_repeat=True, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=int(nbytes),
+               matrix_bytes=int(matrix_bytes), flops=flops)
+    chk.cases["dia"].append(row)
+    log(f"kernel dia          hpcg104_f64 rows={n} nnz={nnz} equal bits on two calls, "
+        f"max|k-plain|={err:.3e} (within {2 * nb} f64 roundoffs of |A||x|), "
+        f"max|k-library|={lib_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"(torch.sparse CSR f64) {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({nbytes} bytes / 3.35 TB/s), {ms / row['bound_ms']:.2f}x the bound")
+    del h, csr, yk, yp, absax
+    torch.cuda.empty_cache()
+
+
+def symgs_f64_bound(torch, r, x0, x1, passes: int, nb: int) -> float:
+    """A bound on max |kernel - plain| of one SymGS step in float64 on a
+    row-diagonally dominant operator with a diagonal of 26 (HPCG's): each
+    of the ``passes`` colour passes sums ``nb`` terms in another order
+    (at most ``nb`` roundoffs of ``|r| + |A_off||x|``, over the diagonal),
+    and the errors of earlier passes come in weighted by |a_ij| / a_ii,
+    whose row sum is at most 1, so they add; ``|A_off||x| / a_ii`` is at
+    most the largest |x|, taken over the step's input and output, with a
+    factor 2 for the values between."""
+    xmax = max(float(x0.abs().max()), float(x1.abs().max()))
+    scale = float(r.abs().max()) / 26.0 + 2 * xmax
+    return passes * (nb + 1) * 2.0 ** -53 * scale
+
+
 def plan_operators(dev, mats):
     """The main path's operators, planned on the host with their times;
     the three classes must take the reference's formats."""
@@ -2334,7 +2539,8 @@ def main() -> int:
                      ("block_sparse", part_block_sparse),
                      ("spgemm", lambda *a: part_spgemm(*a, state)),
                      ("ilu", lambda *a: part_ilu(*a, state)),
-                     ("amg", lambda *a: part_amg(*a, state))):
+                     ("amg", lambda *a: part_amg(*a, state)),
+                     ("hpcg", lambda *a: part_hpcg(*a, state))):
         kernels.reset_launch_counts()
         fn(torch, dev, mats, ops)
         torch.cuda.synchronize()
@@ -2349,8 +2555,10 @@ def main() -> int:
     phase_esc_kernel(torch, dev, chk, mats, state)
     log(f"spgemm record: {json.dumps({k: state[k] for k in ('engine_s', 'esc_rows', 'hyper_sparse')})}")
     phase_trisweep_kernel(torch, dev, chk, state)
+    phase_symgs_kernel(torch, dev, chk, state)
     log(f"ilu record: {json.dumps(state['ilu'])}")
     log(f"amg record: {json.dumps(state['amg'])}")
+    log(f"hpcg record: {json.dumps(state['hpcg'])}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

@@ -31,6 +31,8 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
     ops/esc_expand.py   ESC expansion plan and kernel (csrc/esc_expand.cu)
     ops/device_sorted.py  EscSpgemm, device transpose, add and sub
     ops/trisweep.py     fused triangular Jacobi sweeps (csrc/trisweep.cu)
+    ops/symgs.py        multicolour symmetric Gauss-Seidel over DIA planes
+                        (csrc/symgs_dia.cu)
     solvers/cg.py       CG, PCG, mixed-precision CG, multi-RHS CG and PCG
     solvers/ilu.py      ILU(0), IC(0), ILUT (host), TriangularJacobi and
                         the ILU/IC preconditioners, IC-PCG
@@ -38,6 +40,10 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
                         V-cycle over SpmvOperators, AMG-PCG
     solvers/bicgstab.py, solvers/gmres.py  BiCGSTAB and GMRES(m)
     solvers/poisson.py  the 2-D Poisson model problem
+    solvers/hpcg.py     HPCG's 27-point problem and geometric multigrid as
+                        an AmgHierarchy (smoother "symgs")
+    reference/hpcg.py   HPCG written plainly on grid tensors, the tests'
+                        reference
     bench/corpus.py     the bench's 262k-row matrix classes
     entry.py            one CG step through the aligned kernel
 

@@ -14,6 +14,10 @@
 // static in VMEM; here an x index outside [0, cols) simply reads 0, which
 // matches the zero-padded x of _spmv_dia_jit. Rectangular operators and
 // bf16 planes (widened before the multiply) take the same path.
+//
+// float64 (spmx_dia_f64): the same kernel on f64 planes, x and y, summed
+// in f64 (the H100's FP64 units; 8 bytes per slot, bandwidth-bound as the
+// f32 form). The f32 and bf16 instantiations are the code above, unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -22,21 +26,36 @@
 namespace {
 
 __device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+// the type of x, y and the sum for planes of type T: float for f32 and
+// bf16 planes, double for f64 (a trait, so that the kernel keeps one
+// template parameter and the f32 and bf16 symbols their names)
+template <typename T>
+struct VecOf {
+  using type = float;
+};
+template <>
+struct VecOf<double> {
+  using type = double;
+};
 
 template <typename T>
 __global__ void dia_kernel(const T* __restrict__ data,
                            const int32_t* __restrict__ offsets, int nb,
                            int64_t rows, int64_t cols,
-                           const float* __restrict__ x, float* __restrict__ y) {
+                           const typename VecOf<T>::type* __restrict__ x,
+                           typename VecOf<T>::type* __restrict__ y) {
+  using V = typename VecOf<T>::type;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= rows) return;
-  float acc = 0.0f;
+  V acc = V(0);
   for (int b = 0; b < nb; ++b) {
     const int64_t j = i + __ldg(offsets + b);
-    const float xv = (j >= 0 && j < cols) ? __ldg(x + j) : 0.0f;
+    const V xv = (j >= 0 && j < cols) ? __ldg(x + j) : V(0);
     acc += widen(data[(int64_t)b * rows + i]) * xv;
   }
   y[i] = acc;
@@ -64,5 +83,18 @@ SPMX_API int spmx_dia(int device, const void* data, int values_bf16,
     dia_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
         (const float*)data, offsets, nb, rows, cols, x, y);
   }
+  return (int)cudaGetLastError();
+}
+
+SPMX_API int spmx_dia_f64(int device, const double* data, const int32_t* offsets,
+                          int nb, int64_t rows, int64_t cols, const double* x,
+                          double* y, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows == 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (rows + threads - 1) / threads;
+  dia_kernel<double><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      data, offsets, nb, rows, cols, x, y);
   return (int)cudaGetLastError();
 }

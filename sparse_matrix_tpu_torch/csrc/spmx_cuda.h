@@ -24,6 +24,11 @@ SPMX_API int spmx_dia(int device, const void* data, int values_bf16,
                       const int32_t* offsets, int nb, int64_t rows,
                       int64_t cols, const float* x, float* y, void* stream);
 
+// the same in float64: data (nb, rows), x and y f64, summed in f64
+SPMX_API int spmx_dia_f64(int device, const double* data, const int32_t* offsets,
+                          int nb, int64_t rows, int64_t cols, const double* x,
+                          double* y, void* stream);
+
 // A plan of the aligned or LanePack SpMV kernel with its segments
 // (segments.h), packed once by the wrapper: `segments` (num_segments, 4)
 // int32 rows (row block, first chunk, chunk count, scratch slot or -1),
@@ -325,3 +330,36 @@ SPMX_API int spmx_trisweep_threads(void);
 // alias b or dinv
 SPMX_API int spmx_trisweep(const SpmxTrisweepPlan* plan, const float* b, const float* dinv,
                            int sweeps, float* y, void* stream);
+
+// the most colours a SymGS plan may have
+#define SPMX_SYMGS_MAX_COLORS 64
+
+// A multicolour SymGS plan over a square DIA operator (symgs_dia.cu), packed
+// once by the wrapper: `data` (nb, n) band planes re-laid by colour, f64
+// (values_f64 = 1) or f32 (0), column k holding the bands of row rows[k];
+// `rows` (n,) int32, the rows of colour c at positions [color_start[c],
+// color_start[c + 1]), ascending; `offsets` (nb,) int32 band offsets, band
+// `diag` the main diagonal (offset 0, nonzero on every row); no two rows
+// of one colour coupled by a nonzero slot
+typedef struct {
+  const void* data;
+  const int32_t* rows;
+  const int32_t* offsets;
+  int64_t color_start[SPMX_SYMGS_MAX_COLORS + 1];
+  int64_t n;
+  int32_t nb;
+  int32_t diag;
+  int32_t colors;
+  int32_t values_f64;
+  int32_t device;
+} SpmxSymgsPlan;
+
+SPMX_API int spmx_symgs_max_colors(void);
+
+// one symmetric Gauss-Seidel step toward A x = r, x updated in place: the
+// colours 0 .. colors-1, then colors-1 .. 0, one launch each (empty colours
+// launch nothing); a colour's pass sets, for each of its rows i,
+// x[i] = (r[i] - sum over bands b != diag, in band order, of data[b, k] *
+// x[i + offsets[b]]) / data[diag, k] (x outside [0, n) reads 0); r and x
+// (n,) in the plan's type, x not aliasing r
+SPMX_API int spmx_symgs(const SpmxSymgsPlan* plan, const void* r, void* x, void* stream);

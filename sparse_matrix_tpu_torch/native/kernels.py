@@ -18,9 +18,11 @@ same for the aligned, LanePack and BELL SpMM kernels, whose X and Y carry
 K columns (``prepare_aligned_spmm``, ``prepare_lanepack_spmm``,
 ``prepare_bell_spmm``), a :class:`PreparedTrisweep` for the fused
 triangular sweeps (``prepare_trisweep``), a :class:`PreparedExpand` for
-the ESC expansion on one plan's segments (``prepare_esc_expand``) and a
+the ESC expansion on one plan's segments (``prepare_esc_expand``), a
 :class:`PreparedRunSum` for the run sums of a sort reduction planned once
-(``prepare_esc_run_sum``).
+(``prepare_esc_run_sum``) and a :class:`PreparedSymgs` for the multicolour
+symmetric Gauss-Seidel on one plan (``prepare_symgs``), whose one call
+launches one kernel a colour pass and counts each.
 """
 
 from __future__ import annotations
@@ -54,11 +56,13 @@ __all__ = [
     "prepare_esc_expand",
     "PreparedRunSum",
     "prepare_esc_run_sum",
+    "PreparedSymgs",
+    "prepare_symgs",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
            "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand",
-           "esc_run_sum", "trisweep")
+           "esc_run_sum", "trisweep", "symgs")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -101,6 +105,11 @@ ESC_TILE = 2048
 ESC_STAGE = 2048
 ESC_SEG_STAGE = 1024
 
+#: the most colours a SymGS plan may have (SPMX_SYMGS_MAX_COLORS of
+#: csrc/spmx_cuda.h, checked against ``spmx_symgs_max_colors`` when the
+#: library loads): the plan's C struct holds that many colour starts
+SYMGS_MAX_COLORS = 64
+
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
@@ -118,6 +127,11 @@ def _library() -> ctypes.CDLL:
         lib.spmx_cuda_error_string.argtypes = [i32]
         lib.spmx_dia.restype = i32
         lib.spmx_dia.argtypes = [i32, vp, i32, vp, i32, i64, i64, vp, vp, vp]
+        lib.spmx_dia_f64.restype = i32
+        lib.spmx_dia_f64.argtypes = [i32, vp, vp, i32, i64, i64, vp, vp, vp]
+        # (plan struct, r, x, stream)
+        lib.spmx_symgs.restype = i32
+        lib.spmx_symgs.argtypes = [vp, vp, vp, vp]
         # prepared launches: (plan struct, x, y, add, stream)
         for fn in (lib.spmx_aligned, lib.spmx_lanepack, lib.spmx_bell, lib.spmx_stripe):
             fn.restype = i32
@@ -151,7 +165,8 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
                    lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols,
                    lib.spmx_trisweep_threads, lib.spmx_esc_expand_tile,
-                   lib.spmx_esc_expand_stage, lib.spmx_esc_expand_seg_stage):
+                   lib.spmx_esc_expand_stage, lib.spmx_esc_expand_seg_stage,
+                   lib.spmx_symgs_max_colors):
             fn.restype = i32
             fn.argtypes = []
         cols = (lib.spmx_lanepack_spmm_max_cols(), lib.spmx_lanepack_spmm_group_cols())
@@ -170,6 +185,10 @@ def _library() -> ctypes.CDLL:
                                f"{esc[1]} values and {esc[2]} segment starts; ESC_TILE, ESC_STAGE "
                                f"and ESC_SEG_STAGE are {ESC_TILE}, {ESC_STAGE} and "
                                f"{ESC_SEG_STAGE}: the plan's tiles would not match")
+        if lib.spmx_symgs_max_colors() != SYMGS_MAX_COLORS:
+            raise RuntimeError(f"the SymGS plan holds {lib.spmx_symgs_max_colors()} colours, "
+                               f"SYMGS_MAX_COLORS is {SYMGS_MAX_COLORS}: the structs would not "
+                               "match")
         if lib.spmx_block_tile() != BLOCK_TILE:
             raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
                                f"BLOCK_TILE is {BLOCK_TILE}: the streams would not match")
@@ -236,6 +255,14 @@ class RunSumPlan(ctypes.Structure):
     _fields_ += [("device", ctypes.c_int32)]
 
 
+class SymgsPlan(ctypes.Structure):
+    """``SpmxSymgsPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("data", "rows", "offsets")]
+    _fields_ += [("color_start", ctypes.c_int64 * (SYMGS_MAX_COLORS + 1)), ("n", ctypes.c_int64)]
+    _fields_ += [(f, ctypes.c_int32) for f in ("nb", "diag", "colors", "values_f64", "device")]
+
+
 class _LaunchRecord:
     """What the launch records share: the kernel's C struct ``args``,
     packed once (``keep`` holds the tensors its pointers name), the
@@ -263,10 +290,10 @@ class _LaunchRecord:
             return ValueError(f"{self.name}: {what} has {t.numel()} elements, expected {n}")
         return ValueError(f"{self.name}: {what} must be 16-byte aligned")
 
-    def _enqueue(self, *call) -> None:
+    def _enqueue(self, *call, launches: int = 1) -> None:
         """One ctypes call ``(args, *call, stream)`` of the kernel on the
-        current stream; raises on a refused launch, else adds one to
-        ``launch_counts[name]``."""
+        current stream; raises on a refused launch, else adds the
+        ``launches`` it enqueued to ``launch_counts[name]``."""
         fn = self._fn
         if fn is None:
             fn = self._fn = getattr(_library(), self._cname)
@@ -276,7 +303,7 @@ class _LaunchRecord:
         if err != 0:
             msg = _library().spmx_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err} ({msg})")
-        launch_counts[self.name] += 1
+        launch_counts[self.name] += launches
 
 
 class PreparedLaunch(_LaunchRecord):
@@ -611,12 +638,20 @@ _VALS = (torch.float32, torch.bfloat16)
 
 
 def launch_dia(data, offsets, x, y, *, rows: int, cols: int) -> None:
-    """``y[:rows] = DIA(data, offsets) @ x`` (data ``(nb, rows)``)."""
-    dev = _check("dia", dict(data=_VALS, offsets=torch.int32, x=_F32, y=_F32),
+    """``y[:rows] = DIA(data, offsets) @ x`` (data ``(nb, rows)``): f32 or
+    bf16 planes with f32 x and y, or f64 planes, x and y (``spmx_dia_f64``,
+    counted as ``dia``)."""
+    f64 = data.dtype == torch.float64
+    vec = torch.float64 if f64 else _F32
+    dev = _check("dia", dict(data=(*_VALS, torch.float64), offsets=torch.int32, x=vec, y=vec),
                  data=data, offsets=offsets, x=x, y=y)
     nb = offsets.numel()
     if data.shape != (nb, rows) or x.numel() != cols or y.numel() != rows:
         raise ValueError("dia: shapes disagree with (nb, rows, cols)")
+    if f64:
+        _run("dia", dev, _library().spmx_dia_f64, data.data_ptr(), offsets.data_ptr(), nb,
+             rows, cols, x.data_ptr(), y.data_ptr())
+        return
     _run("dia", dev, _library().spmx_dia, data.data_ptr(),
          int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols,
          x.data_ptr(), y.data_ptr())
@@ -934,3 +969,64 @@ def prepare_esc_run_sum(order, run_off, *, num_summed: int) -> PreparedRunSum:
     args = RunSumPlan(order=order.data_ptr(), run_off=run_off.data_ptr(), num_summed=num_summed,
                       cap=cap, device=dev.index)
     return PreparedRunSum(args, dev, keep=(order, run_off))
+
+
+class PreparedSymgs(_LaunchRecord):
+    """One symmetric Gauss-Seidel step on one checked plan: ``launch(r,
+    x)`` checks r and x (contiguous CUDA vectors of the plan's rows and
+    value type on its device, x distinct from r) and enqueues, with one
+    ctypes call of ``(args, r, x, stream)``, one kernel a colour pass: the
+    colours forward, then backward, ``launches`` in all, each counted. x
+    is updated in place."""
+
+    __slots__ = ("n", "dtype", "launches")
+
+    def __init__(self, args: SymgsPlan, device: torch.device, *, dtype, launches: int,
+                 keep: tuple):
+        super().__init__("symgs", "spmx_symgs", args, device, empty=launches == 0, keep=keep)
+        self.n, self.dtype, self.launches = int(args.n), dtype, launches
+
+    def __call__(self, r: torch.Tensor, x: torch.Tensor) -> None:
+        idx = self.device.index
+        for what, t in (("r", r), ("x", x)):
+            if t.device != self.device or t.get_device() != idx:
+                raise ValueError(f"symgs: {what} is on {t.device}, the plan on {self.device}")
+            if t.dtype != self.dtype:
+                raise TypeError(f"symgs: {what} has dtype {t.dtype}, expected {self.dtype}")
+            if not t.is_contiguous() or t.numel() != self.n:
+                raise ValueError(f"symgs: {what} must be a contiguous vector of {self.n} "
+                                 "elements")
+        if x.data_ptr() == r.data_ptr():
+            raise ValueError("symgs: x must not alias r")
+        if not self._empty:
+            self._enqueue(r.data_ptr(), x.data_ptr(), launches=self.launches)
+
+
+def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> PreparedSymgs:
+    """The SymGS kernel's launch on one plan: ``data`` ``(nb, n)`` band
+    planes re-laid by colour (f64 or f32), ``rows`` ``(n,)`` int32 the
+    natural row of each column of ``data``, ``offsets_t`` ``(nb,)`` int32
+    band offsets, band ``diag`` the main diagonal, and ``color_start`` the
+    host's ``colors + 1`` bounds of each colour's columns (at most
+    ``SYMGS_MAX_COLORS`` colours). The plan's values (the colouring, the
+    diagonal) are the host's, checked there, not read back here.
+    ``launch(r, x)`` (see :class:`PreparedSymgs`)."""
+    dev = _check("symgs", dict(data=(torch.float64, _F32), rows=torch.int32,
+                               offsets_t=torch.int32),
+                 data=data, rows=rows, offsets_t=offsets_t)
+    nb, n = (int(d) for d in data.shape) if data.dim() == 2 else (-1, -1)
+    colors = len(color_start) - 1
+    if (data.dim() != 2 or rows.numel() != n or offsets_t.numel() != nb
+            or not 0 <= diag < nb or color_start[0] != 0 or color_start[-1] != n
+            or any(b < a for a, b in zip(color_start, color_start[1:]))):
+        raise ValueError("symgs: planes, rows, offsets and colour bounds disagree")
+    if not 1 <= colors <= SYMGS_MAX_COLORS or n >= 1 << 31:
+        raise ValueError(f"symgs: {colors} colours and {n} rows; the kernel takes 1 to "
+                         f"{SYMGS_MAX_COLORS} colours and indexes rows with int32")
+    starts = (ctypes.c_int64 * (SYMGS_MAX_COLORS + 1))(*color_start)
+    args = SymgsPlan(data=data.data_ptr(), rows=rows.data_ptr(), offsets=offsets_t.data_ptr(),
+                     color_start=starts, n=n, nb=nb, diag=diag, colors=colors,
+                     values_f64=int(data.dtype == torch.float64), device=dev.index)
+    launches = 2 * sum(1 for a, b in zip(color_start, color_start[1:]) if b > a)
+    return PreparedSymgs(args, dev, dtype=data.dtype, launches=launches,
+                         keep=(data, rows, offsets_t))

@@ -21,13 +21,16 @@ runs the regular dispatch.
 
 **float64 on the card.** The reference runs float64 plans through XLA on
 the CPU (its TPU has no f64 ALU), and so does the port on
-``device="cpu"``. On a CUDA device every kernel takes f32 values (or bf16
-planes), so a float64 operator whose apply would reach a kernel (DIA,
-hybrid, aligned, LanePack, BELL, stripe) is refused at construction with
-one ``TypeError`` naming float64, the format and the card; ELL, which
-runs as plain PyTorch gathers, runs float64 there too. FP64 kernels (the
-H100 has FP64 units) are a possible later capability, not a parity
-requirement.
+``device="cpu"``. On a CUDA device DIA runs float64 too: the DIA SpMV
+kernel has an f64 form (f64 planes, x, y and sum, the H100's FP64 units);
+the DIA SpMM kernel has none, so a float64 DIA ``matmat`` of more than
+one column raises its ``TypeError``. Every other kernel takes f32 values
+(or bf16 planes), so a float64 operator whose apply would reach one of
+them (hybrid, whose residual runs LanePack or ELL beside its DIA part,
+aligned, LanePack, BELL, stripe), or a float64 DIA operator with bf16
+planes, is refused at construction with one ``TypeError`` naming
+float64, the format and the card; ELL, which runs as plain PyTorch
+gathers, runs float64 there too.
 """
 
 from __future__ import annotations
@@ -415,13 +418,16 @@ class SpmvOperator:
     # -- plan builders ------------------------------------------------------
 
     def _kernel_values(self, fmt: str, dtype) -> None:
-        """Refuse float64 values of a kernel-backed format on a CUDA device
-        (see the module docstring); ELL and the CPU path take them."""
-        if self.device.type == "cuda" and np.dtype(dtype) == np.float64:
+        """Refuse float64 values of a kernel-backed format other than DIA,
+        and of DIA with bf16 planes, on a CUDA device (see the module
+        docstring); ELL and the CPU path take them."""
+        if (self.device.type == "cuda" and np.dtype(dtype) == np.float64
+                and (fmt != "dia" or self._values_dtype is not None)):
             raise TypeError(
                 f"SpmvOperator: float64 {fmt} plans have no kernel on {self.device} "
-                f"({torch.cuda.get_device_name(self.device)}): the CUDA kernels take float32 "
-                "values; plan float32, force='ell', or use device='cpu' for float64"
+                f"({torch.cuda.get_device_name(self.device)}): of the CUDA kernels only DIA "
+                "takes float64 values, with float64 planes; plan float32, force='dia' or "
+                "'ell', or use device='cpu' for float64"
             )
 
     def _no_bf16(self, fmt: str):

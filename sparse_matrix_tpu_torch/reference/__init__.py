@@ -1,0 +1,7 @@
+"""Plain PyTorch references of whole workloads the port runs, each in a
+module of its own that imports ``torch`` alone: no kernel, planner or
+solver of the port, and nothing of the JAX package.
+
+    hpcg.py   HPCG 3.1's problem, multigrid V-cycle and CG set on grid
+              tensors
+"""

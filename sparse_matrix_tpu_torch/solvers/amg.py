@@ -28,6 +28,12 @@ Counterpart of ``sparse_matrix_tpu/solvers/amg.py``:
   its first such call), so PCG's host launches one graph an iteration
   instead of its ~100 small kernels; PCG reads one scalar to the host an
   iteration.
+* **Geometric hierarchies** (``solvers/hpcg.py``): an :class:`AmgHierarchy`
+  may also be built from levels made elsewhere. Its smoother ``"symgs"``
+  runs multicolour symmetric Gauss-Seidel (``ops/symgs.py``) on levels
+  that carry a :class:`~..ops.symgs.SymgsPlan`, and its coarsest level may
+  be smoothed from zero (``coarse_level``) instead of solved by
+  ``coarse_inv``.
 
 Not ported: ``AmgHierarchy.as_pytree``, ``vcycle_p`` and ``_smooth_p`` (jit
 arguments; the port runs eagerly).
@@ -336,23 +342,42 @@ def _capture_vcycle(hier: "AmgHierarchy", r: torch.Tensor, key: tuple) -> _Captu
 
 class AmgLevel(NamedTuple):
     a_op: Callable  # SpmvOperator for A_l
-    p_op: Callable  # SpmvOperator for P_l  (n_l x n_{l+1})
-    pt_op: Callable  # SpmvOperator for P_l^T
-    dinv: torch.Tensor  # (n_l,) inverse diagonal, on the level's device
-    lam: float  # Gershgorin bound on rho(D^-1 A_l) (Chebyshev smoother)
+    p_op: Callable  # SpmvOperator for P_l  (n_l x n_{l+1}); None on a coarse_level
+    pt_op: Callable  # SpmvOperator for P_l^T; None on a coarse_level
+    dinv: torch.Tensor  # (n_l,) inverse diagonal, on the level's device; None for "symgs"
+    lam: float  # Gershgorin bound on rho(D^-1 A_l) (Chebyshev smoother); None for "symgs"
     n: int
     nnz: int
+    symgs: Optional[object] = None  # the level's SymgsPlan (smoother "symgs")
 
 
 class AmgHierarchy:
-    """Multigrid hierarchy on one device; :meth:`vcycle` applies ``M^-1``."""
+    """Multigrid hierarchy on one device; :meth:`vcycle` applies ``M^-1``.
 
-    def __init__(self, levels: List[AmgLevel], coarse_inv: torch.Tensor, *, smoother: str,
-                 nu: int, omega: float, cheb_degree: int, outer_a_op=None):
+    The coarsest solve is ``coarse_inv @ r`` (a dense inverse) or, with
+    ``coarse_inv`` None, ``nu`` smoothing steps from zero on
+    ``coarse_level`` (HPCG's coarsest level). The smoother ``"symgs"``
+    needs a :class:`~..ops.symgs.SymgsPlan` on every level it smooths, and
+    reads no ``dinv``, ``lam``, ``omega`` or ``cheb_degree``; Jacobi
+    (``omega``) and Chebyshev (``cheb_degree``, ``lam``) need ``dinv``."""
+
+    def __init__(self, levels: List[AmgLevel], coarse_inv: Optional[torch.Tensor], *,
+                 smoother: str, nu: int, omega: Optional[float] = None,
+                 cheb_degree: Optional[int] = None, outer_a_op=None,
+                 coarse_level: Optional[AmgLevel] = None):
+        if (coarse_inv is None) == (coarse_level is None):
+            raise ValueError("AmgHierarchy: give the coarse solve, coarse_inv or coarse_level")
+        smoothed = levels + ([coarse_level] if coarse_level is not None else [])
+        need = "symgs" if smoother == "symgs" else "dinv"
+        if any(getattr(lv, need) is None for lv in smoothed):
+            raise ValueError(f"AmgHierarchy: the smoother {smoother!r} needs "
+                             f"{'a SymgsPlan' if need == 'symgs' else 'dinv'} on every level")
         self.levels = levels
-        self.coarse_inv = coarse_inv  # (nc, nc) dense inverse, on the device
-        self.device = coarse_inv.device
-        self.dtype = coarse_inv.dtype
+        self.coarse_inv = coarse_inv  # (nc, nc) dense inverse, on the device, or None
+        self.coarse_level = coarse_level
+        held = coarse_inv if coarse_inv is not None else coarse_level.a_op
+        self.device = held.device
+        self.dtype = held.dtype
         self.smoother = smoother
         self.nu = nu
         self.omega = omega
@@ -362,16 +387,26 @@ class AmgHierarchy:
         self.outer_a_op = outer_a_op
         # omega rounded to the working dtype times dinv, in that order: the
         # reference's ``w * dinv`` of every Jacobi sweep, made once
+        self._smoothed = smoothed
         self._wdinv = [torch.tensor(omega, dtype=lv.dinv.dtype, device=lv.dinv.device)
-                       * lv.dinv for lv in levels]
+                       * lv.dinv for lv in smoothed] if smoother == "jacobi" else None
         self._spans = [f"spmx.amg.level{i}" for i in range(len(levels))]
-        self._rows = levels[0].n if levels else coarse_inv.shape[0]  # rows of the finest level
+        # rows of the finest level
+        self._rows = smoothed[0].n if smoothed else coarse_inv.shape[0]
         self._graph: Optional[_CapturedVcycle] = None
 
     def _smooth(self, level: int, x, r):
-        """nu sweeps toward ``A x = r`` starting from ``x``; broadcasts over
-        (n, K) residual blocks."""
-        lv = self.levels[level]
+        """nu sweeps toward ``A x = r`` starting from ``x`` (level
+        ``len(levels)`` is the ``coarse_level``); Jacobi and Chebyshev
+        broadcast over (n, K) residual blocks. ``"symgs"`` takes vectors
+        and updates ``x`` in place (the V-cycle passes tensors of its own),
+        each step the span ``spmx.amg.symgs``."""
+        lv = self._smoothed[level]
+        if self.smoother == "symgs":
+            for _ in range(self.nu):
+                with span("spmx.amg.symgs"):
+                    x = lv.symgs.step(x, r)
+            return x
         if self.smoother == "chebyshev":
             return _chebyshev_apply(lv, x, r, degree=self.cheb_degree, lam_max=lv.lam)
         wdinv = self._wdinv[level] if r.dim() == 1 else self._wdinv[level][:, None]
@@ -387,6 +422,8 @@ class AmgHierarchy:
         ``spmx.amg.coarse``."""
         if level == len(self.levels):
             with span("spmx.amg.coarse"):
+                if self.coarse_inv is None:
+                    return self._smooth(level, torch.zeros_like(r), r)
                 return _coarse_solve(self.coarse_inv, r)
         with span(self._spans[level]):
             lv = self.levels[level]
@@ -439,8 +476,9 @@ class AmgHierarchy:
 
     def __repr__(self) -> str:  # pragma: no cover
         rows = ", ".join(f"{lv.n}({lv.nnz}nnz)" for lv in self.levels)
-        return (f"AmgHierarchy[{rows} -> coarse {self.coarse_inv.shape[0]}; "
-                f"{self.smoother} nu={self.nu}]")
+        coarse = (f"coarse {self.coarse_inv.shape[0]}" if self.coarse_inv is not None
+                  else f"smoothed coarse {self.coarse_level.n}")
+        return f"AmgHierarchy[{rows} -> {coarse}; {self.smoother} nu={self.nu}]"
 
 
 def _chebyshev_apply(lv: AmgLevel, x, r, *, degree: int, lam_max: float):

@@ -1527,9 +1527,14 @@ def test_esc_spgemm_sort_repeats_bitwise(dev, case, monkeypatch):
 
 @pytest.mark.parametrize("force", ["dia", "hybrid", "aligned", "lanepack", "bell", "stripe"])
 def test_float64_operator_refused_at_construction(dev, force):
-    """A float64 operator of a kernel-backed format is refused when it is
-    made on the card, with the format and the card named; the CPU still
-    runs it."""
+    """A float64 operator of a kernel-backed format other than DIA is
+    refused when it is made on the card, with the format and the card
+    named (hybrid too: its residual runs an f32 kernel); the CPU still runs
+    it. A float64 DIA operator runs on the card through the f64 DIA kernel
+    and matches the CPU within a few f64 roundoffs of each row's |A||x|
+    (fused multiply-adds; 5 entries a row), and is refused with bf16
+    planes."""
+    from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
 
     a = poisson_2d_csr(48, dtype=np.float64)
@@ -1539,10 +1544,24 @@ def test_float64_operator_refused_at_construction(dev, force):
         c = np.r_[a.indices.astype(np.int64), rng.integers(0, a.cols, 300)]
         a = CsrMatrix.from_coo(a.rows, a.cols, r, c, np.r_[a.vals, rng.standard_normal(300)])
     name = torch.cuda.get_device_name(dev)
-    with pytest.raises(TypeError, match=f"float64 {force} plans .*{name}"):
-        SpmvOperator(a, device=dev, dtype=torch.float64, force=force)
     op = SpmvOperator(a, device="cpu", dtype=torch.float64, force=force)
     assert op.format == force and op(torch.ones(a.cols, dtype=torch.float64)).dtype == torch.float64
+    if force == "dia":
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal(a.cols))
+        card = SpmvOperator(a, device=dev, dtype=torch.float64, force=force)
+        before = kernels.launch_counts["dia"]
+        y = card(x.to(dev))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["dia"] == before + 1 and y.dtype == torch.float64
+        bound = 8 * 2.0 ** -53 * SpmvOperator(_abs_csr(a), device="cpu", dtype=torch.float64,
+                                              force=force)(x.abs())
+        assert bool(((y.cpu() - op(x)).abs() <= bound).all())
+        with pytest.raises(TypeError, match=f"float64 dia plans .*{name}"):
+            SpmvOperator(a, device=dev, dtype=torch.float64, force=force,
+                         values_dtype=torch.bfloat16)
+        return
+    with pytest.raises(TypeError, match=f"float64 {force} plans .*{name}"):
+        SpmvOperator(a, device=dev, dtype=torch.float64, force=force)
 
 
 def test_float64_ell_operator_runs_on_card(dev):
@@ -2124,3 +2143,154 @@ def test_spans_hold_their_device_work(dev, tmp_path):
     assert ms["spmx.esc.expand"] > 0 and ms["spmx.esc.reduce"] > 0
     assert ms["spmx.esc.multiply"] == pytest.approx(ms["spmx.esc.expand"]
                                                     + ms["spmx.esc.reduce"])
+
+
+# -- HPCG: the float64 DIA kernel, the SymGS kernel, the "symgs" hierarchy --------
+
+
+def _abs_csr(a):
+    return CsrMatrix(a.rows, a.cols, np.abs(a.vals), a.indices, a.offsets, is_sorted=a.is_sorted)
+
+
+def _hpcg_rhs(grid, dev, seed):
+    """``A u`` of a seeded standard normal u on the 27-point grid, f64."""
+    from sparse_matrix_tpu_torch.reference import hpcg as ref
+
+    nx, ny, nz = grid
+    u = torch.from_numpy(np.random.default_rng(seed).standard_normal(nx * ny * nz)).to(dev)
+    return ref.apply_a(u.reshape(nz, ny, nx)).reshape(-1)
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.parametrize("grid", [(16, 16, 16), (24, 16, 8), (13, 13, 13)])
+def test_dia_f64_kernel_on_hpcg(dev, grid):
+    """The f64 DIA kernel on HPCG's 27-point operator (the dispatch takes
+    DIA): within 32 f64 roundoffs of each row's |A||x| of the CPU's plain
+    f64 result (27 products a row, fused multiply-adds), and the same bits
+    on a second call; a float64 ``matmat`` of two columns raises the DIA
+    SpMM kernel's ``TypeError``."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_problem
+
+    a, _ = hpcg_problem(*grid)
+    op = SpmvOperator(a, device=dev, dtype=torch.float64)
+    assert op.format == "dia" and op._dia_arrs["data"].dtype == torch.float64
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal(a.cols))
+    before = kernels.launch_counts["dia"]
+    y = op(x.to(dev))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dia"] == before + 1
+    want = SpmvOperator(a, device="cpu", dtype=torch.float64)(x)
+    bound = 32 * 2.0 ** -53 * SpmvOperator(_abs_csr(a), device="cpu", dtype=torch.float64)(x.abs())
+    assert bool(((y.cpu() - want).abs() <= bound).all())
+    assert torch.equal(op(x.to(dev)), y)
+    # the DIA SpMM kernel has no f64 form: a float64 block is refused by it
+    with pytest.raises(TypeError, match="dia_spmm"):
+        op.matmat(torch.stack([x, 2 * x], dim=1).to(dev))
+
+
+#: sha256 of the f32 DIA kernel's y on Poisson 256^2, x from default_rng(0)
+#: standard normal in f32: the kernel's bits before its f64 form was added
+#: to its source, read on an H100 80GB HBM3
+F32_DIA_BITS = "2652efbca09ea190e76ff1a5b572d83a8d5eedd594bfb1809f817c41e6bd1919"
+
+
+def test_dia_f32_bits_unchanged(dev):
+    """The f32 DIA kernel gives the bits it gave before the f64 form was
+    added to its source (the Poisson cells run it)."""
+    import hashlib
+
+    m = poisson_2d_csr(256, dtype=np.float32)
+    dia = try_dia_from_csr(m)
+    arrs = spmv_dia.dia_device_arrays(dia, dev)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(m.cols).astype(np.float32))
+    y = spmv_dia.spmv_dia(dia, x.to(dev), device_arrays=arrs).cpu().numpy()
+    assert hashlib.sha256(y.tobytes()).hexdigest() == F32_DIA_BITS
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("grid", [(24, 16, 8), (13, 13, 13)])
+def test_symgs_kernel_matches_plain(dev, dtype, grid):
+    """One SymGS step of the kernel (16 colour passes, each one launch)
+    against the plain version on the CPU and the reference's grid SymGS on
+    the card: within 1e-13 (f64) or 1e-5 (f32) normwise, the sums taken in
+    other orders; the same bits on a second call; x updated in place."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.symgs import SymgsPlan, parity_colors
+    from sparse_matrix_tpu_torch.reference import hpcg as ref
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_problem
+
+    nx, ny, nz = grid
+    a, _ = hpcg_problem(*grid)
+    dia = try_dia_from_csr(a, dtype=np.float64)
+    colors = parity_colors(*grid)
+    rng = np.random.default_rng(32)
+    x0 = torch.from_numpy(rng.standard_normal(a.rows)).to(dtype)
+    r = torch.from_numpy(rng.standard_normal(a.rows)).to(dtype)
+    card = SymgsPlan(dia, colors, device=dev, dtype=dtype)
+    before = kernels.launch_counts["symgs"]
+    x = x0.to(dev)
+    out = card.step(x, r.to(dev))
+    torch.cuda.synchronize()
+    assert out is x and kernels.launch_counts["symgs"] - before == 16
+    plain = SymgsPlan(dia, colors, device="cpu", dtype=dtype).step(x0.clone(), r)
+    grid_ref = ref.symgs(x0.to(dev).reshape(nz, ny, nx), r.to(dev).reshape(nz, ny, nx))
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    assert _rel(x.cpu().double(), plain.double()) < tol
+    assert _rel(x.double(), grid_ref.reshape(-1).double()) < tol
+    again = card.step(x0.to(dev), r.to(dev))
+    assert torch.equal(again, x)
+
+
+@pytest.mark.parametrize("grid", [(16, 16, 16), (32, 32, 32)])
+def test_hpcg_graph_replay_equals_eager_vcycle(dev, grid):
+    """The ``"symgs"`` hierarchy's ``M^-1`` replays its V-cycle as one CUDA
+    graph, bit-equal to the eager ``vcycle`` over several residuals; an
+    eager V-cycle launches 112 SymGS colour passes (7 steps of 16) and each
+    replay counts the same; both within 1e-13 of the reference's V-cycle."""
+    from sparse_matrix_tpu_torch.reference import hpcg as ref
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_hierarchy
+
+    nx, ny, nz = grid
+    h = hpcg_hierarchy(*grid, device=dev)
+    rs = [_hpcg_rhs(grid, dev, s) for s in range(4)]
+    m_inv = h.preconditioner()
+    first = m_inv(rs[0])
+    graph = h._graph
+    assert graph is not None
+    _, eager, replays = _launched(lambda: h.vcycle(rs[0]))
+    assert replays == 0 and eager["symgs"] == 112 and eager["dia"] == 3
+    assert graph.launches == {k: v for k, v in eager.items() if v}
+    rest, grown, replays = _launched(lambda: [m_inv(r) for r in rs[1:]])
+    assert replays == len(rs) - 1
+    assert grown == {k: (len(rs) - 1) * v for k, v in eager.items()}
+    for r, got in zip(rs, [first] + rest):
+        assert torch.equal(got, h.vcycle(r))
+        assert _rel(got, ref.vcycle(r.reshape(nz, ny, nx), 4).reshape(-1)) < 1e-13
+
+
+def test_hpcg_set_on_card_matches_reference(dev):
+    """A set of 50 iterations at tol 0 through ``amg_pcg_solve`` on 32^3:
+    51 graph replays (PCG's first M^-1 and one an iteration), the f64 DIA
+    kernel for the outer matvec and every level's residual, the SymGS
+    kernel for every step; x within 1e-12 of the reference's set on the
+    card (both converge to f64 roundoff at this size)."""
+    from sparse_matrix_tpu_torch.reference import hpcg as ref
+    from sparse_matrix_tpu_torch.solvers import amg
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_hierarchy, hpcg_problem
+
+    grid = (32, 32, 32)
+    a, _ = hpcg_problem(*grid)
+    h = hpcg_hierarchy(*grid, device=dev)
+    b = _hpcg_rhs(grid, dev, 40)
+    h.preconditioner()(b)  # the capture, whose warm-up V-cycle runs eagerly
+    res, grown, replays = _launched(
+        lambda: amg.amg_pcg_solve(a, b, hierarchy=h, tol=0.0, maxiter=50))
+    assert res.iterations == 50 and replays == 51 and res.x.dtype == torch.float64
+    assert grown["symgs"] == 51 * 112 and grown["dia"] == 51 * 3 + 51
+    want = ref.cg_set(b, *grid, levels=4, maxiter=50)
+    assert want.iterations == 50 and _rel(res.x, want.x) < 1e-12
