@@ -199,10 +199,14 @@ REPLACES = {
                  "sparse_matrix_tpu/ops/trisweep.py:88"),
     # no TPU kernel: the JAX package has no Gauss-Seidel smoother
     "symgs": ("sparse_matrix_tpu_torch/csrc/symgs_dia.cu", "no TPU kernel"),
+    # no TPU kernel: XLA fused the JAX package's CG updates in its while_loop
+    "krylov_dot": ("sparse_matrix_tpu_torch/csrc/krylov_update.cu", "no TPU kernel"),
+    "cg_update": ("sparse_matrix_tpu_torch/csrc/krylov_update.cu", "no TPU kernel"),
+    "p_update": ("sparse_matrix_tpu_torch/csrc/krylov_update.cu", "no TPU kernel"),
 }
 # the kernels each part of the main path must launch
 PARTS = {
-    "slice1": ("dia", "aligned", "bell"),
+    "slice1": ("dia", "aligned", "bell", "krylov_dot", "cg_update", "p_update"),
     "classes": ("stripe", "dia", "lanepack"),
     "multi_rhs": ("dia_spmm", "aligned_spmm"),
     "general_multi_rhs": ("lanepack_spmm", "bell_spmm"),
@@ -213,10 +217,10 @@ PARTS = {
     # dispatch picks below it on the card: aligned P and P^T, the hybrid
     # levels' LanePack residuals, the coarsest P as stripe, BELL at 512^2
     "amg": ("dia", "dia_spmm", "aligned", "aligned_spmm", "lanepack", "lanepack_spmm",
-            "stripe", "bell"),
+            "stripe", "bell", "cg_update", "p_update"),
     # HPCG 104^3: every level's A on the f64 DIA kernel, every smoothing
     # step on the SymGS kernel
-    "hpcg": ("symgs", "dia"),
+    "hpcg": ("symgs", "dia", "cg_update", "p_update"),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -2316,6 +2320,158 @@ def part_hpcg(torch, dev, mats, ops, state):
     state["hpcg_hier"] = h
 
 
+def _kernels_per_call(torch, fn, reps: int = 5) -> float:
+    """Device kernels launched by one ``fn()``, counted in a profiler trace
+    of ``reps`` calls."""
+    import tempfile
+    from pathlib import Path
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return sum(ev.get("cat") == "kernel" for ev in events) / reps
+
+
+def phase_krylov_kernels(torch, dev, chk, ops, state):
+    """The fused Krylov kernels (``csrc/krylov_update.cu``) at the main
+    path's shapes, Poisson 2048^2 in f32 and HPCG 104^3 in f64 (part i's
+    finest operator): each against its plain version, the eager PyTorch ops
+    of the step before the kernels, on the same inputs (the updates within
+    4 roundoffs of ``|x| + |alpha p|``, a fused multiply-add against a
+    product and a sum rounded apart; each inner product within its depth's
+    roundoffs of the float64 ``sum |u_i v_i|``), equal bits on two calls,
+    with kernel, device and plain times and the bound (bytes at 3.35 TB/s).
+    Then one CG step over the case's DIA operator, fused (``_cg_step``) and
+    eager: device ms and kernels an iteration."""
+    from sparse_matrix_tpu_torch.native.kernels import KrylovScratch
+    from sparse_matrix_tpu_torch.solvers import cg
+
+    def eager_step(matvec, x, r, p, rs):
+        ap = matvec(p)
+        alpha = rs / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = torch.dot(r, r)
+        return x, r, r + (rs_new / rs) * p, rs_new
+
+    for case, op, dtype in (("poisson2048_f32", ops["poisson2048"], torch.float32),
+                            ("hpcg104_f64", state["hpcg_hier"].levels[0].a_op,
+                             torch.float64)):
+        n = op.rows
+        rng = np.random.default_rng(SEED + 17)
+        x, r, p, ap, z = (torch.from_numpy(rng.standard_normal(n)).to(dev, dtype)
+                          for _ in range(5))
+        num, den = (torch.tensor(v, dtype=dtype, device=dev) for v in (0.7, 1.3))
+        ks = KrylovScratch(x)
+        eps = torch.finfo(dtype).eps / 2
+        depth = -(-n // (ks.blocks * 256)) + 20 + -(-ks.blocks // 256)
+
+        def dot_off(got, u, v):
+            uv = u.double() * v.double()
+            return (abs(float(got) - float(uv.sum())) / (eps * float(uv.abs().sum())))
+
+        def near(k, want, *terms):
+            return bool(((k - want).abs() <= 4 * eps * sum(t.abs() for t in terms)).all())
+
+        alpha, beta = num / den, den / num
+        kd = [ks.dot(r, p, 4).clone() for _ in range(2)]
+        xk, rk = x.clone(), r.clone()
+        rr = ks.cg_update(xk, rk, p, ap, num, den, 1).clone()
+        xk2, rk2 = x.clone(), r.clone()
+        rr2 = ks.cg_update(xk2, rk2, p, ap, num, den, 1).clone()
+        pk, pk2 = p.clone(), p.clone()
+        ks.p_update(pk, z, den, num)
+        ks.p_update(pk2, z, den, num)
+        xp, rp, pp = x + alpha * p, r - alpha * ap, z + beta * p
+        torch.cuda.synchronize()
+        offs = dict(krylov_dot=max(dot_off(kd[0], r, p), dot_off(torch.dot(r, p), r, p)),
+                    rr=dot_off(rr, rk, rk))
+        if not (torch.equal(kd[0], kd[1]) and torch.equal(rr, rr2) and torch.equal(xk, xk2)
+                and torch.equal(rk, rk2) and torch.equal(pk, pk2)):
+            raise AssertionError(f"krylov/{case}: two calls on one input differ in their bits")
+        if not (near(xk, xp, x, alpha * p) and near(rk, rp, r, alpha * ap)
+                and near(pk, pp, z, beta * p) and max(offs.values()) <= depth):
+            raise AssertionError(f"krylov/{case}: off the plain version ({offs} roundoffs of "
+                                 f"sum |u v|, depth {depth})")
+        errs = dict(krylov_dot=abs(float(kd[0]) - float(torch.dot(r, p))),
+                    cg_update=max(float((xk - xp).abs().max()), float((rk - rp).abs().max())),
+                    p_update=float((pk - pp).abs().max()))
+        del xk2, rk2, pk2, xp, rp, pp
+
+        xw, rw, pw = x.clone(), r.clone(), p.clone()
+
+        def plain_update():
+            a = num / den
+            rn = rw - a * ap
+            return xw + a * p, rn, torch.dot(rn, rn)
+
+        work = dict(
+            krylov_dot=(lambda: ks.dot(r, p, 4), lambda: torch.dot(r, p), 2),
+            cg_update=(lambda: ks.cg_update(xw, rw, p, ap, num, den, 1), plain_update, 6),
+            p_update=(lambda: ks.p_update(pw, z, num, den), lambda: z + (num / den) * pw, 3),
+        )
+        size = x.element_size()
+        total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for name, (kernel, plain, vectors) in work.items():
+            nbytes = vectors * n * size
+            row = dict(case=case, rows=n, blocks=ks.blocks, max_abs_err=errs[name],
+                       bitwise_repeat=True, ms=cuda_ms(torch, kernel),
+                       device_ms=device_ms_per_call(torch, kernel),
+                       plain_ms=cuda_ms(torch, plain), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", bytes=nbytes, library_ms=None)
+            if name == "krylov_dot":
+                row["library_ms"] = row["plain_ms"]  # torch.dot, cuBLAS
+            chk.cases[name].append(row)
+            # a CG iteration's vector work is one of each: p.Ap, the x and r
+            # update with r.r, the p update
+            for key in total:
+                total[key] += row[key]
+            log(f"kernel {name:12s} {case} n={n} blocks={ks.blocks} equal bits on two calls, "
+                f"max|k-plain|={errs[name]:.3e}; kernel {row['ms']:.4f} ms, device "
+                f"{row['device_ms']:.4f} ms, plain (eager ops) {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s), "
+                f"{row['device_ms'] / row['bound_ms']:.2f}x the bound")
+        log(f"krylov {case}: updates and dots an iteration, device {total['device_ms']:.4f} ms, "
+            f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+            f"({100 * total['bound_ms'] / total['device_ms']:.1f} % of it); inner products off "
+            f"the float64 sum by {offs} roundoffs of sum |u v| (depth {depth})")
+        del xw, rw, pw, x, r, p, ap, z
+
+        b = torch.from_numpy(rng.standard_normal(n)).to(dev, dtype)
+        step_rec = {}
+        for form, step_fn in (("fused", cg._cg_step), ("eager", eager_step)):
+            st = [(torch.zeros_like(b), b.clone(), b.clone(), torch.dot(b, b))]
+
+            def step(step_fn=step_fn, st=st):
+                st[0] = step_fn(op, *st[0])
+
+            step_rec[form] = dict(ms=cuda_ms(torch, step, reps=20, warmup=3),
+                                  device_ms=device_ms_per_call(torch, step),
+                                  kernels=_kernels_per_call(torch, step))
+            del st
+        # the kernels' times above are L2-warm where their vectors fit the
+        # 50 MB L2; inside a step B1's 117 MB (Poisson) passes between them
+        b1_ms = device_ms_per_call(torch, lambda: op(b))
+        in_step = step_rec["fused"]["device_ms"] - b1_ms
+        state.setdefault("krylov", {})[case] = dict(
+            updates_and_dots=total, step=step_rec, b1_device_ms=b1_ms,
+            updates_and_dots_in_step_ms=in_step)
+        log(f"krylov {case}: one CG step fused {step_rec['fused']} / eager "
+            f"{step_rec['eager']} (ms, device ms, kernels an iteration); B1 {b1_ms:.4f} ms, so "
+            f"the updates and dots take {in_step:.4f} ms of the fused step's device time, "
+            f"{100 * total['bound_ms'] / in_step:.1f} % of their bound")
+        del b
+        torch.cuda.empty_cache()
+
+
 def phase_symgs_kernel(torch, dev, chk, state):
     """The SymGS kernel on part i's finest level (104^3, f64, 8 colours):
     one step (16 colour passes) against the plain version
@@ -2555,10 +2711,12 @@ def main() -> int:
     phase_esc_kernel(torch, dev, chk, mats, state)
     log(f"spgemm record: {json.dumps({k: state[k] for k in ('engine_s', 'esc_rows', 'hyper_sparse')})}")
     phase_trisweep_kernel(torch, dev, chk, state)
+    phase_krylov_kernels(torch, dev, chk, ops, state)
     phase_symgs_kernel(torch, dev, chk, state)
     log(f"ilu record: {json.dumps(state['ilu'])}")
     log(f"amg record: {json.dumps(state['amg'])}")
     log(f"hpcg record: {json.dumps(state['hpcg'])}")
+    log(f"krylov record: {json.dumps(state['krylov'])}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

@@ -363,3 +363,38 @@ SPMX_API int spmx_symgs_max_colors(void);
 // x[i + offsets[b]]) / data[diag, k] (x outside [0, n) reads 0); r and x
 // (n,) in the plan's type, x not aliasing r
 SPMX_API int spmx_symgs(const SpmxSymgsPlan* plan, const void* r, void* x, void* stream);
+
+// The scratch of the fused Krylov kernels (krylov_update.cu) for n-vectors
+// of one type, packed once a solve by the wrapper: `partials` (blocks,) of
+// the vectors' type (f64 with values_f64 = 1, else f32), `ticket` one int32,
+// 0 between launches; `blocks` from spmx_krylov_blocks for this n
+typedef struct {
+  void* partials;
+  int32_t* ticket;
+  int64_t n;
+  int32_t blocks;
+  int32_t values_f64;
+  int32_t device;
+} SpmxKrylovPlan;
+
+// *blocks = the grid of the Krylov kernels for n-vectors on `device`: the
+// blocks the card holds at once, or fewer where n gives each thread less
+// than one 16-byte piece (at least 1)
+SPMX_API int spmx_krylov_blocks(int device, int values_f64, int64_t n, int32_t* blocks);
+
+// *out = sum_i u[i] v[i] (out a 0-d scalar of the plan's type, not in u or
+// v). vec = 1: u and v 16-byte aligned, read in 16-byte pieces
+SPMX_API int spmx_krylov_dot(const SpmxKrylovPlan* plan, const void* u, const void* v, int vec,
+                             void* out, void* stream);
+
+// alpha = *num / *den; x += alpha p; r -= alpha ap (in place, each a fused
+// multiply-add); *rr = sum_i r[i]^2 of the new r. x, r, p, ap distinct;
+// rr distinct from num and den. vec = 1: x, r, p, ap 16-byte aligned
+SPMX_API int spmx_cg_update(const SpmxKrylovPlan* plan, void* x, void* r, const void* p,
+                            const void* ap, int vec, const void* num, const void* den, void* rr,
+                            void* stream);
+
+// beta = *num / *den; p = z + beta p (in place, a fused multiply-add); z
+// distinct from p. vec = 1: p and z 16-byte aligned
+SPMX_API int spmx_p_update(const SpmxKrylovPlan* plan, void* p, const void* z, int vec,
+                           const void* num, const void* den, void* stream);

@@ -22,7 +22,9 @@ the ESC expansion on one plan's segments (``prepare_esc_expand``), a
 :class:`PreparedRunSum` for the run sums of a sort reduction planned once
 (``prepare_esc_run_sum``) and a :class:`PreparedSymgs` for the multicolour
 symmetric Gauss-Seidel on one plan (``prepare_symgs``), whose one call
-launches one kernel a colour pass and counts each.
+launches one kernel a colour pass and counts each. A :class:`KrylovScratch`
+holds one CG or PCG solve's scratch for the fused Krylov kernels (an inner
+product, the x and r update with r.r, the p update), each counted.
 """
 
 from __future__ import annotations
@@ -58,11 +60,12 @@ __all__ = [
     "prepare_esc_run_sum",
     "PreparedSymgs",
     "prepare_symgs",
+    "KrylovScratch",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
            "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand",
-           "esc_run_sum", "trisweep", "symgs")
+           "esc_run_sum", "trisweep", "symgs", "krylov_dot", "cg_update", "p_update")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -109,6 +112,9 @@ ESC_SEG_STAGE = 1024
 #: csrc/spmx_cuda.h, checked against ``spmx_symgs_max_colors`` when the
 #: library loads): the plan's C struct holds that many colour starts
 SYMGS_MAX_COLORS = 64
+
+#: the 0-d scalars a :class:`KrylovScratch` holds for its kernels to write
+KRYLOV_SLOTS = 5
 
 
 def reset_launch_counts() -> None:
@@ -162,6 +168,18 @@ def _library() -> ctypes.CDLL:
         # (plan struct, b, dinv, sweeps, y, stream)
         lib.spmx_trisweep.restype = i32
         lib.spmx_trisweep.argtypes = [vp, vp, vp, i32, vp, vp]
+        # (device, values_f64, n, &blocks)
+        lib.spmx_krylov_blocks.restype = i32
+        lib.spmx_krylov_blocks.argtypes = [i32, i32, i64, ctypes.POINTER(ctypes.c_int32)]
+        # (plan struct, u, v, vec, out, stream)
+        lib.spmx_krylov_dot.restype = i32
+        lib.spmx_krylov_dot.argtypes = [vp, vp, vp, i32, vp, vp]
+        # (plan struct, x, r, p, ap, vec, num, den, rr, stream)
+        lib.spmx_cg_update.restype = i32
+        lib.spmx_cg_update.argtypes = [vp, vp, vp, vp, vp, i32, vp, vp, vp, vp]
+        # (plan struct, p, z, vec, num, den, stream)
+        lib.spmx_p_update.restype = i32
+        lib.spmx_p_update.argtypes = [vp, vp, vp, i32, vp, vp, vp]
         for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
                    lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols,
                    lib.spmx_trisweep_threads, lib.spmx_esc_expand_tile,
@@ -261,6 +279,14 @@ class SymgsPlan(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in ("data", "rows", "offsets")]
     _fields_ += [("color_start", ctypes.c_int64 * (SYMGS_MAX_COLORS + 1)), ("n", ctypes.c_int64)]
     _fields_ += [(f, ctypes.c_int32) for f in ("nb", "diag", "colors", "values_f64", "device")]
+
+
+class KrylovPlan(ctypes.Structure):
+    """``SpmxKrylovPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("partials", "ticket")]
+    _fields_ += [("n", ctypes.c_int64)]
+    _fields_ += [(f, ctypes.c_int32) for f in ("blocks", "values_f64", "device")]
 
 
 class _LaunchRecord:
@@ -1030,3 +1056,111 @@ def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> Pr
     launches = 2 * sum(1 for a, b in zip(color_start, color_start[1:]) if b > a)
     return PreparedSymgs(args, dev, dtype=data.dtype, launches=launches,
                          keep=(data, rows, offsets_t))
+
+
+class KrylovScratch:
+    """The fused Krylov kernels (``csrc/krylov_update.cu``) with one solve's
+    scratch, for contiguous CUDA n-vectors of ``like``'s device and dtype
+    (f32 or f64): the grid's partial sums and the self-resetting ticket of
+    its reductions, and ``slots``, ``KRYLOV_SLOTS`` 0-d device scalars that
+    the kernels write (each a view of one buffer, carrying this scratch as
+    ``krylov_scratch``, so that a step can find it from its scalar).
+
+    ``dot(u, v, slot)``, ``cg_update(x, r, p, ap, num, den, slot)`` and
+    ``p_update(p, z, num, den)`` each enqueue one kernel on the current
+    stream and count it (``krylov_dot``, ``cg_update``, ``p_update``); the
+    first two return ``slots[slot]``. ``num`` and ``den`` are 0-d scalars
+    of the dtype on the device, which the kernels read there. x, r and p
+    are updated in place. One call at a time: calls share the scratch."""
+
+    __slots__ = ("device", "dtype", "n", "slots", "_idx", "_keep", "_args", "_ref",
+                 "_fns", "_stream")
+
+    def __init__(self, like: torch.Tensor):
+        dtype, n = like.dtype, like.numel()
+        if not like.is_cuda:
+            raise ValueError(f"krylov: vectors on {like.device}, the kernels need CUDA")
+        if dtype not in (_F32, torch.float64):
+            raise TypeError(f"krylov: dtype {dtype}, the kernels take float32 and float64")
+        self.device, self.dtype, self.n = like.device, dtype, n
+        self._idx = like.get_device()
+        lib = _library()
+        f64 = int(dtype == torch.float64)
+        blocks = ctypes.c_int32(0)
+        err = lib.spmx_krylov_blocks(self._idx, f64, n, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"krylov: CUDA error {err} "
+                               f"({lib.spmx_cuda_error_string(err).decode()})")
+        partials = torch.empty(blocks.value, dtype=dtype, device=self.device)
+        ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        scalars = torch.empty(KRYLOV_SLOTS, dtype=dtype, device=self.device)
+        self.slots = tuple(scalars[i] for i in range(KRYLOV_SLOTS))
+        for s in self.slots:
+            s.krylov_scratch = self
+        self._keep = (partials, ticket, scalars)
+        self._args = KrylovPlan(partials=partials.data_ptr(), ticket=ticket.data_ptr(), n=n,
+                                blocks=blocks.value, values_f64=f64, device=self._idx)
+        self._ref = ctypes.addressof(self._args)
+        self._fns = (lib.spmx_krylov_dot, lib.spmx_cg_update, lib.spmx_p_update)
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+
+    @property
+    def blocks(self) -> int:
+        return int(self._args.blocks)
+
+    def fits(self, v: torch.Tensor) -> bool:
+        """Whether ``v`` is a vector of this scratch's device, dtype and size."""
+        return v.is_cuda and v.get_device() == self._idx and v.dtype is self.dtype \
+            and v.numel() == self.n
+
+    def _vec(self, what: str, t: torch.Tensor) -> int:
+        if not (self.fits(t) and t.is_contiguous()):
+            raise ValueError(f"krylov: {what} must be a contiguous {self.dtype} vector of "
+                             f"{self.n} elements on {self.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        return t.data_ptr()
+
+    def _scalar(self, what: str, t: torch.Tensor) -> int:
+        if not (t.is_cuda and t.get_device() == self._idx and t.dtype is self.dtype
+                and t.numel() == 1):
+            raise ValueError(f"krylov: {what} must be a 0-d {self.dtype} scalar on "
+                             f"{self.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        return t.data_ptr()
+
+    def _enqueue(self, k: int, name: str, *call) -> None:
+        err = self._fns[k](self._ref, *call, self._stream(self._idx))
+        if err != 0:
+            msg = _library().spmx_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+        launch_counts[name] += 1
+
+    def dot(self, u: torch.Tensor, v: torch.Tensor, slot: int) -> torch.Tensor:
+        """``slots[slot] = u . v``."""
+        pu, pv = self._vec("u", u), self._vec("v", v)
+        out = self.slots[slot]
+        self._enqueue(0, "krylov_dot", pu, pv, int(not (pu | pv) % 16), out.data_ptr())
+        return out
+
+    def cg_update(self, x, r, p, ap, num, den, slot: int) -> torch.Tensor:
+        """``alpha = num / den``; ``x += alpha p``; ``r -= alpha ap``;
+        ``slots[slot] = r . r`` of the new r. x, r, p, ap distinct, the slot
+        neither num nor den."""
+        ptrs = (self._vec("x", x), self._vec("r", r), self._vec("p", p), self._vec("ap", ap))
+        pn, pd = self._scalar("num", num), self._scalar("den", den)
+        out = self.slots[slot]
+        if len(set(ptrs)) < 4 or out.data_ptr() in (pn, pd):
+            raise ValueError("cg_update: x, r, p and ap must be distinct vectors, and the "
+                             "output slot neither num nor den")
+        vec = int(not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16)
+        self._enqueue(1, "cg_update", *ptrs, vec, pn, pd, out.data_ptr())
+        return out
+
+    def p_update(self, p, z, num, den) -> None:
+        """``beta = num / den``; ``p = z + beta p``; z distinct from p (CG
+        passes r)."""
+        pp, pz = self._vec("p", p), self._vec("z", z)
+        if pp == pz:
+            raise ValueError("p_update: z must not alias p")
+        self._enqueue(2, "p_update", pp, pz, int(not (pp | pz) % 16),
+                      self._scalar("num", num), self._scalar("den", den))

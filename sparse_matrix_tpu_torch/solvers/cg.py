@@ -11,6 +11,16 @@ each solve (``spmx.solve``), its outer matvecs (``spmx.krylov.matvec``),
 its ``M^-1`` (``spmx.krylov.precond``) and its host reads
 (``spmx.krylov.sync``). The matvec is any callable on tensors, typically an
 :class:`~sparse_matrix_tpu_torch.ops.operator.SpmvOperator`.
+
+On a CUDA vector, :func:`cg_solve` and :func:`pcg_solve` run their
+iterations' vector work as the fused kernels of ``csrc/krylov_update.cu``
+(a :class:`~sparse_matrix_tpu_torch.native.kernels.KrylovScratch` a
+solve): an inner product ``p . Ap``, one pass that updates x and r in place
+and takes ``r . r``, and one that updates p in place, with alpha and beta
+read from 0-d device scalars inside the kernels. The solve owns the
+vectors they write (x, the fresh residual, and p, copied once from r or
+z); nothing the caller passed is written. On the CPU the steps are the
+plain PyTorch expressions.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..native.kernels import KrylovScratch
 from ..utils.profiling import span
 
 __all__ = [
@@ -50,6 +61,24 @@ def _tol2(tol: float, b_norm2: torch.Tensor) -> float:
     t = _tol2_t(tol, b_norm2)
     with span("spmx.krylov.sync"):
         return float(t)
+
+
+#: the slots of a solve's KrylovScratch: the recurrence's numerator (CG's
+#: r.r, PCG's r.z) alternates between slots 0 and 1, PCG's r.r between 2
+#: and 3, each step writing the slot its input does not hold; p.Ap is slot 4
+_NUM, _RR, _PAP = 0, 2, 4
+
+
+def _scratch_of(s: torch.Tensor, like: torch.Tensor):
+    """The KrylovScratch that wrote the 0-d scalar ``s``, or a new one when
+    another op made it or it does not fit ``like``."""
+    ks = getattr(s, "krylov_scratch", None)
+    return ks if ks is not None and ks.fits(like) else KrylovScratch(like)
+
+
+def _next(ks, s: torch.Tensor, first: int) -> int:
+    """The slot of the pair ``first``, ``first + 1`` that ``s`` is not."""
+    return first + 1 if s is ks.slots[first] else first
 
 
 def _matvec(matvec, v):
@@ -95,8 +124,14 @@ def cg_solve(
     with span("spmx.solve"):
         x = torch.zeros_like(b) if x0 is None else x0.clone()
         r = b - _matvec(matvec, x)
-        p = r
-        rs = torch.dot(r, r)
+        if r.is_cuda:
+            # the fused step updates p in place, so p must not be r
+            ks = KrylovScratch(r)
+            p = r.clone()
+            rs = ks.dot(r, r, _NUM)
+        else:
+            p = r
+            rs = torch.dot(r, r)
         tol2 = _tol2(tol, torch.dot(b, b))
         k = 0
         while k < maxiter and _above(rs, tol2):
@@ -107,8 +142,17 @@ def cg_solve(
 
 def _cg_step(matvec, x, r, p, rs):
     """One iteration of :func:`cg_solve` (its device work; the stopping
-    test's host read stays in the loop): the next ``(x, r, p, rs)``."""
+    test's host read stays in the loop): the next ``(x, r, p, rs)``. On a
+    CUDA vector four kernels (the matvec, ``p . Ap``, the x and r update
+    with ``r . r``, the p update) update x, r and p in place and return
+    them with the new ``rs``, a slot of the solve's KrylovScratch."""
     ap = _matvec(matvec, p)
+    if ap.is_cuda:
+        ks = _scratch_of(rs, x)
+        pap = ks.dot(p, ap, _PAP)
+        rs_new = ks.cg_update(x, r, p, ap, rs, pap, _next(ks, rs, _NUM))
+        ks.p_update(p, r, rs_new, rs)
+        return x, r, p, rs_new
     alpha = rs / torch.dot(p, ap)
     x = x + alpha * p
     r = r - alpha * ap
@@ -211,9 +255,16 @@ def pcg_solve(
         x = torch.zeros_like(b) if x0 is None else x0.clone()
         r = b - _matvec(matvec, x)
         z = _precond(precond, r)
-        p = z
-        rz = torch.dot(r, z)
-        rr = torch.dot(r, r)
+        if r.is_cuda:
+            # the fused step updates p in place, so p must not be z
+            ks = KrylovScratch(r)
+            p = z.clone()
+            rz = ks.dot(r, z, _NUM)
+            rr = ks.dot(r, r, _RR)
+        else:
+            p = z
+            rz = torch.dot(r, z)
+            rr = torch.dot(r, r)
         tol2 = _tol2(tol, torch.dot(b, b))
         k = 0
         while k < maxiter and _above(rr, tol2):
@@ -224,8 +275,20 @@ def pcg_solve(
 
 def _pcg_step(matvec, precond, x, r, p, rz):
     """One iteration of :func:`pcg_solve` (its device work; the stopping
-    test's host read stays in the loop): the next ``(x, r, p, rz, rr)``."""
+    test's host read stays in the loop): the next ``(x, r, p, rz, rr)``. On
+    a CUDA vector: the matvec, ``p . Ap``, the x and r update with ``r .
+    r``, ``M^-1``, ``r . z`` and the p update, x, r and p in place, ``rz``
+    and ``rr`` slots of the solve's KrylovScratch."""
     ap = _matvec(matvec, p)
+    if ap.is_cuda:
+        ks = _scratch_of(rz, x)
+        pap = ks.dot(p, ap, _PAP)
+        j = _next(ks, rz, _NUM)
+        rr = ks.cg_update(x, r, p, ap, rz, pap, _RR + j - _NUM)
+        z = _precond(precond, r)
+        rz_new = ks.dot(r, z, j)
+        ks.p_update(p, z, rz_new, rz)
+        return x, r, p, rz_new, rr
     alpha = rz / torch.dot(p, ap)
     x = x + alpha * p
     r = r - alpha * ap

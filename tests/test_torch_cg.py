@@ -102,3 +102,72 @@ def test_entry_step_matches_reference():
         close(v, r)
     for v, r in zip(step(*args), ref_step(*ref_args)):
         close(v, r)
+
+
+def _plain_cg_step(matvec, x, r, p, rs):
+    """The CG step's arithmetic before the fused CUDA kernels, copied: the
+    CPU path must keep its bits."""
+    ap = matvec(p)
+    alpha = rs / torch.dot(p, ap)
+    x = x + alpha * p
+    r = r - alpha * ap
+    rs_new = torch.dot(r, r)
+    p = r + (rs_new / rs) * p
+    return x, r, p, rs_new
+
+
+def _plain_pcg_step(matvec, precond, x, r, p, rz):
+    """The PCG step's arithmetic before the fused CUDA kernels, copied."""
+    ap = matvec(p)
+    alpha = rz / torch.dot(p, ap)
+    x = x + alpha * p
+    r = r - alpha * ap
+    z = precond(r)
+    rz_new = torch.dot(r, z)
+    p = z + (rz_new / rz) * p
+    return x, r, p, rz_new, torch.dot(r, r)
+
+
+@pytest.mark.parametrize("kind", ["cg", "pcg"])
+@pytest.mark.parametrize("n", [1, 1001, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cpu_steps_keep_their_bits(kind, n, dtype):
+    """On CPU tensors ``_cg_step`` and ``_pcg_step`` are the plain PyTorch
+    expressions: three chained steps give the bits of the copied arithmetic,
+    and the inputs are not written."""
+    rng = np.random.default_rng(n)
+    diag = torch.from_numpy(4.0 + rng.random(n)).to(dtype)
+    inv = 1.0 / diag
+
+    def matvec(v):  # SPD: a diagonal plus a symmetric tridiagonal
+        y = diag * v
+        y[1:] -= v[:-1]
+        y[:-1] -= v[1:]
+        return y
+
+    def precond(v):
+        return inv * v
+
+    b = torch.from_numpy(rng.standard_normal(n)).to(dtype)
+    r = b - matvec(torch.zeros_like(b))
+    z = precond(r) if kind == "pcg" else r
+    state = (torch.zeros_like(b), r, z, torch.dot(r, z))
+    want = state
+    for _ in range(3):
+        kept = [t.clone() for t in state]
+        if kind == "cg":
+            got = cg._cg_step(matvec, *state)
+            want = _plain_cg_step(matvec, *want)
+        else:
+            got = cg._pcg_step(matvec, precond, *state)
+            want = _plain_pcg_step(matvec, precond, *want[:4])
+        assert all(_same_bits(t, k) for t, k in zip(state, kept))
+        assert all(g.dtype == dtype and _same_bits(g, w) for g, w in zip(got, want))
+        state = got[:4]
+
+
+def _same_bits(a, b):
+    """Equal bits, NaN included (n = 1 converges in one step, and the
+    next step divides 0 by 0)."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))

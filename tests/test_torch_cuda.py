@@ -2294,3 +2294,207 @@ def test_hpcg_set_on_card_matches_reference(dev):
     assert grown["symgs"] == 51 * 112 and grown["dia"] == 51 * 3 + 51
     want = ref.cg_set(b, *grid, levels=4, maxiter=50)
     assert want.iterations == 50 and _rel(res.x, want.x) < 1e-12
+
+
+def _krylov_depth(ks, n):
+    """The most roundings a sum of the Krylov kernels' reductions passes
+    through: a thread's chain of fused multiply-adds (n over the grid's
+    threads, plus a 16-byte piece), two block trees of 8 levels and the
+    last block's walk over the partials."""
+    threads = ks.blocks * 256
+    return -(-n // threads) + 4 + 16 + -(-ks.blocks // 256)
+
+
+def _dot_err_ok(got, u, v, depth):
+    """|got - u.v| within depth roundoffs of sum |u_i v_i| (u.v and the
+    sum taken in float64)."""
+    eps = torch.finfo(got.dtype).eps / 2
+    uv = u.double() * v.double()
+    return abs(float(got) - float(uv.sum())) <= depth * eps * float(uv.abs().sum()) + 1e-300
+
+
+@pytest.mark.parametrize("n", [1, 1001, 4_194_304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_krylov_kernels_match_plain(dev, dtype, n):
+    """The fused Krylov kernels (``krylov_dot``, ``cg_update``,
+    ``p_update``) against their plain PyTorch versions on the card: each
+    update within 4 roundoffs of ``|x| + |alpha p|`` (a fused multiply-add
+    against a product and a sum rounded apart), each inner product within
+    its depth's roundoffs of the float64 sum; the same bits on two calls,
+    one launch counted each. At n = 1001, 16-byte misaligned vectors (the
+    element-at-a-time loop) give the aligned updates' bits."""
+    from sparse_matrix_tpu_torch.native import kernels
+
+    rng = np.random.default_rng(n)
+
+    def vec():
+        return torch.from_numpy(rng.standard_normal(n)).to(dev, dtype)
+
+    x, r, p, ap, z = (vec() for _ in range(5))
+    num, den = (torch.tensor(v, dtype=dtype, device=dev) for v in (0.7, 1.3))
+    ks = kernels.KrylovScratch(x)
+    depth = _krylov_depth(ks, n)
+    eps = torch.finfo(dtype).eps / 2
+    before = dict(kernels.launch_counts)
+
+    got = [ks.dot(r, p, 4).clone() for _ in range(2)]
+    assert torch.equal(got[0], got[1]) and _dot_err_ok(got[0], r, p, depth)
+    assert _dot_err_ok(torch.dot(r, p), r, p, depth)
+
+    def update(xs, rs_, ps, aps):
+        return ks.cg_update(xs, rs_, ps, aps, num, den, 1).clone(), xs, rs_
+
+    runs = [update(x.clone(), r.clone(), p, ap) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    rr, xk, rk = runs[0]
+    alpha = num / den
+    xp, rp = x + alpha * p, r - alpha * ap
+    assert torch.all((xk - xp).abs() <= 4 * eps * (x.abs() + (alpha * p).abs()))
+    assert torch.all((rk - rp).abs() <= 4 * eps * (r.abs() + (alpha * ap).abs()))
+    assert _dot_err_ok(rr, rk, rk, depth)
+
+    pk = [p.clone() for _ in range(2)]
+    for q in pk:
+        ks.p_update(q, z, den, num)
+    beta = den / num
+    assert torch.equal(pk[0], pk[1])
+    assert torch.all((pk[0] - (z + beta * p)).abs() <= 4 * eps * (z.abs() + (beta * p).abs()))
+    torch.cuda.synchronize()
+    grown = {k: kernels.launch_counts[k] - before[k] for k in ("krylov_dot", "cg_update",
+                                                               "p_update")}
+    assert grown == {"krylov_dot": 2, "cg_update": 2, "p_update": 2}
+
+    if n == 1001:  # views one element into their buffers: off 16 bytes
+        def off(t):
+            buf = torch.empty(n + 1, dtype=dtype, device=dev)
+            buf[1:] = t
+            return buf[1:]
+
+        xo, ro, po, apo, zo = (off(t) for t in (x, r, p, ap, z))
+        rro = ks.cg_update(xo, ro, po, apo, num, den, 1)
+        assert torch.equal(xo, xk) and torch.equal(ro, rk) and _dot_err_ok(rro, rk, rk, depth)
+        ks.p_update(po, zo, den, num)
+        assert torch.equal(po, pk[0])
+        assert _dot_err_ok(ks.dot(ro, po, 4), ro, po, depth)
+
+
+def test_krylov_refuses_aliases_and_dtypes(dev):
+    from sparse_matrix_tpu_torch.native import kernels
+
+    x, r, p, ap = (torch.ones(64, device=dev) for _ in range(4))
+    s = torch.ones((), device=dev)
+    ks = kernels.KrylovScratch(x)
+    with pytest.raises(ValueError, match="distinct"):
+        ks.cg_update(x, r, r, ap, s, s, 0)
+    with pytest.raises(ValueError, match="neither num nor den"):
+        ks.cg_update(x, r, p, ap, ks.slots[0], s, 0)
+    with pytest.raises(ValueError, match="alias"):
+        ks.p_update(p, p, s, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.dot(torch.ones(128, device=dev)[::2], x, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.dot(x.double(), x, 0)
+    with pytest.raises(TypeError, match="float32 and float64"):
+        kernels.KrylovScratch(x.half())
+
+
+def _hpcg_case(dev_or_cpu, grid=(32, 32, 32)):
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_hierarchy
+
+    return hpcg_hierarchy(*grid, device=dev_or_cpu)
+
+
+@pytest.mark.parametrize("kind", ["cg", "pcg_jacobi", "pcg_hpcg32"])
+def test_krylov_solves_on_card_match_cpu(dev, kind):
+    """``cg_solve`` and ``pcg_solve`` on the card (the fused kernels) take
+    the CPU's iterations within +-2 and reach its x within 1e-4 (f32) or
+    1e-7 (f64, HPCG 32^3 through ``amg_pcg_solve`` to 1e-10: two x at that
+    residual differ by at most 2e-10 cond(A), cond about 150); the caller's b and x0
+    are not written; a solve of k iterations launches k ``cg_update`` and k
+    ``p_update``, and k + 1 (CG) or 2 k + 2 (PCG) ``krylov_dot``."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers import amg, cg
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_problem
+
+    if kind == "pcg_hpcg32":
+        a, _ = hpcg_problem(32, 32, 32)
+        b = _hpcg_rhs((32, 32, 32), "cpu", 41)
+        x0 = None
+        hiers = {"cpu": _hpcg_case("cpu"), str(dev): _hpcg_case(dev)}
+
+        def solve(d, bd, x0d):
+            return amg.amg_pcg_solve(a, bd, hierarchy=hiers[str(d)], tol=1e-10, maxiter=100)
+        close = 1e-7
+    else:
+        a = poisson_2d_csr(48, dtype=np.float32)
+        rng = np.random.default_rng(42)
+        b = torch.from_numpy(rng.standard_normal(a.rows).astype(np.float32))
+        x0 = torch.from_numpy(rng.standard_normal(a.rows).astype(np.float32))
+
+        def solve(d, bd, x0d):
+            op = SpmvOperator(a, device=d)
+            if kind == "cg":
+                return cg.cg_solve(op, bd, x0d, tol=1e-5, maxiter=1000)
+            return cg.pcg_solve(op, bd, cg.jacobi_preconditioner(a, d), x0d, tol=1e-5,
+                                maxiter=1000)
+        close = 1e-4
+    res_cpu = solve("cpu", b, x0)
+    bd = b.to(dev)
+    x0d = None if x0 is None else x0.to(dev)
+    kept = [t.clone() for t in (bd, x0d) if t is not None]
+    before = dict(kernels.launch_counts)
+    res = solve(dev, bd, x0d)
+    torch.cuda.synchronize()
+    grown = {k: kernels.launch_counts[k] - before[k] for k in before}
+    assert all(torch.equal(t, k) for t, k in zip((bd, x0d), kept))
+    k = res.iterations
+    assert abs(k - res_cpu.iterations) <= 2 and k > 0
+    assert _rel(res.x.cpu().double(), res_cpu.x.double()) <= close
+    dots = k + 1 if kind == "cg" else 2 * k + 2
+    assert (grown["cg_update"], grown["p_update"], grown["krylov_dot"]) == (k, k, dots)
+    # the residual norm is the solve's own, not a scratch slot a later solve writes
+    kept_norm = res.residual_norm.clone()
+    solve(dev, bd, x0d)
+    assert torch.equal(res.residual_norm, kept_norm)
+
+
+@pytest.mark.parametrize("kind", ["cg", "pcg"])
+def test_krylov_step_launches_no_torch_kernel(dev, tmp_path, kind):
+    """Inside ``_cg_step`` and ``_pcg_step`` on the card (an identity
+    ``M^-1``, so that z is r) run only the DIA kernel and the three fused
+    Krylov kernels: no PyTorch elementwise kernel, no cuBLAS dot (profiler
+    kernel names)."""
+    import json
+
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.solvers import cg
+
+    a = poisson_2d_csr(64, dtype=np.float32)
+    op = SpmvOperator(a, device=dev)
+    assert op.format == "dia"
+    b = torch.from_numpy(np.random.default_rng(43).standard_normal(a.rows)
+                         .astype(np.float32)).to(dev)
+
+    def step(state):
+        if kind == "cg":
+            return cg._cg_step(op, *state)
+        return cg._pcg_step(op, lambda v: v, *state)[:4]
+
+    state = step((torch.zeros_like(b), b.clone(), b.clone(), torch.dot(b, b)))  # the scratch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with torch.profiler.record_function("krylov.step"):
+                state = step(state)
+        torch.cuda.synchronize()
+    path = tmp_path / "step.json"
+    prof.export_chrome_trace(str(path))
+    names = _kernels_in(json.loads(path.read_text())["traceEvents"], "krylov.step")
+    kinds = {next((k for k in ("dia_kernel", "krylov_dot_kernel", "cg_update_kernel",
+                               "p_update_kernel") if k in name), name): c
+             for name, c in names.items()}
+    want = {"dia_kernel": 3, "krylov_dot_kernel": 3 if kind == "cg" else 6,
+            "cg_update_kernel": 3, "p_update_kernel": 3}
+    assert kinds == want, names
