@@ -328,6 +328,12 @@ def poisson_cond(n: int) -> float:
     return (4 + 4 * c) / (4 - 4 * c)
 
 
+def plan_of(op, fmt: str):
+    """The host plan of the operator's part of format ``fmt``, or None."""
+    part = op.part(fmt)
+    return None if part is None else part.plan
+
+
 def arrays_bytes(kernel: str, arrs: dict) -> int:
     """Bytes of the device arrays ``kernel`` reads, its spill's included."""
     total = sum(arrs[k].numel() * arrs[k].element_size() for k in READS[kernel] if k in arrs)
@@ -647,7 +653,6 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
     from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
     from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack
     from sparse_matrix_tpu_torch.formats.stripe import plan_stripe
-    from sparse_matrix_tpu_torch.native.kernels import launch_dia, launch_dia_spmm
     from sparse_matrix_tpu_torch.ops import spmm, spmv, spmv_bell, spmv_dia
 
     rng = np.random.default_rng(SEED)
@@ -670,8 +675,7 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
         vals = None
         if vdt is not None:  # oracle from the bf16-rounded values
             vals = torch.from_numpy(a2.vals.astype(np.float32)).to(vdt).double().numpy()
-        # the bare launches (B1 and B9 have no launch record: launch_dia
-        # and launch_dia_spmm check their tensors on every call)
+        # the bare launches: the device arrays' launch records
         y = torch.empty(dia.rows, device=dev)
         chk.check(
             "dia", f"poisson2048_{tag}", a2, x_np,
@@ -680,12 +684,11 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
                                              rows=dia.rows, cols=dia.cols),
             plan_bytes=arrays_bytes("dia", arrs), vals=vals,
             value_bytes=arrs["data"].element_size(),
-            launch=lambda arrs=arrs, y=y: launch_dia(arrs["data"], arrs["offsets"], x, y,
-                                                     rows=dia.rows, cols=dia.cols),
+            launch=lambda arrs=arrs, y=y: arrs["launch"](x, y),
         )
         mv = spmv_dia.dia_matvec_multi(dia, K_RHS, dev, device_arrays=arrs)
         x3 = spmv_dia.dia_pack_rhs(dia, xb)
-        lo = spmv_dia._dia_stream_geom(dia.offsets)[0]
+        mv(x3)  # makes the SpMM kernel's record, ``spmm_launch``
         chk.check(
             "dia_spmm", f"poisson2048_{tag}_K{K_RHS}", a2, xb_np,
             lambda: mv(x3),
@@ -695,9 +698,7 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
             value_bytes=arrs["data"].element_size(),
             unpack=lambda y: spmv_dia.dia_unpack_rhs(dia, y) if y.dim() == 3 else y,
             vals=vals,
-            launch=lambda arrs=arrs, x3=x3, y3=torch.empty_like(x3), lo=lo: launch_dia_spmm(
-                arrs["data"], arrs["offsets"], x3, y3, rows=dia.rows, cols=dia.cols, x_lo=lo,
-                y_lo=lo),
+            launch=lambda arrs=arrs, x3=x3, y3=torch.empty_like(x3): arrs["spmm_launch"](x3, y3),
         )
         del arrs, mv, x3
 
@@ -777,8 +778,8 @@ def phase_kernels(torch, dev, chk: KernelChecks, mats, ops, *, c12: bool):
 
     # stripe: the operator plans of randlocal (scan 2,2) and powerlaw (scan
     # 8,16), and a select-mode plan of randlocal with its scan-mode spill
-    cases = [("randlocal_262k", ops["randlocal_262k"]._stripe),
-             ("powerlaw_262k", ops["powerlaw_262k"]._stripe)]
+    cases = [("randlocal_262k", plan_of(ops["randlocal_262k"], "stripe")),
+             ("powerlaw_262k", plan_of(ops["powerlaw_262k"], "stripe"))]
     t0 = time.perf_counter()
     sel = plan_stripe(mats["randlocal_262k"], mode="select")
     log(f"plan randlocal_262k stripe select: L={sel.levels} kw_g={sel.kw} "
@@ -941,9 +942,9 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
     pl_plan = plan_lanepack(mats["powerlaw_262k"])
     log(f"plan powerlaw_262k lanepack: kw={pl_plan.kw} pack={pl_plan.pack} "
         f"{time.perf_counter() - t0:.2f} s")
-    cases = [("poisson1024", ops["poisson1024_lanepack"]._plan, ops["poisson1024_lanepack"]._lp_arrs),
-             ("randlocal_262k", ops["randlocal_262k_lanepack"]._plan,
-              ops["randlocal_262k_lanepack"]._lp_arrs),
+    lp1, lp2 = (ops[k].part("lanepack") for k in ("poisson1024_lanepack",
+                                                   "randlocal_262k_lanepack"))
+    cases = [("poisson1024", lp1.plan, lp1.arrays), ("randlocal_262k", lp2.plan, lp2.arrays),
              ("powerlaw_262k", pl_plan, spmv.lanepack_device_arrays(pl_plan, dev))]
     for name, plan, arrs in cases:
         m = mats[name]
@@ -979,8 +980,9 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
     # ... and the spill of randlocal's aligned plan in the aligned layout (one
     # guard row: the kernel reads zeros past cols), the C12 path
     op = ops["randlocal_262k_aligned"]
-    sp_plan, sp_arrs = op._aligned.spill, op._ali_arrs["spill"]
-    sub = aligned_spill_csr(mats["randlocal_262k"], op._aligned)
+    al = op.part("aligned")
+    sp_plan, sp_arrs = al.plan.spill, al.arrays["spill"]
+    sub = aligned_spill_csr(mats["randlocal_262k"], al.plan)
     x_np, x = xblock(sub)
     x3 = spmm.pack_rhs(x, sub.cols)
     chk.check("lanepack_spmm", f"randlocal_262k_aligned_spill_kw{sp_plan.kw}_K{K_RHS}", sub, x_np,
@@ -1000,9 +1002,9 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
         f"{time.perf_counter() - t0:.2f} s")
     from sparse_matrix_tpu_torch.ops.spmv_bell import bell_device_arrays
 
-    pb = ops["poisson1024_bell"]
-    for name, plan, arrs, k in (("poisson1024", pb._bell, pb._bell_arrs, 8),
-                                ("poisson1024", pb._bell, pb._bell_arrs, 16),
+    pb = ops["poisson1024_bell"].part("bell")
+    for name, plan, arrs, k in (("poisson1024", pb.plan, pb.arrays, 8),
+                                ("poisson1024", pb.plan, pb.arrays, 16),
                                 ("femlike_262k", fem_plan, bell_device_arrays(fem_plan, dev), 8)):
         m = mats[name]
         x_np, x = xblock(m, k)
@@ -1055,8 +1057,7 @@ def phase_kernels_slice3(torch, dev, chk: KernelChecks, mats, ops):
         y = torch.empty((b.brows * b.bs, 128), device=dev)
 
         def launch(arrs=arrs, xf=xf, x_sum=x_sum, y=y):
-            kernels.launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
-                                     arrs["stream"], arrs["stream_offsets"], x_sum, xf, y)
+            arrs["launch"](x_sum, xf, y)
 
         chk.check("bcsr_spmm", f"{name}_bs{b.bs}_F128", m, x_np,
                   lambda b=b, arrs=arrs, x=x: spmm.spmm_bcsr(b, x, device_arrays=arrs), plain,
@@ -1271,7 +1272,7 @@ def part_classes(torch, dev, mats, ops):
         m = mats[name]
         op = ops[name]
         x_np = rng.standard_normal(m.cols).astype(np.float32)
-        st = op._stripe
+        st = plan_of(op, "stripe")
         ms = _class_apply(torch, dev, name, m, op, x_np,
                           stripe=() if st is None else (st,))
         cfg = "" if st is None else f" {st.mode}(L={st.levels}, KW={st.kw})"
@@ -1282,9 +1283,10 @@ def part_classes(torch, dev, mats, ops):
         m = mats[name]
         opc = SpmvOperator(m, device=dev, force="lanepack")
         x_np = rng.standard_normal(m.cols).astype(np.float32)
-        ms = _class_apply(torch, dev, name, m, opc, x_np, lanepack=(opc._plan,))
-        log(f"main class {name} forced: format={opc.format} kw={opc._plan.kw} "
-            f"pack={opc._plan.pack} {ms:.4f} ms/apply, {m.nnz() / ms / 1e6:.2f} Gnnz/s")
+        lp = plan_of(opc, "lanepack")
+        ms = _class_apply(torch, dev, name, m, opc, x_np, lanepack=(lp,))
+        log(f"main class {name} forced: format={opc.format} kw={lp.kw} "
+            f"pack={lp.pack} {ms:.4f} ms/apply, {m.nnz() / ms / 1e6:.2f} Gnnz/s")
 
 
 def part_multi_rhs(torch, dev, mats, ops):
@@ -1306,16 +1308,17 @@ def part_multi_rhs(torch, dev, mats, ops):
             f"(packing included), {m.nnz() * K_RHS / ms / 1e6:.2f} Gnnz/s")
 
     a2 = mats["poisson2048"]
-    dia = ops["poisson2048"]._dia
+    part = ops["poisson2048"].part("dia")
+    dia = part.plan
     solve_multi_and_check(
         torch, dev, f"cg_multi poisson2048 dia K={K_RHS}", "dia packed", a2, 2048,
-        spmv_dia.dia_matvec_multi(dia, K_RHS, dev, device_arrays=ops["poisson2048"]._dia_arrs),
+        spmv_dia.dia_matvec_multi(dia, K_RHS, dev, device_arrays=part.arrays),
         lambda b: spmv_dia.dia_pack_rhs(dia, b), lambda x3: spmv_dia.dia_unpack_rhs(dia, x3))
     a1 = mats["poisson1024"]
-    op_a = ops["poisson1024_aligned"]
+    al = ops["poisson1024_aligned"].part("aligned")
     solve_multi_and_check(
         torch, dev, f"cg_multi poisson1024 aligned K={K_RHS}", "aligned packed", a1, 1024,
-        spmm.aligned_matvec_multi(op_a._aligned, K_RHS, dev, device_arrays=op_a._ali_arrs),
+        spmm.aligned_matvec_multi(al.plan, K_RHS, dev, device_arrays=al.arrays),
         lambda b: spmm.pack_rhs(b, a1.cols), lambda x3: spmm.unpack_rhs(x3, a1.rows))
 
 
@@ -1345,20 +1348,19 @@ def part_general_multi_rhs(torch, dev, mats, ops):
                          ("randlocal_262k", "randlocal_262k_lanepack"),
                          ("randlocal_262k", "randlocal_262k_aligned")):
         op = ops[opname]
-        lp = () if op._plan is None else (op._plan,)
-        if op._aligned is not None and op._aligned.spill is not None:
-            lp = (op._aligned.spill,)
-        if op._bell is not None and op._bell.spill is not None:
-            lp = (op._bell.spill,)
+        lp = () if op.part("lanepack") is None else (plan_of(op, "lanepack"),)
+        for fmt in ("aligned", "bell"):
+            if op.part(fmt) is not None and plan_of(op, fmt).spill is not None:
+                lp = (plan_of(op, fmt).spill,)
         _matmat_check(torch, dev, f"{name} {opname.split('_')[-1]}", mats[name], op, rng,
                       lanepack=lp)
 
     a1 = mats["poisson1024"]
-    op_l = ops["poisson1024_lanepack"]
-    kw = op_l._plan.kw
+    lp = ops["poisson1024_lanepack"].part("lanepack")
+    kw = lp.plan.kw
     solve_multi_and_check(
         torch, dev, f"cg_multi poisson1024 lanepack K={K_RHS}", "lanepack packed", a1, 1024,
-        spmm.lanepack_matvec_multi(op_l._plan, K_RHS, dev, device_arrays=op_l._lp_arrs),
+        spmm.lanepack_matvec_multi(lp.plan, K_RHS, dev, device_arrays=lp.arrays),
         lambda b: spmm.pack_rhs(b, a1.cols, guard=kw), lambda x3: spmm.unpack_rhs(x3, a1.rows))
     a5 = mats["poisson512"]
     solve_multi_and_check(
@@ -1888,7 +1890,7 @@ def phase_esc_kernel(torch, dev, chk, mats, state):
 def check_run_sum(torch, chk, name, eng, p):
     """The run-sum kernel of ``eng``'s planned sort reduction on the
     products ``p`` (see :func:`phase_esc_kernel`)."""
-    from sparse_matrix_tpu_torch.ops.device_sorted import _run_sum_torch
+    from sparse_matrix_tpu_torch.ops.device_sorted import _sum_runs_torch
 
     runs = eng._runs
     order, run_off = runs["order"], runs["run_off"]
@@ -1896,7 +1898,7 @@ def check_run_sum(torch, chk, name, eng, p):
     v1, v2 = torch.empty_like(p), torch.empty_like(p)
     runs["launch"](p, v1)
     runs["launch"](p, v2)
-    want = _run_sum_torch(p.cpu(), order.cpu(), run_off.cpu())
+    want = _sum_runs_torch(p.cpu(), order.cpu(), run_off.cpu())
     torch.cuda.synchronize()
     if not (torch.equal(v1, v2) and torch.equal(v1.cpu(), want)):
         raise AssertionError(f"esc_run_sum/{name}: two calls or the plain version on the CPU "
@@ -1915,7 +1917,7 @@ def check_run_sum(torch, chk, name, eng, p):
 
     ms = cuda_ms(torch, call)
     device_ms = device_ms_per_call(torch, lambda: runs["launch"](p, v1))
-    plain_ms = cuda_ms(torch, lambda: _run_sum_torch(p, order, run_off))
+    plain_ms = cuda_ms(torch, lambda: _sum_runs_torch(p, order, run_off))
     library_ms = cuda_ms(torch, lambda: torch.zeros(cap, device=p.device).index_add_(
         0, run_of_slot, p))
     nbytes = 8 * n + 4 * (nnz + 1) + 4 * cap
@@ -2489,7 +2491,7 @@ def phase_symgs_kernel(torch, dev, chk, state):
     nx, ny, nz = HPCG_GRID
     m, _b = hpcg_problem(nx, ny, nz)
     n, nnz = m.rows, m.nnz()
-    data, offsets = op._dia_arrs["data"], op._dia.offsets  # natural order, f64
+    data, offsets = op.part("dia").arrays["data"], op.part("dia").plan.offsets  # natural, f64
     nb, diag = len(offsets), offsets.index(0)
     colors = parity_colors(nx, ny, nz)
     order = np.argsort(colors, kind="stable")
@@ -2609,7 +2611,7 @@ def plan_operators(dev, mats):
     for name, (fmt, cfg) in expected.items():
         t0 = time.perf_counter()
         op = SpmvOperator(mats[name], device=dev)
-        st = op._stripe
+        st = plan_of(op, "stripe")
         got = None if st is None else (st.mode, st.levels, st.kw)
         log(f"plan {name} auto: format={op.format} stripe={got} "
             f"bytes/apply={op.bytes_per_apply()} {time.perf_counter() - t0:.2f} s")

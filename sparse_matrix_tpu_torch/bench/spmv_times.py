@@ -22,10 +22,10 @@ one holding this file) and prints one JSON line with, per case:
   same x (a yardstick, used nowhere in the port);
 * ``bitwise_repeat``: whether two wrapper calls on one x gave equal bits.
 
-The cases: Poisson 2048^2 DIA (``spmv_dia``; the bare launch is
-``launch_dia``, which checks its tensors every call: B1 has no launch
-record) with f32 and bf16 band planes, and its DIA SpMM at K = 8 through
-``dia_matvec_multi`` (the bare launch ``launch_dia_spmm``); Poisson 1024^2 aligned; randlocal_262k aligned with its
+The cases: Poisson 2048^2 DIA (``spmv_dia``; the bare launch is the
+device arrays' launch record) with f32 and bf16 band planes, and its DIA
+SpMM at K = 8 through ``dia_matvec_multi`` (the bare launch its
+``spmm_launch`` record); Poisson 1024^2 aligned; randlocal_262k aligned with its
 LanePack spill; femlike_262k, randlocal_262k and powerlaw_262k LanePack
 in the ``dense`` and ``per_rb`` packs (the planner's own ``kw``); BELL on
 Poisson 1024^2 (span 128, f32 and bf16 value planes), femlike_262k (span
@@ -43,10 +43,7 @@ row-major, ``rowmajor``) and through ``pack_rhs``,
 ``spmm_lanepack_packed`` and ``unpack_rhs`` (``viapacked``); B8 through
 ``spmm_bell`` on Poisson 1024^2 (K = 8 and 16) and femlike_262k. Each
 SpMM row adds ``call_device_ms``, the wrapper call's device time with no
-host gaps. A checkout without the SpMM launch records (before
-slice 9) has no row-major kernel: its bare launch is the zeroing of y3
-and the packed kernel (for B8 also the packing of X), what one of its
-kernel calls needs.
+host gaps.
 
 B6, at K = 8: through ``spmm_aligned_packed`` (``packed``) and
 ``spmm_aligned`` (``rowmajor``) on Poisson 1024^2 and on randlocal_262k
@@ -54,18 +51,13 @@ with its LanePack spill, and on Poisson 1024^2 through ``pack_rhs``,
 ``spmm_aligned_packed`` and ``unpack_rhs`` (``viapacked``); the bare
 launch adds the spill's LanePack SpMM in add mode, except in
 randlocal's ``nospill`` row, whose bare launch is the aligned kernel
-alone (packed). A checkout
-without the aligned SpMM's launch record (before slice 10): its bare
-launch is the zeroing of y3, its atomic kernel and the spill, and its
-``rowmajor`` bare launch is the whole ``spmm_aligned`` call.
+alone (packed).
 
 B13, at 4 sweeps: ``trisweep`` on L and L^T of Poisson 2048^2's IC(0) and
 on L and U of femlike_262k's ILU(0) (made diagonally dominant, as in
 chip_smoke.py), each with ``equal_plain`` (bit-equal to
 ``_trisweep_torch``); on Poisson 2048^2's L also at 1024, 2048 and 8192
-rows a chunk where the checkout's plan takes ``chunk_rows`` (slice 10
-on). A checkout before slice 10 has no launch record: its bare launch is
-its cooperative kernel through ``launch_trisweep``.
+rows a chunk.
 
 Design-search options: ``--sweeps 0,1,4`` times B13 at each sweep count
 (default 4), ``--chunk-rows 1024,8192`` sets the extra chunk sizes of
@@ -148,7 +140,6 @@ def _dia_case(torch, kind, m, variant, dev):
     """(case name, wrapper call, bare launch, x, K) of a DIA case (B1, or
     B9 at K = 8) with ``variant`` f32 or bf16 band planes."""
     from sparse_matrix_tpu_torch.formats.dia import try_dia_from_csr
-    from sparse_matrix_tpu_torch.native.kernels import launch_dia, launch_dia_spmm
     from sparse_matrix_tpu_torch.ops import spmv_dia
 
     dia = try_dia_from_csr(m, dtype=np.float32)
@@ -161,22 +152,19 @@ def _dia_case(torch, kind, m, variant, dev):
         x = x[:, 0].contiguous()
         y = torch.empty(m.rows, device=dev)
         return (f"poisson2048_{variant}", lambda: spmv_dia.spmv_dia(dia, x, device_arrays=arrs),
-                lambda: launch_dia(arrs["data"], arrs["offsets"], x, y, rows=dia.rows,
-                                   cols=dia.cols), x, k)
+                lambda: arrs["launch"](x, y), x, k)
     mv = spmv_dia.dia_matvec_multi(dia, k, dev, device_arrays=arrs)
     x3 = spmv_dia.dia_pack_rhs(dia, x)
     y3 = torch.empty_like(x3)
-    lo = spmv_dia._dia_stream_geom(dia.offsets)[0]
+    mv(x3)  # makes the SpMM kernel's record, ``spmm_launch``
     return (f"poisson2048_{variant}_K{k}", lambda: mv(x3),
-            lambda: launch_dia_spmm(arrs["data"], arrs["offsets"], x3, y3, rows=dia.rows,
-                                    cols=dia.cols, x_lo=lo, y_lo=lo), x, k)
+            lambda: arrs["spmm_launch"](x3, y3), x, k)
 
 
 def _spmm_case(torch, kind, name, variant, m, ops, dev):
     """(case name, wrapper call, bare launch) of an SpMM case."""
     from sparse_matrix_tpu_torch.formats.bell import plan_bell
     from sparse_matrix_tpu_torch.formats.lanepack import plan_lanepack
-    from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops import spmm, spmv, spmv_bell
 
     k = variant[1] if kind == "bell_spmm" else K_RHS
@@ -187,31 +175,20 @@ def _spmm_case(torch, kind, name, variant, m, ops, dev):
         arrs = spmv_bell.bell_device_arrays(plan, dev)
         case = f"{name}_span{plan.span}_K{k}" + ("_spill" if plan.spill is not None else "")
         y = torch.empty((plan.rows, k), device=dev)
-        if "spmm_launch" in arrs:
-            def bare():
-                arrs["spmm_launch"](X, y)
-                if plan.spill is not None:
-                    arrs["spill"]["spmm_launch"](X, y, add=True)
-        else:
-            def bare():
-                x3 = spmm.pack_rhs(X, plan.cols)
-                y3 = torch.empty((plan.r128, k, 128), device=dev)
-                kernels.launch_bell_spmm(arrs["vals"], arrs["lane"], arrs["ds"], x3, y3,
-                                         bias=128 if plan.span == 128 else 0, cols=plan.cols)
-                if plan.spill is not None:
-                    sp = arrs["spill"]
-                    kernels.launch_lanepack_spmm(sp["vals"], sp["lane"], sp["ends"],
-                                                 sp["starts"], sp["col_off"], sp["chunk_rb"],
-                                                 x3, y3, cols=plan.cols)
+
+        def bare():
+            arrs["spmm_launch"](X, y)
+            if plan.spill is not None:
+                arrs["spill"]["spmm_launch"](X, y, add=True)
         return case, lambda: spmm.spmm_bell(plan, X, device_arrays=arrs), bare
     layout, spill = variant
     if spill:
-        plan = ops[name, "aligned"]._aligned.spill
-        arrs = ops[name, "aligned"]._ali_arrs["spill"]
+        part = ops[name, "aligned"].part("aligned")
+        plan, arrs = part.plan.spill, part.arrays["spill"]
         case, guard = f"{name}_aligned_spill_kw{plan.kw}_K{k}", 1
     else:
-        plan, arrs = ((ops[name, "lanepack"]._plan, ops[name, "lanepack"]._lp_arrs)
-                      if (name, "lanepack") in ops else (plan_lanepack(m), None))
+        part = ops[name, "lanepack"].part("lanepack") if (name, "lanepack") in ops else None
+        plan, arrs = (part.plan, part.arrays) if part else (plan_lanepack(m), None)
         if arrs is None:
             arrs = spmv.lanepack_device_arrays(plan, dev)
         case, guard = f"{name}_{plan.pack}_kw{plan.kw}_K{k}_{layout}", plan.kw
@@ -225,13 +202,7 @@ def _spmm_case(torch, kind, name, variant, m, ops, dev):
         call = lambda: spmm.spmm_lanepack_packed(plan, x3, device_arrays=arrs)  # noqa: E731
     y3 = torch.empty((plan.r128, k, 128), device=dev)
     y = torch.empty((plan.rows, k), device=dev)
-    if "spmm_launch" not in arrs:
-        def bare():
-            y3.zero_()
-            kernels.launch_lanepack_spmm(arrs["vals"], arrs["lane"], arrs["ends"], arrs["starts"],
-                                         arrs["col_off"], arrs["chunk_rb"], x3, y3,
-                                         cols=plan.cols)
-    elif layout == "rowmajor":
+    if layout == "rowmajor":
         def bare():
             arrs["spmm_launch"](X, y)
     else:
@@ -242,11 +213,10 @@ def _spmm_case(torch, kind, name, variant, m, ops, dev):
 
 def _aligned_spmm_case(torch, name, layout, m, ops, dev):
     """(case name, wrapper call, bare launch) of an aligned SpMM case."""
-    from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops import spmm
 
     op = ops[name, "aligned"]
-    plan, arrs = op._aligned, op._ali_arrs
+    plan, arrs = op.part("aligned").plan, op.part("aligned").arrays
     X = torch.from_numpy(np.random.default_rng(0).standard_normal((m.cols, K_RHS))
                          .astype(np.float32)).to(dev)
     x3 = spmm.pack_rhs(X, plan.cols)
@@ -264,17 +234,7 @@ def _aligned_spmm_case(torch, name, layout, m, ops, dev):
     spill = arrs.get("spill")
     if layout == "nospill":  # the aligned kernel alone, without the spill's launch
         spill = None
-    if "spmm_launch" not in arrs:
-        if layout == "rowmajor":
-            return case, call, call
-
-        def bare():
-            y3.zero_()
-            kernels.launch_aligned_spmm(arrs["vals"], arrs["lane"], arrs["col_off"],
-                                        arrs["chunk_rb"], x3, y3, cols=plan.cols)
-            if spill is not None:
-                spill["spmm_launch"](x3, y3, packed=True, add=True)
-    elif layout == "rowmajor":
+    if layout == "rowmajor":
         def bare():
             arrs["spmm_launch"](X, y)
             if spill is not None:
@@ -307,50 +267,37 @@ def _trisweep_factors(dev):
 
 def _trisweep_case(torch, case, t, chunk_rows, dev, sweeps):
     """(case name, wrapper call, bare launch, plain version) of a trisweep
-    case; None where the checkout's plan takes no ``chunk_rows``."""
-    import inspect
-
-    from sparse_matrix_tpu_torch.native import kernels
+    case."""
     from sparse_matrix_tpu_torch.ops import trisweep as tw
     from sparse_matrix_tpu_torch.solvers.ilu import TriangularJacobi
 
     sj = TriangularJacobi(t, device=dev, sweeps=sweeps, fused=True)
     plan, dinv = sj._fused, sj.dinv
     if chunk_rows is not None:
-        if "chunk_rows" not in inspect.signature(tw.TrisweepPlan).parameters:
-            return None
         plan = tw.TrisweepPlan(plan.offsets, plan.data.cpu().numpy(), plan.rows, device=dev,
                                chunk_rows=chunk_rows)
     b = torch.from_numpy(np.random.default_rng(7).standard_normal(t.rows)
                          .astype(np.float32)).to(dev)
     s = sweeps
     y = torch.empty_like(b)
-    if hasattr(plan, "_record"):
-        rec = plan._record(s)
+    rec = plan._record(s)
 
-        def bare():
-            rec(b, dinv, y, s)
-    else:
-        scratch = torch.empty_like(b)
-
-        def bare():
-            kernels.launch_trisweep(plan.data, plan.offsets_t, b, dinv, scratch, y, sweeps=s)
+    def bare():
+        rec(b, dinv, y, s)
     name = case + ("" if chunk_rows is None else f"_T{chunk_rows}") + f"_s{s}"
     return (name, lambda: tw.trisweep(plan, b, dinv, sweeps=s), bare,
             lambda: tw._trisweep_torch(plan.data, b, dinv, offsets=plan.offsets,
                                        rows=plan.rows, sweeps=s),
             dict(rows=plan.rows, nb=len(plan.offsets),
-                 chunk_rows=getattr(plan, "chunk_rows", None)))
+                 chunk_rows=plan.chunk_rows))
 
 
 def _time_trisweep(torch, dev, out, sweeps_list, chunk_rows_list):
     for case, t in _trisweep_factors(dev).items():
         chunks = (None, *chunk_rows_list) if case == "poisson2048_L" else (None,)
         for sweeps, chunk_rows in ((s, c) for s in sweeps_list for c in chunks):
-            got = _trisweep_case(torch, case, t, chunk_rows, dev, sweeps)
-            if got is None:
-                continue
-            name, call, bare, plain, info = got
+            name, call, bare, plain, info = _trisweep_case(torch, case, t, chunk_rows, dev,
+                                                           sweeps)
             y1, y2, yp = call(), call(), plain()
             torch.cuda.synchronize()
             row = dict(kernel="trisweep", case=name, sweeps=sweeps, **info,

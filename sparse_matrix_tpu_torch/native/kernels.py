@@ -1,30 +1,18 @@
 """ctypes bindings of the CUDA kernels, with launch counts.
 
-Each ``launch_*`` function checks that its tensors are contiguous CUDA
-tensors of the types the kernel takes on one device, enqueues the kernel on
-PyTorch's current stream, raises if the launch was refused, and then adds
-one to ``launch_counts[name]``; with no work (an empty plan) it launches
-and counts nothing. Nothing here synchronises or allocates; the
-callers in ``ops/`` own the outputs. The library is built and loaded at the
-first launch, never at import.
-
-A :class:`PreparedLaunch` splits that work for a kernel called many times
-on one plan: ``prepare_*`` checks the plan's arrays once and packs their
-pointers into the C struct the kernel takes, and each call then checks only
-x and y and makes one ctypes call (the aligned, LanePack, BELL and
-stripe SpMV kernels; ``prepare_aligned``, ``prepare_lanepack``,
-``prepare_bell``, ``prepare_stripe``). A :class:`PreparedSpmm` does the
-same for the aligned, LanePack and BELL SpMM kernels, whose X and Y carry
-K columns (``prepare_aligned_spmm``, ``prepare_lanepack_spmm``,
-``prepare_bell_spmm``), a :class:`PreparedTrisweep` for the fused
-triangular sweeps (``prepare_trisweep``), a :class:`PreparedExpand` for
-the ESC expansion on one plan's segments (``prepare_esc_expand``), a
-:class:`PreparedRunSum` for the run sums of a sort reduction planned once
-(``prepare_esc_run_sum``) and a :class:`PreparedSymgs` for the multicolour
-symmetric Gauss-Seidel on one plan (``prepare_symgs``), whose one call
-launches one kernel a colour pass and counts each. A :class:`KrylovScratch`
-holds one CG or PCG solve's scratch for the fused Krylov kernels (an inner
-product, the x and r update with r.r, the p update), each counted.
+Every kernel is launched through a launch record (a :class:`_LaunchRecord`)
+made once for one plan: ``prepare_<kernel>`` checks that the plan's tensors
+are contiguous CUDA tensors of the types the kernel takes on one device,
+with the shapes and alignment it needs, and packs the arguments that lead
+each call (the kernel's C struct, or its plain leading arguments). A call
+of the record checks only what changes per call (its vectors or blocks, K)
+and makes one ctypes call, :meth:`_LaunchRecord._enqueue`, which enqueues
+the kernel on PyTorch's current stream, raises if the launch was refused
+and adds the launches to ``launch_counts[name]``; a plan with no work
+launches and counts nothing. A :class:`KrylovScratch` holds one CG or PCG
+solve's scratch and a record for each fused Krylov kernel. Nothing here
+synchronises or allocates; the callers in ``ops/`` own the outputs. The
+library is built and loaded at the first launch, never at import.
 """
 
 from __future__ import annotations
@@ -39,8 +27,8 @@ __all__ = [
     "reset_launch_counts",
     "BLOCK_TILE",
     "STRIPE_GROUP_LEVELS",
-    "launch_dia",
     "PreparedLaunch",
+    "prepare_dia",
     "prepare_aligned",
     "prepare_lanepack",
     "prepare_bell",
@@ -51,9 +39,12 @@ __all__ = [
     "prepare_bell_spmm",
     "PreparedTrisweep",
     "prepare_trisweep",
-    "launch_dia_spmm",
-    "launch_bcsr_spmm",
-    "launch_block_spgemm",
+    "PreparedDiaSpmm",
+    "prepare_dia_spmm",
+    "PreparedBcsr",
+    "prepare_bcsr_spmm",
+    "PreparedBlockSpgemm",
+    "prepare_block_spgemm",
     "PreparedExpand",
     "prepare_esc_expand",
     "PreparedRunSum",
@@ -115,6 +106,9 @@ SYMGS_MAX_COLORS = 64
 
 #: the 0-d scalars a :class:`KrylovScratch` holds for its kernels to write
 KRYLOV_SLOTS = 5
+
+_F32 = torch.float32
+_VALS = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
@@ -290,34 +284,45 @@ class KrylovPlan(ctypes.Structure):
 
 
 class _LaunchRecord:
-    """What the launch records share: the kernel's C struct ``args``,
-    packed once (``keep`` holds the tensors its pointers name), the
-    library function, resolved at the first launch, and :meth:`_enqueue`.
-    A plan with no work (``empty``) launches and counts nothing."""
+    """What the launch records share: ``args``, the arguments that lead
+    every call of the kernel's library function, packed once (the kernel's
+    C struct, passed by its address, or a tuple of plain arguments; ``keep``
+    holds the tensors they name), ``dtype``, the type of the vectors a call
+    takes, the library function, resolved at the first launch, and
+    :meth:`_enqueue`. A plan with no work (``empty``) launches and counts
+    nothing."""
 
-    __slots__ = ("name", "device", "_cname", "_args", "_ref", "_keep", "_fn", "_stream",
-                 "_empty")
+    __slots__ = ("name", "device", "dtype", "_cname", "_args", "_lead", "_keep", "_fn",
+                 "_stream", "_empty")
 
-    def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
-                 *, empty: bool, keep: tuple):
-        self.name, self.device = name, device
-        self._cname, self._args, self._ref = cname, args, ctypes.addressof(args)
+    def __init__(self, name: str, cname: str, args, device: torch.device, *, empty: bool,
+                 keep: tuple, dtype: torch.dtype = _F32):
+        self.name, self.device, self.dtype = name, device, dtype
+        self._cname, self._args = cname, args
+        self._lead = (ctypes.addressof(args),) if isinstance(args, ctypes.Structure) else args
         self._keep, self._empty = keep, empty
         self._fn = self._stream = None
 
-    def _refuse(self, what: str, t: torch.Tensor, n: Optional[int] = None):
+    def _ptr(self, what: str, t: torch.Tensor, n: Optional[int] = None, align: int = 1) -> int:
+        """The data pointer of ``t``, a call's operand, once it is checked:
+        a contiguous CUDA tensor of the record's device and ``dtype``, of
+        ``n`` elements (None: any), its data ``align``-byte aligned."""
+        ptr = t.data_ptr()
+        if (t.is_cuda and t.get_device() == self.device.index and t.dtype is self.dtype
+                and t.is_contiguous() and (n is None or t.numel() == n) and not ptr % align):
+            return ptr
         if t.device != self.device:
-            return ValueError(f"{self.name}: {what} is on {t.device}, the plan on {self.device}")
-        if t.dtype != _F32:
-            return TypeError(f"{self.name}: {what} has dtype {t.dtype}, expected {_F32}")
+            raise ValueError(f"{self.name}: {what} is on {t.device}, the plan on {self.device}")
+        if t.dtype != self.dtype:
+            raise TypeError(f"{self.name}: {what} has dtype {t.dtype}, expected {self.dtype}")
         if not t.is_contiguous():
-            return ValueError(f"{self.name}: {what} must be contiguous")
+            raise ValueError(f"{self.name}: {what} must be contiguous")
         if n is not None and t.numel() != n:
-            return ValueError(f"{self.name}: {what} has {t.numel()} elements, expected {n}")
-        return ValueError(f"{self.name}: {what} must be 16-byte aligned")
+            raise ValueError(f"{self.name}: {what} has {t.numel()} elements, expected {n}")
+        raise ValueError(f"{self.name}: {what} must be {align}-byte aligned")
 
     def _enqueue(self, *call, launches: int = 1) -> None:
-        """One ctypes call ``(args, *call, stream)`` of the kernel on the
+        """One ctypes call ``(*args, *call, stream)`` of the kernel on the
         current stream; raises on a refused launch, else adds the
         ``launches`` it enqueued to ``launch_counts[name]``."""
         fn = self._fn
@@ -325,7 +330,7 @@ class _LaunchRecord:
             fn = self._fn = getattr(_library(), self._cname)
             raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
             self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
-        err = fn(self._ref, *call, self._stream(self.device.index))
+        err = fn(*self._lead, *call, self._stream(self.device.index))
         if err != 0:
             msg = _library().spmx_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err} ({msg})")
@@ -333,29 +338,28 @@ class _LaunchRecord:
 
 
 class PreparedLaunch(_LaunchRecord):
-    """One kernel's launch on one checked plan: ``launch(x, y, add=False)``
-    checks x (a contiguous f32 CUDA vector of ``x_len`` elements on the
-    plan's device) and y (the same, ``y_len`` elements, 16-byte aligned)
-    and enqueues the kernel with one ctypes call of ``(args, x, y, add,
-    stream)``."""
+    """One SpMV kernel's launch on one checked plan: ``launch(x, y,
+    add=False)`` checks x (a contiguous CUDA vector of the record's
+    ``dtype`` and ``x_len`` elements on the plan's device) and y (the same,
+    ``y_len`` elements, 16-byte aligned) and enqueues the kernel with one
+    ctypes call of ``(args, x, y, add, stream)``, or of ``(args, x, y,
+    stream)`` where the kernel only writes y (``adds=False``: DIA, whose
+    ``add=True`` is refused)."""
 
-    __slots__ = ("x_len", "y_len")
+    __slots__ = ("x_len", "y_len", "adds")
 
-    def __init__(self, name: str, cname: str, args: ctypes.Structure, device: torch.device,
-                 *, x_len: int, y_len: int, empty: bool, keep: tuple):
-        super().__init__(name, cname, args, device, empty=empty, keep=keep)
-        self.x_len, self.y_len = x_len, y_len
+    def __init__(self, name: str, cname: str, args, device: torch.device, *, x_len: int,
+                 y_len: int, empty: bool, keep: tuple, dtype: torch.dtype = _F32,
+                 adds: bool = True):
+        super().__init__(name, cname, args, device, empty=empty, keep=keep, dtype=dtype)
+        self.x_len, self.y_len, self.adds = x_len, y_len, adds
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, add: bool = False) -> None:
-        idx = self.device.index
-        if (not x.is_cuda or x.get_device() != idx or x.dtype is not _F32
-                or not x.is_contiguous() or x.numel() != self.x_len):
-            raise self._refuse("x", x, self.x_len)
-        if (not y.is_cuda or y.get_device() != idx or y.dtype is not _F32
-                or not y.is_contiguous() or y.numel() != self.y_len or y.data_ptr() % 16):
-            raise self._refuse("y", y, self.y_len)
+        px, py = self._ptr("x", x, self.x_len), self._ptr("y", y, self.y_len, 16)
+        if add and not self.adds:
+            raise ValueError(f"{self.name}: the kernel only writes y")
         if not self._empty:
-            self._enqueue(x.data_ptr(), y.data_ptr(), int(add))
+            self._enqueue(px, py, *((int(add),) if self.adds else ()))
 
 
 class PreparedSpmm(_LaunchRecord):
@@ -380,11 +384,7 @@ class PreparedSpmm(_LaunchRecord):
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, *, packed: bool = False,
                  add: bool = False) -> None:
-        idx = self.device.index
-        for what, t in (("x", x), ("y", y)):
-            if (not t.is_cuda or t.get_device() != idx or t.dtype is not _F32
-                    or not t.is_contiguous() or (what == "y" and t.data_ptr() % 16)):
-                raise self._refuse(what, t)
+        px, py = self._ptr("x", x), self._ptr("y", y, align=16)
         k = int(x.shape[1]) if x.dim() >= 2 else 0
         if packed:
             fits = (self.max_cols is not None and x.dim() == 3 and x.shape[2] == 128
@@ -404,12 +404,12 @@ class PreparedSpmm(_LaunchRecord):
                 y.zero_()
             return
         if self.max_cols is None:
-            self._enqueue(x.data_ptr(), y.data_ptr(), k)
+            self._enqueue(px, py, k)
             return
         y_blocks = int(y.shape[0]) if packed else 0
         for q0 in range(0, k, self.max_cols):
-            self._enqueue(x.data_ptr(), y.data_ptr(), k, q0, min(self.max_cols, k - q0),
-                          int(packed), y_blocks, int(add))
+            self._enqueue(px, py, k, q0, min(self.max_cols, k - q0), int(packed), y_blocks,
+                          int(add))
 
 
 def _seg_plan(name, dtypes, *, cols, rows, scratch_width=128, tickets_per_rb=1, **tensors):
@@ -650,56 +650,66 @@ def _check_aligned(name: str, align: int, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be {align}-byte aligned")
 
 
-def _run(name: str, dev: torch.device, fn, *args) -> None:
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(dev.index, *args, stream)
-    if err != 0:
-        msg = _library().spmx_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-    launch_counts[name] += 1
-
-
-_F32 = torch.float32
-_VALS = (torch.float32, torch.bfloat16)
-
-
-def launch_dia(data, offsets, x, y, *, rows: int, cols: int) -> None:
-    """``y[:rows] = DIA(data, offsets) @ x`` (data ``(nb, rows)``): f32 or
-    bf16 planes with f32 x and y, or f64 planes, x and y (``spmx_dia_f64``,
-    counted as ``dia``)."""
-    f64 = data.dtype == torch.float64
-    vec = torch.float64 if f64 else _F32
-    dev = _check("dia", dict(data=(*_VALS, torch.float64), offsets=torch.int32, x=vec, y=vec),
-                 data=data, offsets=offsets, x=x, y=y)
+def prepare_dia(data, offsets, *, rows: int, cols: int) -> PreparedLaunch:
+    """The DIA kernel's launch on one plan: band planes ``data`` ``(nb,
+    rows)`` and their ``(nb,)`` int32 ``offsets``. f32 or bf16 planes take
+    f32 x and y (``spmx_dia``), f64 planes f64 x and y (``spmx_dia_f64``,
+    also counted as ``dia``). ``launch(x, y)`` writes ``y = A @ x`` into
+    every row of y."""
+    dev = _check("dia", dict(data=(*_VALS, torch.float64), offsets=torch.int32),
+                 data=data, offsets=offsets)
     nb = offsets.numel()
-    if data.shape != (nb, rows) or x.numel() != cols or y.numel() != rows:
+    if data.shape != (nb, rows):
         raise ValueError("dia: shapes disagree with (nb, rows, cols)")
-    if f64:
-        _run("dia", dev, _library().spmx_dia_f64, data.data_ptr(), offsets.data_ptr(), nb,
-             rows, cols, x.data_ptr(), y.data_ptr())
-        return
-    _run("dia", dev, _library().spmx_dia, data.data_ptr(),
-         int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols,
-         x.data_ptr(), y.data_ptr())
+    if data.dtype == torch.float64:
+        cname, vec, lead = "spmx_dia_f64", torch.float64, (dev.index, data.data_ptr())
+    else:
+        cname, vec = "spmx_dia", _F32
+        lead = (dev.index, data.data_ptr(), int(data.dtype == torch.bfloat16))
+    return PreparedLaunch("dia", cname, (*lead, offsets.data_ptr(), nb, rows, cols), dev,
+                          x_len=cols, y_len=rows, empty=False, keep=(data, offsets), dtype=vec,
+                          adds=False)
 
 
-def launch_dia_spmm(data, offsets, x3, y3, *, rows: int, cols: int, x_lo: int, y_lo: int) -> None:
-    """``y3 = DIA(data, offsets) @ x3`` in the packed ``(.., K, 128)``
-    layout (data ``(nb, rows)``, 1 <= K <= 16); writes every element of
-    y3."""
-    dev = _check("dia_spmm", dict(data=_VALS, offsets=torch.int32, x3=_F32, y3=_F32),
-                 data=data, offsets=offsets, x3=x3, y3=y3)
+class PreparedDiaSpmm(_LaunchRecord):
+    """The DIA SpMM kernel's launch on one plan, in the packed layout:
+    ``launch(x3, y3)`` takes x3 ``(>= lo + ceil(cols / 128), K, 128)`` and
+    y3 ``(>= lo + ceil(rows / 128), K, 128)`` (``lo`` guard row blocks
+    first), contiguous f32 CUDA tensors on the plan's device, 1 <= K <=
+    16, and writes every element of y3 with one ctypes call of ``(args, K,
+    x3, lo, y3, lo, y3's row blocks, stream)``."""
+
+    __slots__ = ("rows", "cols", "lo")
+
+    def __init__(self, args: tuple, device: torch.device, *, rows: int, cols: int, lo: int,
+                 keep: tuple):
+        super().__init__("dia_spmm", "spmx_dia_spmm", args, device, empty=False, keep=keep)
+        self.rows, self.cols, self.lo = rows, cols, lo
+
+    def __call__(self, x3: torch.Tensor, y3: torch.Tensor) -> None:
+        px, py = self._ptr("x3", x3), self._ptr("y3", y3)
+        k = x3.shape[1] if x3.dim() == 3 else 0
+        if (
+            x3.dim() != 3 or y3.dim() != 3 or not 1 <= k <= 16 or x3.shape[2] != 128
+            or y3.shape[1:] != (k, 128) or (x3.shape[0] - self.lo) * 128 < self.cols
+            or (y3.shape[0] - self.lo) * 128 < self.rows
+        ):
+            raise ValueError("dia_spmm: shapes disagree with (nb, rows, cols, K)")
+        self._enqueue(k, px, self.lo, py, self.lo, y3.shape[0])
+
+
+def prepare_dia_spmm(data, offsets, *, rows: int, cols: int, lo: int) -> PreparedDiaSpmm:
+    """The DIA SpMM kernel's launch on one plan (f32 or bf16 ``data``
+    ``(nb, rows)`` and int32 ``offsets``; the kernel has no f64 form) with
+    ``lo`` guard row blocks before x3's and y3's bodies: ``launch(x3,
+    y3)`` (see :class:`PreparedDiaSpmm`)."""
+    dev = _check("dia_spmm", dict(data=_VALS, offsets=torch.int32), data=data, offsets=offsets)
     nb = offsets.numel()
-    k = x3.shape[1] if x3.dim() == 3 else 0
-    if (
-        data.shape != (nb, rows) or x3.dim() != 3 or y3.dim() != 3
-        or not 1 <= k <= 16 or x3.shape[2] != 128 or y3.shape[1:] != (k, 128)
-        or (x3.shape[0] - x_lo) * 128 < cols or (y3.shape[0] - y_lo) * 128 < rows
-    ):
+    if data.shape != (nb, rows):
         raise ValueError("dia_spmm: shapes disagree with (nb, rows, cols, K)")
-    _run("dia_spmm", dev, _library().spmx_dia_spmm, data.data_ptr(),
-         int(data.dtype == torch.bfloat16), offsets.data_ptr(), nb, rows, cols, k,
-         x3.data_ptr(), x_lo, y3.data_ptr(), y_lo, y3.shape[0])
+    args = (dev.index, data.data_ptr(), int(data.dtype == torch.bfloat16), offsets.data_ptr(),
+            nb, rows, cols)
+    return PreparedDiaSpmm(args, dev, rows=rows, cols=cols, lo=lo, keep=(data, offsets))
 
 
 def _check_bs(name: str, bs: int) -> None:
@@ -722,83 +732,119 @@ def _check_stream(name: str, stream, offsets, segments: int) -> int:
     return int(stream.shape[0])
 
 
-def launch_bcsr_spmm(blocks_t, block_cols, block_offsets, stream, stream_offsets,
-                     x_sum, x, y) -> None:
-    """``y = BCSR(blocks, block_cols, block_offsets) @ x`` with the blocks
-    held transposed (``blocks_t[p] = blocks[p]^T``): x is ``(bcols * bs,
-    F)``, y ``(brows * bs, F)``, F a multiple of 128; writes every element
-    of y (block rows with no block get zeros). ``stream``/``stream_offsets``
-    are the A-side live-depth stream (``ops.spmm.bcsr_depth_stream``, one
-    segment per block row and 64-row tile), walked when the one-element
-    f32 device tensor ``x_sum``, the sum of x (``x.sum()``), is finite;
-    else the kernel takes every column of every block. blocks_t and x must
-    be 16-byte aligned, y 8-byte aligned."""
+class PreparedBcsr(_LaunchRecord):
+    """The BCSR SpMM kernel's launch on one plan: ``launch(x_sum, x, y)``
+    writes ``y = BCSR @ x`` into every element of y (block rows with no
+    block get zeros), x ``(bcols * bs, F)`` 16-byte aligned and y ``(brows
+    * bs, F)`` 8-byte aligned, F a multiple of 128, contiguous f32 CUDA
+    tensors on the plan's device. The kernel walks the plan's live-depth
+    stream when the one-element f32 device tensor ``x_sum``, the sum of x
+    (``x.sum()``), is finite, else every column of every block; one ctypes
+    call of ``(args, x_sum, brows, bs, F, x, y, stream)``. A plan of no
+    block rows, or an x of no columns, launches nothing."""
+
+    __slots__ = ("brows", "bs")
+
+    def __init__(self, args: tuple, device: torch.device, *, brows: int, bs: int, keep: tuple):
+        super().__init__("bcsr_spmm", "spmx_bcsr_spmm", args, device, empty=brows == 0,
+                         keep=keep)
+        self.brows, self.bs = brows, bs
+
+    def __call__(self, x_sum: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
+        bs = self.bs
+        ps, px = self._ptr("x_sum", x_sum), self._ptr("x", x, align=16)
+        py = self._ptr("y", y, align=8)
+        f = x.shape[1] if x.dim() == 2 else 0
+        if f % 128 or x.shape[0] % bs or y.shape != (self.brows * bs, f) or x_sum.numel() != 1:
+            raise ValueError("bcsr_spmm: shapes disagree with (nnzb, bs, brows, F)")
+        if x.shape[0] >= 1 << 31:
+            raise ValueError("bcsr_spmm: the kernel indexes block and x rows with int32")
+        if not self._empty and f:
+            self._enqueue(ps, self.brows, bs, f, px, py)
+
+
+def prepare_bcsr_spmm(blocks_t, block_cols, block_offsets, stream, stream_offsets) -> PreparedBcsr:
+    """The BCSR SpMM kernel's launch on one plan: the blocks held
+    transposed (``blocks_t[p] = blocks[p]^T``, f32 ``(nnzb, bs, bs)``,
+    16-byte aligned), ``block_cols`` and ``block_offsets`` (int32), and
+    ``stream``/``stream_offsets``, the A-side live-depth stream
+    (``ops.spmm.bcsr_depth_stream``, one segment per block row and 64-row
+    tile). ``launch(x_sum, x, y)`` (see :class:`PreparedBcsr`)."""
     dev = _check("bcsr_spmm",
                  dict(blocks_t=_F32, block_cols=torch.int32, block_offsets=torch.int32,
-                      stream=torch.int32, stream_offsets=torch.int32, x_sum=_F32,
-                      x=_F32, y=_F32),
+                      stream=torch.int32, stream_offsets=torch.int32),
                  blocks_t=blocks_t, block_cols=block_cols, block_offsets=block_offsets,
-                 stream=stream, stream_offsets=stream_offsets, x_sum=x_sum, x=x, y=y)
-    _check_aligned("bcsr_spmm", 16, blocks_t=blocks_t, x=x)
-    _check_aligned("bcsr_spmm", 8, y=y)
+                 stream=stream, stream_offsets=stream_offsets)
+    _check_aligned("bcsr_spmm", 16, blocks_t=blocks_t)
     if blocks_t.dim() != 3 or blocks_t.shape[1] != blocks_t.shape[2]:
         raise ValueError("bcsr_spmm: blocks must be (nnzb, bs, bs)")
     bs = blocks_t.shape[1]
     _check_bs("bcsr_spmm", bs)
     brows = block_offsets.numel() - 1
-    f = x.shape[1] if x.dim() == 2 else 0
-    if (
-        block_cols.numel() != blocks_t.shape[0] or brows < 0 or f % 128
-        or x.shape[0] % bs or y.shape != (brows * bs, f) or x_sum.numel() != 1
-    ):
+    if block_cols.numel() != blocks_t.shape[0] or brows < 0:
         raise ValueError("bcsr_spmm: shapes disagree with (nnzb, bs, brows, F)")
-    if blocks_t.shape[0] * bs >= 1 << 31 or x.shape[0] >= 1 << 31:
+    if blocks_t.shape[0] * bs >= 1 << 31:
         raise ValueError("bcsr_spmm: the kernel indexes block and x rows with int32")
-    length = _check_stream("bcsr_spmm", stream, stream_offsets,
-                           max(brows, 0) * -(-bs // BLOCK_TILE))
-    if brows == 0 or f == 0:
-        return
-    _run("bcsr_spmm", dev, _library().spmx_bcsr_spmm, blocks_t.data_ptr(),
-         block_cols.data_ptr(), block_offsets.data_ptr(), stream.data_ptr(), length,
-         stream_offsets.data_ptr(), x_sum.data_ptr(), brows, bs, f, x.data_ptr(),
-         y.data_ptr())
+    length = _check_stream("bcsr_spmm", stream, stream_offsets, brows * -(-bs // BLOCK_TILE))
+    args = (dev.index, blocks_t.data_ptr(), block_cols.data_ptr(), block_offsets.data_ptr(),
+            stream.data_ptr(), length, stream_offsets.data_ptr())
+    return PreparedBcsr(args, dev, brows=brows, bs=bs,
+                        keep=(blocks_t, block_cols, block_offsets, stream, stream_offsets))
 
 
-def launch_block_spgemm(a_blocks_t, b_blocks, stream, offsets, c) -> None:
-    """Tile (tm, tn) of ``c[q]`` is the sum over ``e in [offsets[s],
+class PreparedBlockSpgemm(_LaunchRecord):
+    """The block SpGEMM kernel's launch on one plan: ``launch(c)`` writes
+    every block of c, a contiguous f32 CUDA tensor ``(num_c, bs, bs)`` on
+    the plan's device, 8-byte aligned, with one ctypes call of ``(args, c,
+    stream)``. A plan of no C block launches nothing."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, args: tuple, device: torch.device, *, shape: tuple, keep: tuple):
+        super().__init__("block_spgemm", "spmx_block_spgemm", args, device,
+                         empty=shape[0] == 0, keep=keep)
+        self.shape = shape
+
+    def __call__(self, c: torch.Tensor) -> None:
+        pc = self._ptr("c", c, align=8)
+        if c.shape != self.shape:
+            raise ValueError("block_spgemm: shapes disagree with (num_c, bs)")
+        if not self._empty:
+            self._enqueue(pc)
+
+
+def prepare_block_spgemm(a_blocks_t, b_blocks, stream, offsets, *,
+                         num_c: int) -> PreparedBlockSpgemm:
+    """The block SpGEMM kernel's launch on one plan of ``num_c`` C blocks:
+    tile (tm, tn) of ``c[q]`` is the sum over ``e in [offsets[s],
     offsets[s+1])``, ``s = (q * tiles + tm) * tiles + tn``, of ``outer(
     a_blocks_t row stream[e, 0], b_blocks row stream[e, 1])`` on the tile,
     in stream order (rows of the ``(n * bs, bs)`` views; 64 x 64 tiles,
     ``tiles = ceil(bs / 64)``): the block products over the live-depth
     stream of ``ops.spgemm_block.block_depth_stream``, A held transposed
     (``a_blocks_t[i] = A_blocks[i]^T``). Blocks f32 or bf16 (one type for
-    both, 16-byte aligned), c f32 ``(num_c, bs, bs)`` (8-byte aligned),
-    written whole."""
+    both, 16-byte aligned). ``launch(c)`` (see
+    :class:`PreparedBlockSpgemm`)."""
     dev = _check("block_spgemm",
-                 dict(a_blocks_t=_VALS, b_blocks=_VALS, stream=torch.int32,
-                      offsets=torch.int32, c=_F32),
-                 a_blocks_t=a_blocks_t, b_blocks=b_blocks, stream=stream, offsets=offsets,
-                 c=c)
+                 dict(a_blocks_t=_VALS, b_blocks=_VALS, stream=torch.int32, offsets=torch.int32),
+                 a_blocks_t=a_blocks_t, b_blocks=b_blocks, stream=stream, offsets=offsets)
     _check_aligned("block_spgemm", 16, a_blocks_t=a_blocks_t, b_blocks=b_blocks)
-    _check_aligned("block_spgemm", 8, c=c)
     if a_blocks_t.dtype != b_blocks.dtype:
         raise TypeError("block_spgemm: A and B blocks must share one dtype")
     if a_blocks_t.dim() != 3 or a_blocks_t.shape[1] != a_blocks_t.shape[2]:
         raise ValueError("block_spgemm: blocks must be (n, bs, bs)")
     bs = a_blocks_t.shape[1]
     _check_bs("block_spgemm", bs)
-    if (b_blocks.dim() != 3 or b_blocks.shape[1:] != (bs, bs)
-            or c.dim() != 3 or c.shape[1:] != (bs, bs)):
+    if b_blocks.dim() != 3 or b_blocks.shape[1:] != (bs, bs) or num_c < 0:
         raise ValueError("block_spgemm: shapes disagree with (num_c, bs)")
     if max(a_blocks_t.shape[0], b_blocks.shape[0]) * bs >= 1 << 31:
         raise ValueError("block_spgemm: the kernel indexes block rows with int32")
-    num_c = c.shape[0]
     length = _check_stream("block_spgemm", stream, offsets, num_c * (-(-bs // BLOCK_TILE)) ** 2)
-    if num_c == 0:
-        return
-    _run("block_spgemm", dev, _library().spmx_block_spgemm, a_blocks_t.data_ptr(),
-         b_blocks.data_ptr(), int(a_blocks_t.dtype == torch.bfloat16), stream.data_ptr(),
-         length, offsets.data_ptr(), num_c, bs, c.data_ptr())
+    args = (dev.index, a_blocks_t.data_ptr(), b_blocks.data_ptr(),
+            int(a_blocks_t.dtype == torch.bfloat16), stream.data_ptr(), length,
+            offsets.data_ptr(), num_c, bs)
+    return PreparedBlockSpgemm(args, dev, shape=(num_c, bs, bs),
+                               keep=(a_blocks_t, b_blocks, stream, offsets))
 
 
 class PreparedTrisweep(_LaunchRecord):
@@ -819,18 +865,14 @@ class PreparedTrisweep(_LaunchRecord):
         self.publishes = args.chunks > 1 and args.tail > 0
 
     def __call__(self, b: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, sweeps: int) -> None:
-        idx, n = self.device.index, self.rows
-        for what, t in (("b", b), ("dinv", dinv), ("y", y)):
-            if (not t.is_cuda or t.get_device() != idx or t.dtype is not _F32
-                    or not t.is_contiguous() or t.numel() != n):
-                raise self._refuse(what, t, n)
-        if y.data_ptr() in (b.data_ptr(), dinv.data_ptr()):
+        pb, pd, py = (self._ptr(w, t, self.rows) for w, t in (("b", b), ("dinv", dinv), ("y", y)))
+        if py in (pb, pd):
             raise ValueError("trisweep: y must not alias b or dinv")
         if not 0 <= sweeps < 2 ** 31 or (self.publishes and sweeps > self.levels):
             raise ValueError(f"trisweep: sweeps {sweeps} outside [0, {self.levels}], the levels "
                              "the plan's scratch holds")
         if not self._empty:
-            self._enqueue(b.data_ptr(), dinv.data_ptr(), int(sweeps), y.data_ptr())
+            self._enqueue(pb, pd, int(sweeps), py)
 
 
 #: the shared memory one block of the trisweep kernel may take (227 KB, the
@@ -888,11 +930,6 @@ def prepare_trisweep(data, offsets_t, scratch, flags, state, *, offsets: tuple, 
                             keep=(data, offsets_t, scratch, flags, state))
 
 
-def _vector_ok(t: torch.Tensor, idx: int, n: int) -> bool:
-    return (t.is_cuda and t.get_device() == idx and t.dtype is _F32 and t.is_contiguous()
-            and t.numel() == n)
-
-
 class PreparedExpand(_LaunchRecord):
     """The ESC expansion kernel on one checked plan: ``launch(lv, rv, p,
     csr_order=False)`` checks lv (the ``n_lv`` lhs values, CSC-permuted,
@@ -914,14 +951,12 @@ class PreparedExpand(_LaunchRecord):
 
     def __call__(self, lv: torch.Tensor, rv: torch.Tensor, p: torch.Tensor,
                  csr_order: bool = False) -> None:
-        idx = self.device.index
-        for what, t, n in (("lv", lv, self.n_lv), ("rv", rv, self.n_rv), ("p", p, self.num_slots)):
-            if not _vector_ok(t, idx, n) or (what == "p" and p.data_ptr() % 16):
-                raise self._refuse(what, t, n)
-        if p.data_ptr() in (lv.data_ptr(), rv.data_ptr()):
+        pl, pr = self._ptr("lv", lv, self.n_lv), self._ptr("rv", rv, self.n_rv)
+        pp = self._ptr("p", p, self.num_slots, 16)
+        if pp in (pl, pr):
             raise ValueError("esc_expand: p must not alias lv or rv")
         if not self._empty:
-            self._enqueue(lv.data_ptr(), rv.data_ptr(), int(bool(csr_order)), p.data_ptr())
+            self._enqueue(pl, pr, int(bool(csr_order)), pp)
 
 
 def prepare_esc_expand(segments, tiles, perm, *, num_products: int, num_slots: int,
@@ -968,14 +1003,11 @@ class PreparedRunSum(_LaunchRecord):
         self.cap = int(args.cap)
 
     def __call__(self, p: torch.Tensor, val: torch.Tensor) -> None:
-        idx = self.device.index
-        for what, t in (("p", p), ("val", val)):
-            if not _vector_ok(t, idx, self.cap):
-                raise self._refuse(what, t, self.cap)
-        if p.data_ptr() == val.data_ptr():
+        pp, pv = self._ptr("p", p, self.cap), self._ptr("val", val, self.cap)
+        if pp == pv:
             raise ValueError("esc_run_sum: val must not alias p")
         if not self._empty:
-            self._enqueue(p.data_ptr(), val.data_ptr())
+            self._enqueue(pp, pv)
 
 
 def prepare_esc_run_sum(order, run_off, *, num_summed: int) -> PreparedRunSum:
@@ -1005,27 +1037,20 @@ class PreparedSymgs(_LaunchRecord):
     colours forward, then backward, ``launches`` in all, each counted. x
     is updated in place."""
 
-    __slots__ = ("n", "dtype", "launches")
+    __slots__ = ("n", "launches")
 
     def __init__(self, args: SymgsPlan, device: torch.device, *, dtype, launches: int,
                  keep: tuple):
-        super().__init__("symgs", "spmx_symgs", args, device, empty=launches == 0, keep=keep)
-        self.n, self.dtype, self.launches = int(args.n), dtype, launches
+        super().__init__("symgs", "spmx_symgs", args, device, empty=launches == 0, keep=keep,
+                         dtype=dtype)
+        self.n, self.launches = int(args.n), launches
 
     def __call__(self, r: torch.Tensor, x: torch.Tensor) -> None:
-        idx = self.device.index
-        for what, t in (("r", r), ("x", x)):
-            if t.device != self.device or t.get_device() != idx:
-                raise ValueError(f"symgs: {what} is on {t.device}, the plan on {self.device}")
-            if t.dtype != self.dtype:
-                raise TypeError(f"symgs: {what} has dtype {t.dtype}, expected {self.dtype}")
-            if not t.is_contiguous() or t.numel() != self.n:
-                raise ValueError(f"symgs: {what} must be a contiguous vector of {self.n} "
-                                 "elements")
-        if x.data_ptr() == r.data_ptr():
+        pr, px = self._ptr("r", r, self.n), self._ptr("x", x, self.n)
+        if px == pr:
             raise ValueError("symgs: x must not alias r")
         if not self._empty:
-            self._enqueue(r.data_ptr(), x.data_ptr(), launches=self.launches)
+            self._enqueue(pr, px, launches=self.launches)
 
 
 def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> PreparedSymgs:
@@ -1073,8 +1098,8 @@ class KrylovScratch:
     of the dtype on the device, which the kernels read there. x, r and p
     are updated in place. One call at a time: calls share the scratch."""
 
-    __slots__ = ("device", "dtype", "n", "slots", "_idx", "_keep", "_args", "_ref",
-                 "_fns", "_stream")
+    __slots__ = ("device", "dtype", "n", "slots", "_idx", "_keep", "_args", "_dot", "_cg",
+                 "_p")
 
     def __init__(self, like: torch.Tensor):
         dtype, n = like.dtype, like.numel()
@@ -1100,10 +1125,10 @@ class KrylovScratch:
         self._keep = (partials, ticket, scalars)
         self._args = KrylovPlan(partials=partials.data_ptr(), ticket=ticket.data_ptr(), n=n,
                                 blocks=blocks.value, values_f64=f64, device=self._idx)
-        self._ref = ctypes.addressof(self._args)
-        self._fns = (lib.spmx_krylov_dot, lib.spmx_cg_update, lib.spmx_p_update)
-        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-        self._stream = raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+        self._dot, self._cg, self._p = (
+            _LaunchRecord(name, f"spmx_{name}", self._args, self.device, empty=False,
+                          keep=self._keep, dtype=dtype)
+            for name in ("krylov_dot", "cg_update", "p_update"))
 
     @property
     def blocks(self) -> int:
@@ -1128,18 +1153,11 @@ class KrylovScratch:
                              f"{self.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         return t.data_ptr()
 
-    def _enqueue(self, k: int, name: str, *call) -> None:
-        err = self._fns[k](self._ref, *call, self._stream(self._idx))
-        if err != 0:
-            msg = _library().spmx_cuda_error_string(err).decode()
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-        launch_counts[name] += 1
-
     def dot(self, u: torch.Tensor, v: torch.Tensor, slot: int) -> torch.Tensor:
         """``slots[slot] = u . v``."""
         pu, pv = self._vec("u", u), self._vec("v", v)
         out = self.slots[slot]
-        self._enqueue(0, "krylov_dot", pu, pv, int(not (pu | pv) % 16), out.data_ptr())
+        self._dot._enqueue(pu, pv, int(not (pu | pv) % 16), out.data_ptr())
         return out
 
     def cg_update(self, x, r, p, ap, num, den, slot: int) -> torch.Tensor:
@@ -1153,7 +1171,7 @@ class KrylovScratch:
             raise ValueError("cg_update: x, r, p and ap must be distinct vectors, and the "
                              "output slot neither num nor den")
         vec = int(not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16)
-        self._enqueue(1, "cg_update", *ptrs, vec, pn, pd, out.data_ptr())
+        self._cg._enqueue(*ptrs, vec, pn, pd, out.data_ptr())
         return out
 
     def p_update(self, p, z, num, den) -> None:
@@ -1162,5 +1180,5 @@ class KrylovScratch:
         pp, pz = self._vec("p", p), self._vec("z", z)
         if pp == pz:
             raise ValueError("p_update: z must not alias p")
-        self._enqueue(2, "p_update", pp, pz, int(not (pp | pz) % 16),
-                      self._scalar("num", num), self._scalar("den", den))
+        self._p._enqueue(pp, pz, int(not (pp | pz) % 16), self._scalar("num", num),
+                         self._scalar("den", den))

@@ -29,7 +29,7 @@ plan data, so the sort reduction is planned once on the device
 (:func:`plan_sort_reduce`: the stable key order, the runs, each run's row
 and column, nnz) and a multiply sums each run in sorted order: the run-sum
 kernel (``csrc/esc_run_sum.cu``) on the card, the same bits on every call,
-and on the CPU :func:`_run_sum_torch`, which equals the per-call sort
+and on the CPU :func:`_sum_runs_torch`, which equals the per-call sort
 (:func:`_packed_reduce_presort`, still the gather engine's) bit for bit.
 The reference's ``as_pytree``/``params=`` (jit arguments) are not ported:
 there is no jit to feed.
@@ -150,7 +150,7 @@ def plan_sort_reduce(key, rows: int, cols: int, *, padded: bool) -> dict:
     return out
 
 
-def _run_sum_torch(p, order, run_off):
+def _sum_runs_torch(p, order, run_off):
     """Plain version of the run sums: run r's products ``p[order[i]]``, i in
     ``[run_off[r], run_off[r + 1])``, added into a zero in that order (the
     CPU's ``index_add_`` is sequential), every run summed. The same adds as
@@ -366,7 +366,7 @@ class EscSpgemm:
                         val = torch.empty_like(p)
                         runs["launch"](p, val)
                     else:
-                        val = _run_sum_torch(p, runs["order"], runs["run_off"])
+                        val = _sum_runs_torch(p, runs["order"], runs["run_off"])
                 return PaddedCoo(runs["row"], runs["col"], val, runs["nnz"], self.rows,
                                  self.cols)
             lv = self.lhs_vals if lhs_vals is None else self._vals(lhs_vals)

@@ -51,17 +51,23 @@ from ..formats.stripe import StripePlan, _mode_cost, _stripe_counts, plan_stripe
 from ..formats.stripe import _cost_constants as _stripe_cost_constants
 from ..utils import autotune
 from ..utils.profiling import span
+from .spmm import spmm_aligned, spmm_bell, spmm_ell, spmm_lanepack
 from .spmv import (
     _TORCH_DTYPES,
     _t,
+    aligned_device_arrays,
+    ell_from_csr,
+    ell_spill_from_csr,
+    lanepack_device_arrays,
     spmv_aligned,
     spmv_ell,
     spmv_ell_spill,
     spmv_lanepack,
     spmv_stripe,
+    stripe_device_arrays,
 )
-from .spmv_bell import spmv_bell
-from .spmv_dia import spmv_dia
+from .spmv_bell import bell_device_arrays, spmv_bell
+from .spmv_dia import dia_device_arrays, spmm_dia_stream, spmv_dia
 
 __all__ = [
     "SpmvOperator",
@@ -120,7 +126,9 @@ class SpmvOperator:
     planes half-width (the other formats raise); applies widen to ``dtype``
     before they accumulate. The host plan is built once; its arrays live on
     ``device`` and ``__call__`` takes an ``x`` on that device. The plan and
-    its upload are the span ``spmx.plan.operator``.
+    its upload are the span ``spmx.plan.operator``. The operator holds
+    ``format`` and ``parts``, one planned part a format (two for a hybrid,
+    whose applies add), each read through :meth:`part`.
     """
 
     # above this nnz the dispatch cost estimators run on sampled row bands
@@ -133,39 +141,28 @@ class SpmvOperator:
         with span("spmx.plan.operator"):
             self.device = require_device(device)
             self.dtype = dtype
-            self._values_dtype = values_dtype
             self.rows, self.cols = m.rows, m.cols
             self.nnz = m.nnz()
-            self._dia = None
-            self._plan = None
-            self._aligned = None
-            self._bell = None
-            self._stripe = None
-            self._ell = None
-            self._ell_spill = None
-            self._dispatch(m, _NP_DTYPES[dtype], force)
+            self.format, plans = self._dispatch(m, _NP_DTYPES[dtype], force)
+            self.parts = self._upload(plans, values_dtype)
 
     def _dispatch(self, m: CsrMatrix, dtype, force):
+        """The format and its ``(part class, host plan)`` pairs."""
         if force == "stripe":
             # the reference plans a forced stripe operator on plan_stripe's
             # own grid (L = 1 included)
-            self._set_stripe(m, dtype)
-            return
+            return "stripe", ((_StripePart, plan_stripe(m, dtype=dtype)),)
 
         if force == "aligned":
-            self._set_aligned(m, dtype)
-            return
+            return "aligned", ((_AlignedPart, plan_aligned(m, dtype=dtype)),)
 
         if force == "bell":
-            self._set_bell(m, dtype)
-            return
+            return "bell", ((_BellPart, plan_bell(m, dtype=dtype)),)
 
         if force in (None, "dia"):
             dia = try_dia_from_csr(m, dtype=dtype)
             if dia is not None:
-                self.format = "dia"
-                self._set_dia(dia)
-                return
+                return "dia", ((_DiaPart, dia),)
             if force == "dia":
                 raise ValueError("matrix is not band-structured enough for DIA")
 
@@ -179,15 +176,13 @@ class SpmvOperator:
             ):
                 dia = try_dia_from_csr(banded, dtype=dtype, min_fill=0.0)
                 if dia is not None:
-                    self.format = "hybrid"
-                    self._set_dia(dia)
                     # residual may itself be hyper-sparse: route it by the
                     # same LanePack-vs-ELL guard as the reference
                     if self._lanepack_viable(residual):
-                        self._set_plan(residual, dtype)
+                        rest = (_LanePackPart, plan_lanepack(residual, dtype=dtype))
                     else:
-                        self._set_ell(residual, dtype)
-                    return
+                        rest = (_EllPart, _plan_ell(residual, dtype))
+                    return "hybrid", ((_DiaPart, dia), rest)
             if force == "hybrid":
                 raise ValueError("no useful band/residual split")
 
@@ -199,12 +194,10 @@ class SpmvOperator:
             row_max = int(np.diff(m.offsets).max()) if m.nnz() else 1
             ell_bytes = m.rows * max(1, row_max) * 8
             if force == "ell":
-                self._set_ell(m, dtype)
-                return
+                return "ell", ((_EllPart, _plan_ell(m, dtype)),)
             if plan_est > 4 * m.nnz() * 8 and ell_bytes < plan_est / 2:
                 if plan_est > 1 << 29:
-                    self._set_ell(m, dtype)
-                    return
+                    return "ell", ((_EllPart, _plan_ell(m, dtype)),)
                 t_aligned, t_gen, _ = self._general_costs(m)
                 t_lp = (
                     t_gen
@@ -213,8 +206,7 @@ class SpmvOperator:
                 )
                 ell_ns = m.rows * max(1, row_max) * autotune.get("ell_gather_ns")
                 if ell_ns <= min(t_aligned, t_lp):
-                    self._set_ell(m, dtype)
-                    return
+                    return "ell", ((_EllPart, _plan_ell(m, dtype)),)
             if not self._lanepack_viable(m):
                 # the reference's branch for LanePack plans past its 1 MB
                 # SMEM budget
@@ -227,8 +219,7 @@ class SpmvOperator:
                     t_aligned, t_bell,
                     t_gen if t_gen is not None else float("inf"),
                 ):
-                    self._set_stripe(m, dtype, cfg=scfg)
-                    return
+                    return "stripe", ((_StripePart, _plan_stripe(m, dtype, scfg)),)
                 if (
                     t_gen is not None
                     and slabs is not None
@@ -239,16 +230,12 @@ class SpmvOperator:
                         # the reference row-splits here so each shard's
                         # LanePack plan fits SMEM; the port has no SMEM
                         # budget and plans the LanePack winner whole
-                        self._set_plan(m, dtype)
-                        return
+                        return "lanepack", ((_LanePackPart, plan_lanepack(m, dtype=dtype)),)
                 if bell_ok:
-                    self._set_bell(m, dtype)
-                    return
+                    return "bell", ((_BellPart, plan_bell(m, dtype=dtype)),)
                 if m.nnz() > 0:
-                    self._set_aligned(m, dtype)
-                    return
-                self._set_ell(m, dtype)
-                return
+                    return "aligned", ((_AlignedPart, plan_aligned(m, dtype=dtype)),)
+                return "ell", ((_EllPart, _plan_ell(m, dtype)),)
 
         # BELL vs aligned vs general LanePack by estimated kernel time; an
         # explicit force="lanepack" bypasses the comparison
@@ -258,16 +245,13 @@ class SpmvOperator:
                 # the counts are memoized: this recovers the grid argmin so
                 # plan_stripe skips its own grid
                 _t, _ok, scfg = self._stripe_cost_and_viable(m)
-                self._set_stripe(m, dtype, cfg=scfg)
-                return
+                return "stripe", ((_StripePart, _plan_stripe(m, dtype, scfg)),)
             if choice == "bell":
-                self._set_bell(m, dtype)
-                return
+                return "bell", ((_BellPart, plan_bell(m, dtype=dtype)),)
             if choice == "aligned":
-                self._set_aligned(m, dtype)
-                return
+                return "aligned", ((_AlignedPart, plan_aligned(m, dtype=dtype)),)
 
-        self._set_plan(m, dtype)
+        return "lanepack", ((_LanePackPart, plan_lanepack(m, dtype=dtype)),)
 
     # -- dispatch estimators (the reference's, unchanged) -------------------
 
@@ -415,136 +399,51 @@ class SpmvOperator:
             best = b if best is None else min(best, b)
         return best if best is not None else m.nnz() * 8
 
-    # -- plan builders ------------------------------------------------------
+    # -- parts --------------------------------------------------------------
 
-    def _kernel_values(self, fmt: str, dtype) -> None:
-        """Refuse float64 values of a kernel-backed format other than DIA,
-        and of DIA with bf16 planes, on a CUDA device (see the module
-        docstring); ELL and the CPU path take them."""
-        if (self.device.type == "cuda" and np.dtype(dtype) == np.float64
-                and (fmt != "dia" or self._values_dtype is not None)):
-            raise TypeError(
-                f"SpmvOperator: float64 {fmt} plans have no kernel on {self.device} "
-                f"({torch.cuda.get_device_name(self.device)}): of the CUDA kernels only DIA "
-                "takes float64 values, with float64 planes; plan float32, force='dia' or "
-                "'ell', or use device='cpu' for float64"
-            )
+    def _upload(self, plans, values_dtype) -> tuple:
+        """The parts of ``plans``, ``(part class, host plan)`` pairs, on the
+        operator's device. Refused: ``values_dtype`` (bf16 planes) on a
+        part that does not stream them (only DIA and BELL do; a hybrid's
+        LanePack residual stays f32, it is the minority nnz by
+        construction), and float64 values of a kernel-backed part other
+        than DIA, or of DIA with bf16 planes, on a CUDA device (see the
+        module docstring); ELL and the CPU path take them."""
+        parts = []
+        for cls, plan in plans:
+            if (values_dtype is not None and not cls.bf16
+                    and not (self.format == "hybrid" and cls is _LanePackPart)):
+                raise ValueError(
+                    f"values_dtype is only supported on the streaming formats "
+                    f"(dia, bell); dispatch chose {cls.fmt!r} — force='dia' or "
+                    f"force='bell', or drop values_dtype"
+                )
+            if (self.device.type == "cuda" and self.dtype == torch.float64
+                    and cls is not _EllPart and (self.format != "dia" or values_dtype is not None)):
+                raise TypeError(
+                    f"SpmvOperator: float64 {self.format} plans have no kernel on {self.device} "
+                    f"({torch.cuda.get_device_name(self.device)}): of the CUDA kernels only DIA "
+                    "takes float64 values, with float64 planes; plan float32, force='dia' or "
+                    "'ell', or use device='cpu' for float64"
+                )
+            parts.append(cls(plan, self.device, values_dtype))
+        return tuple(parts)
 
-    def _no_bf16(self, fmt: str):
-        if self._values_dtype is not None:
-            raise ValueError(
-                f"values_dtype is only supported on the streaming formats "
-                f"(dia, bell); dispatch chose {fmt!r} — force='dia' or "
-                f"force='bell', or drop values_dtype"
-            )
-
-    def _set_ell(self, m, dtype):
-        from .spmv import ell_from_csr, ell_spill_from_csr
-
-        self._no_bf16("ell")
-        # width guard: one dense row must not inflate the padded array to
-        # rows x max_row_nnz — skewed matrices get a capped ELL + COO spill
-        row_nnz = np.diff(m.offsets)
-        w_full = max(1, int(row_nnz.max())) if m.nnz() else 1
-        q99 = int(np.quantile(row_nnz, 0.99)) if m.nnz() else 1
-        if w_full > 2 * max(1, 2 * q99):
-            ev, ec, sr, sc, sv = ell_spill_from_csr(m, dtype=dtype)
-            self._set_ell_arrays((ev, ec), (sr, sc, sv))
-        else:
-            self._set_ell_arrays(ell_from_csr(m, dtype=dtype), None)
-
-    def _set_ell_arrays(self, ell, spill):
-        if getattr(self, "format", None) != "hybrid":
-            self.format = "ell"
-        self._ell_host = (ell, spill)
-        self._ell = tuple(_t(a, self.device) for a in ell)
-        self._ell_spill = None if spill is None else tuple(_t(a, self.device) for a in spill)
-
-    def _set_aligned(self, m, dtype):
-        self._no_bf16("aligned")
-        self._set_aligned_plan(plan_aligned(m, dtype=dtype))
-
-    def _set_aligned_plan(self, plan):
-        from .spmv import aligned_device_arrays
-
-        self._kernel_values("aligned", plan.vals.dtype)
-        self.format = "aligned"
-        self._aligned = plan
-        self._ali_arrs = aligned_device_arrays(plan, self.device)
-
-    def _set_bell(self, m, dtype):
-        self._set_bell_plan(plan_bell(m, dtype=dtype))
-
-    def _set_bell_plan(self, plan):
-        from .spmv_bell import bell_device_arrays
-
-        self._kernel_values("bell", plan.vals.dtype)
-        self.format = "bell"
-        self._bell = plan
-        self._bell_arrs = bell_device_arrays(plan, self.device, values_dtype=self._values_dtype)
-
-    def _set_stripe(self, m, dtype, cfg=None):
-        self._no_bf16("stripe")
-        if cfg is not None:
-            mode, lvl, kw = cfg
-            plan = plan_stripe(m, dtype=dtype, mode=mode, levels=lvl, kw=kw)
-        else:
-            plan = plan_stripe(m, dtype=dtype)
-        self._set_stripe_plan(plan)
-
-    def _set_stripe_plan(self, plan: StripePlan):
-        from .spmv import stripe_device_arrays
-
-        self._kernel_values("stripe", plan.vals.dtype)
-        self.format = "stripe"
-        self._stripe = plan
-        self._stripe_arrs = stripe_device_arrays(plan, self.device)
-
-    def _set_dia(self, dia: DiaMatrix):
-        from .spmv_dia import dia_device_arrays
-
-        self._kernel_values(getattr(self, "format", None) or "dia", dia.data.dtype)
-        self._dia = dia
-        self._dia_arrs = dia_device_arrays(dia, self.device, values_dtype=self._values_dtype)
-
-    def _set_plan(self, m, dtype):
-        self._set_lanepack_plan(plan_lanepack(m, dtype=dtype))
-
-    def _set_lanepack_plan(self, plan: LanePackPlan):
-        from .spmv import lanepack_device_arrays
-
-        self._kernel_values(getattr(self, "format", None) or "lanepack", plan.vals.dtype)
-        # hybrid keeps its DIA part bf16-capable; the LanePack residual
-        # stays f32 (it is the minority nnz by construction)
-        if getattr(self, "format", None) != "hybrid":
-            self._no_bf16("lanepack")
-            self.format = "lanepack"
-        self._plan = plan
-        self._lp_arrs = lanepack_device_arrays(plan, self.device)
+    def part(self, fmt: str):
+        """The part of format ``fmt`` (``"dia"``, ``"aligned"``,
+        ``"lanepack"``, ``"bell"``, ``"stripe"`` or ``"ell"``), or None. A
+        part carries ``plan``, its host plan, and ``arrays``, its device
+        arrays."""
+        return next((p for p in self.parts if p.fmt == fmt), None)
 
     # -- apply --------------------------------------------------------------
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if x.device != self.device:
             raise ValueError(f"x is on {x.device}, the operator on {self.device}")
-        y = None
-        if self._bell is not None:
-            y = spmv_bell(self._bell, x, device_arrays=self._bell_arrs)
-        if self._aligned is not None:
-            y = spmv_aligned(self._aligned, x, device_arrays=self._ali_arrs)
-        if self._stripe is not None:
-            y = spmv_stripe(self._stripe, x, device_arrays=self._stripe_arrs)
-        if self._dia is not None:
-            y = spmv_dia(self._dia, x, device_arrays=self._dia_arrs)
-        if self._plan is not None:
-            y2 = spmv_lanepack(self._plan, x, device_arrays=self._lp_arrs)
-            y = y2 if y is None else y + y2
-        if self._ell is not None:
-            if self._ell_spill is not None:
-                y3 = spmv_ell_spill(*self._ell, *self._ell_spill, x)
-            else:
-                y3 = spmv_ell(*self._ell, x)
-            y = y3 if y is None else y + y3
+        y = self.parts[0].apply(x)
+        for p in self.parts[1:]:
+            y = y + p.apply(x)
         return y
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
@@ -566,88 +465,249 @@ class SpmvOperator:
             raise ValueError(f"x must be ({self.cols}, K), got {tuple(x.shape)}")
         if x.dtype != self.dtype:
             raise TypeError(f"x has dtype {x.dtype}, the operator {self.dtype}")
-        k = int(x.shape[1])
-
-        def columns(apply):
-            return torch.stack([apply(x[:, j]) for j in range(k)], dim=1)
-
-        def chunks16(apply):
-            """``apply`` on balanced column chunks of at most 16 (on X
-            itself when K <= 16)."""
-            if k <= 16:
-                return apply(x)
-            nchunks = -(-k // 16)
-            base, rem = divmod(k, nchunks)
-            parts, j = [], 0
-            for step in (base + (i < rem) for i in range(nchunks)):
-                parts.append(apply(x[:, j:j + step]))
-                j += step
-            return torch.cat(parts, dim=1)
-
-        y = None
-        if self._bell is not None:
-            if k >= 8:
-                from .spmm import spmm_bell
-
-                y = chunks16(lambda xs: spmm_bell(self._bell, xs, device_arrays=self._bell_arrs))
-            else:
-                from .spmv_bell import spmv_bell
-
-                y = columns(lambda v: spmv_bell(self._bell, v, device_arrays=self._bell_arrs))
-        if self._stripe is not None:
-            from .spmv import spmv_stripe
-
-            y = columns(lambda v: spmv_stripe(self._stripe, v, device_arrays=self._stripe_arrs))
-        if self._dia is not None:
-            from .spmv_dia import spmm_dia_stream, spmv_dia
-
-            def dia_part(xs):
-                if xs.shape[1] >= 2:
-                    return spmm_dia_stream(self._dia, xs, device_arrays=self._dia_arrs)
-                return spmv_dia(self._dia, xs[:, 0].contiguous(),
-                                device_arrays=self._dia_arrs)[:, None]
-
-            y = chunks16(dia_part)
-        if self._aligned is not None:
-            from .spmm import spmm_aligned
-
-            y = spmm_aligned(self._aligned, x, device_arrays=self._ali_arrs)
-        if self._plan is not None:
-            from .spmm import spmm_lanepack
-
-            y2 = spmm_lanepack(self._plan, x, device_arrays=self._lp_arrs)
-            y = y2 if y is None else y + y2
-        if self._ell is not None:
-            from .spmm import spmm_ell
-
-            y2 = spmm_ell(*self._ell, x)
-            if self._ell_spill is not None:
-                sr, sc, sv = self._ell_spill
-                y2 = y2.index_add(0, sr.long(), sv[:, None] * x[sc.long()])
-            y = y2 if y is None else y + y2
+        y = self.parts[0].matmat(x)
+        for p in self.parts[1:]:
+            y = y + p.matmat(x)
         return y
 
     def bytes_per_apply(self) -> int:
         """Device bytes of operator data streamed per SpMV (x and y not
         counted); bf16 value planes count at their stored width."""
-        total = 0
-        if self._ell is not None:
-            total += sum(int(a.nbytes) for a in self._ell)
-            if self._ell_spill is not None:
-                total += sum(int(a.nbytes) for a in self._ell_spill)
-        if self._dia is not None:
-            total += int(self._dia_arrs["data"].nbytes)
-        if self._plan is not None:
-            total += self._plan.slot_bytes()
-        if self._aligned is not None:
-            total += self._aligned.slot_bytes()
-        if self._stripe is not None:
-            total += self._stripe.slot_bytes()
-        if self._bell is not None:
-            total += int(self._bell_arrs["vals"].nbytes + self._bell_arrs["lane"].nbytes)
-            if self._bell.spill is not None:
-                total += self._bell.spill.slot_bytes()
-        return total
+        return sum(p.nbytes() for p in self.parts)
+
+
+# ---------------------------------------------------------------------------
+# parts: one planned format each
+# ---------------------------------------------------------------------------
+
+
+def _columns(apply, x):
+    """``apply`` on each column of X, stacked as the columns of Y."""
+    return torch.stack([apply(x[:, j]) for j in range(x.shape[1])], dim=1)
+
+
+def _chunks16(apply, x):
+    """``apply`` on balanced column chunks of X of at most 16 (on X itself
+    when K <= 16)."""
+    k = int(x.shape[1])
+    if k <= 16:
+        return apply(x)
+    nchunks = -(-k // 16)
+    base, rem = divmod(k, nchunks)
+    parts, j = [], 0
+    for step in (base + (i < rem) for i in range(nchunks)):
+        parts.append(apply(x[:, j:j + step]))
+        j += step
+    return torch.cat(parts, dim=1)
+
+
+def _plan_ell(m: CsrMatrix, dtype):
+    """An ELL part's host arrays ``((vals, cols), spill)``. Width guard: one
+    dense row must not inflate the padded array to rows x max_row_nnz, so a
+    skewed matrix gets a capped ELL and a COO spill ``(rows, cols, vals)``;
+    else ``spill`` is None."""
+    row_nnz = np.diff(m.offsets)
+    w_full = max(1, int(row_nnz.max())) if m.nnz() else 1
+    q99 = int(np.quantile(row_nnz, 0.99)) if m.nnz() else 1
+    if w_full > 2 * max(1, 2 * q99):
+        ev, ec, sr, sc, sv = ell_spill_from_csr(m, dtype=dtype)
+        return (ev, ec), (sr, sc, sv)
+    return ell_from_csr(m, dtype=dtype), None
+
+
+def _plan_stripe(m: CsrMatrix, dtype, cfg) -> StripePlan:
+    mode, lvl, kw = cfg
+    return plan_stripe(m, dtype=dtype, mode=mode, levels=lvl, kw=kw)
+
+
+class _Part:
+    """One planned format of an :class:`SpmvOperator`: ``plan``, its host
+    plan, and ``arrays``, its arrays on the operator's device
+    (``device_arrays(plan, device)``). ``apply(x)`` and ``matmat(X)`` run
+    it, ``nbytes()`` is its share of ``bytes_per_apply``, and
+    ``payload()`` its keys in a plan file, from which ``load(z)`` reads
+    its plan back (``key`` marks it there)."""
+
+    fmt = key = ""
+    bf16 = False  # streams bf16 value planes (``values_dtype``)
+
+    def __init__(self, plan, device, values_dtype=None):
+        self.plan = plan
+        kw = {"values_dtype": values_dtype} if self.bf16 else {}
+        self.arrays = self.device_arrays(plan, device, **kw)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.spmv(self.plan, x, device_arrays=self.arrays)
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        return _columns(self.apply, x)
+
+    def nbytes(self) -> int:
+        return self.plan.slot_bytes()
+
+
+class _DiaPart(_Part):
+    fmt, key, bf16 = "dia", "dia_data", True
+    device_arrays, spmv = staticmethod(dia_device_arrays), staticmethod(spmv_dia)
+
+    def matmat(self, x):
+        def chunk(xs):
+            if xs.shape[1] >= 2:
+                return spmm_dia_stream(self.plan, xs, device_arrays=self.arrays)
+            return self.apply(xs[:, 0].contiguous())[:, None]
+
+        return _chunks16(chunk, x)
+
+    def nbytes(self):
+        return int(self.arrays["data"].nbytes)
+
+    def payload(self):
+        d = self.plan
+        return {"dia_data": d.data, "dia_offsets": np.asarray(d.offsets, np.int64),
+                "dia_rows": d.rows, "dia_cols": d.cols}
+
+    @staticmethod
+    def load(z):
+        return DiaMatrix(int(z["dia_rows"]), int(z["dia_cols"]), z["dia_data"],
+                         tuple(int(o) for o in z["dia_offsets"]))
+
+
+class _AlignedPart(_Part):
+    fmt, key = "aligned", "ali_vals"
+    device_arrays, spmv = staticmethod(aligned_device_arrays), staticmethod(spmv_aligned)
+
+    def matmat(self, x):
+        return spmm_aligned(self.plan, x, device_arrays=self.arrays)
+
+    def payload(self):
+        al = self.plan
+        out = {"ali_vals": al.vals, "ali_lane": al.lane, "ali_col_off": al.col_off,
+               "ali_chunk_rb": al.chunk_rb, "ali_rb_a": al.rb_a, "ali_rb_b": al.rb_b,
+               "ali_split": al.split, "ali_rb_mask": al.rb_mask, "ali_nnz": al.nnz}
+        if al.spill is not None:
+            out.update(_lanepack_payload(al.spill, "alisp_"))
+        return out
+
+    @staticmethod
+    def load(z):
+        return AlignedPlan(
+            rows=int(z["rows"]), cols=int(z["cols"]), vals=z["ali_vals"], lane=z["ali_lane"],
+            col_off=z["ali_col_off"], chunk_rb=z["ali_chunk_rb"], rb_a=z["ali_rb_a"],
+            rb_b=z["ali_rb_b"], split=z["ali_split"], rb_mask=z["ali_rb_mask"],
+            nnz=int(z["ali_nnz"]), dtype=z["ali_vals"].dtype,
+            spill=_lanepack_from_payload(z, "alisp_") if "alisp_vals" in z else None,
+        )
+
+
+class _LanePackPart(_Part):
+    fmt, key = "lanepack", "lp_vals"
+    device_arrays, spmv = staticmethod(lanepack_device_arrays), staticmethod(spmv_lanepack)
+
+    def matmat(self, x):
+        return spmm_lanepack(self.plan, x, device_arrays=self.arrays)
+
+    def payload(self):
+        return _lanepack_payload(self.plan, "lp_")
+
+    @staticmethod
+    def load(z):
+        return _lanepack_from_payload(z, "lp_")
+
+
+class _BellPart(_Part):
+    fmt, key, bf16 = "bell", "bell_vals", True
+    device_arrays, spmv = staticmethod(bell_device_arrays), staticmethod(spmv_bell)
+
+    def matmat(self, x):
+        if x.shape[1] >= 8:
+            return _chunks16(lambda xs: spmm_bell(self.plan, xs, device_arrays=self.arrays), x)
+        return _columns(self.apply, x)
+
+    def nbytes(self):
+        spill = self.plan.spill
+        return (int(self.arrays["vals"].nbytes + self.arrays["lane"].nbytes)
+                + (0 if spill is None else spill.slot_bytes()))
+
+    def payload(self):
+        bl = self.plan
+        out = {"bell_ds": np.asarray(bl.ds, np.int64), "bell_modes": np.asarray(bl.modes, np.int64),
+               "bell_vals": bl.vals, "bell_lane": bl.lane, "bell_nnz": bl.nnz,
+               "bell_span": bl.span,
+               "bell_ver": 3}  # the reference's window-assignment version
+        if bl.spill is not None:
+            out.update(_lanepack_payload(bl.spill, "bellsp_"))
+        return out
+
+    @staticmethod
+    def load(z):
+        if int(z.get("bell_ver", 1)) != 3:
+            raise ValueError(
+                "BELL plan was saved with an incompatible (pre-v3) window "
+                "assignment; re-plan the operator and save again"
+            )
+        return BellPlan(
+            rows=int(z["rows"]), cols=int(z["cols"]), ds=tuple(int(d) for d in z["bell_ds"]),
+            vals=z["bell_vals"], lane=z["bell_lane"],
+            modes=tuple(int(mo) for mo in z["bell_modes"]), span=int(z["bell_span"]),
+            nnz=int(z["bell_nnz"]), dtype=z["bell_vals"].dtype,
+            spill=_lanepack_from_payload(z, "bellsp_") if "bellsp_vals" in z else None,
+        )
+
+
+class _StripePart(_Part):
+    fmt, key = "stripe", "stripe_vals"
+    device_arrays, spmv = staticmethod(stripe_device_arrays), staticmethod(spmv_stripe)
+
+    def payload(self):
+        return _stripe_payload(self.plan, "stripe_")
+
+    @staticmethod
+    def load(z):
+        return _stripe_from_payload(z, "stripe_")
+
+
+class _EllPart(_Part):
+    """ELL: ``plan`` is ``((vals, cols), spill)`` on the host (``spill``,
+    the COO ``(rows, cols, vals)`` of a width-capped ELL, or None) and
+    ``arrays`` the same on the device; it runs as plain PyTorch
+    gathers."""
+
+    fmt, key = "ell", "ell_vals"
+
+    @staticmethod
+    def device_arrays(plan, device):
+        ell, spill = plan
+        return (tuple(_t(a, device) for a in ell),
+                None if spill is None else tuple(_t(a, device) for a in spill))
+
+    def apply(self, x):
+        ell, spill = self.arrays
+        return spmv_ell(*ell, x) if spill is None else spmv_ell_spill(*ell, *spill, x)
+
+    def matmat(self, x):
+        ell, spill = self.arrays
+        y = spmm_ell(*ell, x)
+        if spill is not None:
+            sr, sc, sv = spill
+            y = y.index_add(0, sr.long(), sv[:, None] * x[sc.long()])
+        return y
+
+    def nbytes(self):
+        return sum(int(a.nbytes) for arrs in self.arrays if arrs is not None for a in arrs)
+
+    def payload(self):
+        (ev, ec), spill = self.plan
+        out = {"ell_vals": ev, "ell_cols": ec}
+        if spill is not None:
+            out.update(ell_spill_rows=spill[0], ell_spill_cols=spill[1], ell_spill_vals=spill[2])
+        return out
+
+    @staticmethod
+    def load(z):
+        spill = None
+        if "ell_spill_rows" in z:
+            spill = (z["ell_spill_rows"], z["ell_spill_cols"], z["ell_spill_vals"])
+        return (z["ell_vals"], z["ell_cols"]), spill
 
 
 # ---------------------------------------------------------------------------
@@ -678,18 +738,19 @@ def _lanepack_from_payload(z, prefix: str) -> LanePackPlan:
     )
 
 
-def _stripe_payload(st, prefix: str, payload: dict) -> None:
-    payload.update({
+def _stripe_payload(st, prefix: str) -> dict:
+    payload = {
         prefix + "vals": st.vals, prefix + "lane": st.lane, prefix + "ends": st.ends,
         prefix + "rb": st.stripe_rb, prefix + "col_off": st.col_off,
         prefix + "chunk_stripe": st.chunk_stripe, prefix + "rb_mask": st.rb_mask,
         prefix + "nnz": st.nnz, prefix + "levels": st.levels, prefix + "kw": st.kw,
         prefix + "mode": st.mode, prefix + "rows": st.rows, prefix + "cols": st.cols,
-    })
+    }
     if st.starts is not None:
         payload[prefix + "starts"] = st.starts
     if st.spill is not None:  # a scan-mode spill: one level deep
-        _stripe_payload(st.spill, prefix + "sp_", payload)
+        payload.update(_stripe_payload(st.spill, prefix + "sp_"))
+    return payload
 
 
 def _stripe_from_payload(z, prefix: str) -> StripePlan:
@@ -710,45 +771,14 @@ def save_operator_plan(op: SpmvOperator, path: str) -> None:
     """Persist a planned operator as the npz that the reference's
     ``save_operator_plan`` writes, so either package can load it."""
     payload = {"format": op.format, "rows": op.rows, "cols": op.cols, "nnz": op.nnz}
-    if op._aligned is not None:
-        al = op._aligned
-        payload.update({
-            "ali_vals": al.vals, "ali_lane": al.lane, "ali_col_off": al.col_off,
-            "ali_chunk_rb": al.chunk_rb, "ali_rb_a": al.rb_a, "ali_rb_b": al.rb_b,
-            "ali_split": al.split, "ali_rb_mask": al.rb_mask, "ali_nnz": al.nnz,
-        })
-        if al.spill is not None:
-            payload.update(_lanepack_payload(al.spill, "alisp_"))
-    if op._dia is not None:
-        payload.update({
-            "dia_data": op._dia.data,
-            "dia_offsets": np.asarray(op._dia.offsets, np.int64),
-            "dia_rows": op._dia.rows, "dia_cols": op._dia.cols,
-        })
-    if op._bell is not None:
-        bl = op._bell
-        payload.update({
-            "bell_ds": np.asarray(bl.ds, np.int64),
-            "bell_modes": np.asarray(bl.modes, np.int64),
-            "bell_vals": bl.vals, "bell_lane": bl.lane,
-            "bell_nnz": bl.nnz, "bell_span": bl.span,
-            "bell_ver": 3,  # the reference's window-assignment version
-        })
-        if bl.spill is not None:
-            payload.update(_lanepack_payload(bl.spill, "bellsp_"))
-    if op._stripe is not None:
-        _stripe_payload(op._stripe, "stripe_", payload)
-    if op._plan is not None:
-        payload.update(_lanepack_payload(op._plan, "lp_"))
-    if op._ell is not None:
-        (ev, ec), spill = op._ell_host
-        payload["ell_vals"], payload["ell_cols"] = ev, ec
-        if spill is not None:
-            payload.update({
-                "ell_spill_rows": spill[0], "ell_spill_cols": spill[1],
-                "ell_spill_vals": spill[2],
-            })
+    for p in op.parts:
+        payload.update(p.payload())
     np.savez_compressed(path, **payload)
+
+
+#: the part classes in the order a plan file's parts are read (a hybrid's
+#: DIA part first)
+_PARTS = (_DiaPart, _AlignedPart, _BellPart, _StripePart, _LanePackPart, _EllPart)
 
 
 def load_operator_plan(path: str, device) -> SpmvOperator:
@@ -757,67 +787,18 @@ def load_operator_plan(path: str, device) -> SpmvOperator:
     ``ali_*``, ``alisp_*``, ``lp_*``, ``bell_*``, ``bellsp_*``,
     ``stripe_*``, ``stripe_sp_*``, ``ell_*``). Split plans raise
     ``NotImplementedError``."""
-    with np.load(path, allow_pickle=False) as z:
-        if "split_kind" in z:
+    with np.load(path, allow_pickle=False) as npz:
+        if "split_kind" in npz:
             raise NotImplementedError(
                 "row/column-split plans are not ported (the H100 kernels "
                 "have no VMEM or SMEM walls); re-plan the matrix unsplit"
             )
-        op = SpmvOperator.__new__(SpmvOperator)
-        op.device = require_device(device)
-        op._values_dtype = None
-        op.format = str(z["format"])
-        op.rows, op.cols, op.nnz = int(z["rows"]), int(z["cols"]), int(z["nnz"])
-        op._dia = op._plan = op._aligned = op._bell = op._stripe = None
-        op._ell = op._ell_spill = None
-        dtypes = []
-        if "dia_data" in z:
-            op._set_dia(DiaMatrix(
-                int(z["dia_rows"]), int(z["dia_cols"]), z["dia_data"],
-                tuple(int(o) for o in z["dia_offsets"]),
-            ))
-            dtypes.append(z["dia_data"].dtype)
-        if "ali_vals" in z:
-            spill = _lanepack_from_payload(z, "alisp_") if "alisp_vals" in z else None
-            op._set_aligned_plan(AlignedPlan(
-                rows=op.rows, cols=op.cols, vals=z["ali_vals"], lane=z["ali_lane"],
-                col_off=z["ali_col_off"], chunk_rb=z["ali_chunk_rb"],
-                rb_a=z["ali_rb_a"], rb_b=z["ali_rb_b"], split=z["ali_split"],
-                rb_mask=z["ali_rb_mask"], nnz=int(z["ali_nnz"]),
-                dtype=z["ali_vals"].dtype, spill=spill,
-            ))
-            dtypes.append(z["ali_vals"].dtype)
-        if "bell_vals" in z:
-            if int(z.get("bell_ver", 1)) != 3:
-                raise ValueError(
-                    "BELL plan was saved with an incompatible (pre-v3) window "
-                    "assignment; re-plan the operator and save again"
-                )
-            spill = _lanepack_from_payload(z, "bellsp_") if "bellsp_vals" in z else None
-            op._set_bell_plan(BellPlan(
-                rows=op.rows, cols=op.cols,
-                ds=tuple(int(d) for d in z["bell_ds"]),
-                vals=z["bell_vals"], lane=z["bell_lane"],
-                modes=tuple(int(mo) for mo in z["bell_modes"]),
-                span=int(z["bell_span"]), nnz=int(z["bell_nnz"]),
-                dtype=z["bell_vals"].dtype, spill=spill,
-            ))
-            dtypes.append(z["bell_vals"].dtype)
-        if "stripe_vals" in z:
-            op._set_stripe_plan(_stripe_from_payload(z, "stripe_"))
-            dtypes.append(z["stripe_vals"].dtype)
-        if "lp_vals" in z:
-            op._set_lanepack_plan(_lanepack_from_payload(z, "lp_"))
-            dtypes.append(z["lp_vals"].dtype)
-        if "ell_vals" in z:
-            spill = (
-                (z["ell_spill_rows"], z["ell_spill_cols"], z["ell_spill_vals"])
-                if "ell_spill_rows" in z
-                else None
-            )
-            op._set_ell_arrays((z["ell_vals"], z["ell_cols"]), spill)
-            dtypes.append(z["ell_vals"].dtype)
-        # the builders above name the format; the file's own word is final
-        op.format = str(z["format"])
-        op.dtype = _TORCH_DTYPES[np.dtype(dtypes[0])] if dtypes else torch.float32
+        z = dict(npz)
+    op = SpmvOperator.__new__(SpmvOperator)
+    op.device = require_device(device)
+    op.format = str(z["format"])
+    op.rows, op.cols, op.nnz = int(z["rows"]), int(z["cols"]), int(z["nnz"])
+    plans = tuple((cls, cls.load(z)) for cls in _PARTS if cls.key in z)
+    op.dtype = _TORCH_DTYPES[np.dtype(z[plans[0][0].key].dtype)] if plans else torch.float32
+    op.parts = op._upload(plans, None)
     return op

@@ -264,20 +264,23 @@ class BlockSpgemm:
         bcols_c = -(-rhs.cols // bs)
         self.c_brows = _t((self.c_keys // bcols_c).astype(np.int32), self.device)
         self.c_bcols = _t((self.c_keys % bcols_c).astype(np.int32), self.device)
+        self.launch = None
+        if on_cuda(self.b_blocks):
+            from ..native.kernels import prepare_block_spgemm
+
+            self.launch = prepare_block_spgemm(self.a_blocks_t, self.b_blocks, self.depth_stream,
+                                               self.depth_offsets, num_c=len(self.c_keys))
 
     def multiply_device(self) -> torch.Tensor:
         """The numeric phase: dense C blocks (num_c, bs, bs) f32 on the
         device, in ``c_keys`` order: the block SpGEMM kernel over the
         depth stream on CUDA, :func:`_block_numeric_torch` on the CPU."""
         num_c = len(self.c_keys)
-        if not on_cuda(self.b_blocks):
+        if self.launch is None:
             return _block_numeric_torch(self.a_blocks, self.b_blocks, self.pair_a, self.pair_b,
                                         self.pair_c, num_c=num_c, bs=self.bs)
-        from ..native.kernels import launch_block_spgemm
-
         c = torch.empty((num_c, self.bs, self.bs), dtype=torch.float32, device=self.device)
-        launch_block_spgemm(self.a_blocks_t, self.b_blocks, self.depth_stream,
-                            self.depth_offsets, c)
+        self.launch(c)
         return c
 
     def live_flops(self) -> float:

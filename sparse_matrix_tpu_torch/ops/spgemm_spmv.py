@@ -224,9 +224,8 @@ def reduce_f64_bound(engine, x):
     x = np.asarray(x, dtype=np.float64)
     if engine.selection is None:
         return np.zeros(0), np.zeros(0)
-    op = engine.op
-    lanepack = [p for p in (op._plan,
-                            op._aligned.spill if op._aligned is not None else None,
-                            op._bell.spill if op._bell is not None else None) if p is not None]
-    stripe = () if op._stripe is None else (op._stripe,)
+    lp, al, bl, st = (engine.op.part(f) for f in ("lanepack", "aligned", "bell", "stripe"))
+    lanepack = [p for p in (lp and lp.plan, al and al.plan.spill, bl and bl.plan.spill)
+                if p is not None]
+    stripe = () if st is None else (st.plan,)
     return spmv_f64_bound(engine.selection, x, lanepack=tuple(lanepack), stripe=stripe)

@@ -44,7 +44,8 @@ import torch
 
 from ..device import on_cuda
 from ..native.kernels import BLOCK_TILE
-from .spmv import _t, aligned_device_arrays, lanepack_device_arrays, spmv_lanepack
+from .spmv import (_launch_record, _prepare_aligned_spmm, _prepare_lanepack_spmm, _t,
+                   aligned_device_arrays, lanepack_device_arrays, spmv_lanepack)
 
 __all__ = [
     "pack_rhs",
@@ -137,8 +138,6 @@ def _lanepack_spmm_into(plan, arrs, x, y, *, packed: bool, add: bool = False) ->
     launch record; store mode writes every row of y and, packed, zeros on
     y's row blocks past r128. CPU: the plain version."""
     if on_cuda(x):
-        from .spmv import _launch_record, _prepare_lanepack_spmm
-
         _launch_record(_prepare_lanepack_spmm, arrs, plan, key="spmm_launch")(
             x, y, packed=packed, add=add)
         return
@@ -255,8 +254,6 @@ def _spmm_aligned_into(plan, arrs, x, y, *, packed: bool) -> None:
     LanePack spill then adds through the LanePack SpMM kernel, one launch
     for up to 16 columns (its x-window reads past ``cols`` give zero)."""
     if on_cuda(x):
-        from .spmv import _launch_record, _prepare_aligned_spmm
-
         _launch_record(_prepare_aligned_spmm, arrs, plan, key="spmm_launch")(x, y, packed=packed)
     else:
         y3 = _aligned_spmm_torch(arrs, x if packed else pack_rhs(x, plan.cols), rows=plan.rows)
@@ -365,7 +362,6 @@ def spmm_bell(plan, x, *, device_arrays=None):
     LanePack SpMM kernel adds the spill sub-plan onto Y (CUDA); or their
     plain versions (CPU). bf16 value planes are widened and accumulated
     in f32."""
-    from .spmv import _launch_record
     from .spmv_bell import _prepare_bell_spmm, bell_device_arrays
 
     k = int(x.shape[1]) if x.dim() == 2 else 0
@@ -466,9 +462,10 @@ def bcsr_device_arrays(m, device) -> dict:
     """A ``BsrMatrix``'s arrays on ``device``: ``blocks_t`` (nnzb, bs, bs)
     f32, the blocks transposed (the kernel's operand) and ``blocks`` its
     row-major view; ``block_cols`` and ``block_offsets`` int32;
-    ``block_rows`` (int64, one per block, for the plain version); and the
+    ``block_rows`` (int64, one per block, for the plain version); the
     live-depth stream ``stream``/``stream_offsets``
-    (:func:`bcsr_depth_stream`)."""
+    (:func:`bcsr_depth_stream`) and, on CUDA, ``launch``: the BCSR SpMM
+    kernel's launch record (``native.kernels.prepare_bcsr_spmm``)."""
     if m.nnzb >= 1 << 31:
         raise ValueError(f"{m.nnzb} blocks: the kernel indexes blocks with int32")
     blocks_t = _t(m.blocks.astype(np.float32, copy=False), device).transpose(1, 2).contiguous()
@@ -481,7 +478,16 @@ def bcsr_device_arrays(m, device) -> dict:
     )
     arrs["stream"], arrs["stream_offsets"] = bcsr_depth_stream(
         blocks_t, arrs["block_cols"], arrs["block_offsets"])
+    if blocks_t.is_cuda:
+        arrs["launch"] = _prepare_bcsr(arrs, m)
     return arrs
+
+
+def _prepare_bcsr(arrs, m):
+    from ..native.kernels import prepare_bcsr_spmm
+
+    return prepare_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
+                             arrs["stream"], arrs["stream_offsets"])
 
 
 def _bcsr_torch(arrs, x3, *, brows: int):
@@ -562,11 +568,8 @@ def spmm_bcsr(m, x, *, device_arrays=None):
     xf = _kernel_x(m, x)
     fpad = xf.shape[1]
     if on_cuda(x):
-        from ..native.kernels import launch_bcsr_spmm
-
         y = torch.empty((m.brows * m.bs, fpad), dtype=x.dtype, device=x.device)
-        launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
-                         arrs["stream"], arrs["stream_offsets"], xf.sum(), xf, y)
+        _launch_record(_prepare_bcsr, arrs, m)(xf.sum(), xf, y)
     else:
         y = _bcsr_torch(arrs, xf.reshape(m.bcols, m.bs, fpad), brows=m.brows)
         y = y.reshape(m.brows * m.bs, fpad)

@@ -719,7 +719,7 @@ def _chunk_mass(vals, lane, col_off, cols: int, x: np.ndarray) -> np.ndarray:
     return np.abs(v * xg).sum(axis=1)
 
 
-def _run_mass(row, chunk, run, mass, rows: int):
+def _mass_by_run(row, chunk, run, mass, rows: int):
     """(per row: the summed mass of the chunks holding its runs, per row:
     whether it has a run). ``row``, ``chunk`` and ``run`` are per
     (chunk slot, destination) arrays of one shape."""
@@ -735,7 +735,7 @@ def _lanepack_run_mass(plan: LanePackPlan, x: np.ndarray):
     run = ((plan.ends != 0) | (plan.starts != 0)).reshape(chunks, LANES)
     row = plan.chunk_rb[:chunks, None].astype(np.int64) * LANES + np.arange(LANES)
     chunk = np.broadcast_to(np.arange(chunks)[:, None], run.shape)
-    return _run_mass(row, chunk, run, mass, plan.rows)
+    return _mass_by_run(row, chunk, run, mass, plan.rows)
 
 
 def _stripe_run_mass(plan, x: np.ndarray):
@@ -751,7 +751,7 @@ def _stripe_run_mass(plan, x: np.ndarray):
     row = np.broadcast_to(row, run.shape)
     chunk = np.arange(chunks).reshape(s, 1, SUBLANES, 1)
     chunk = np.broadcast_to(chunk, run.shape)
-    return _run_mass(row, chunk, run, mass, plan.rows)
+    return _mass_by_run(row, chunk, run, mass, plan.rows)
 
 
 def spmv_f64_bound(m: CsrMatrix, x, *, vals=None, lanepack=(), stripe=()):

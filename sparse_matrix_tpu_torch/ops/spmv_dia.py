@@ -21,6 +21,7 @@ import torch
 
 from ..device import on_cuda
 from ..formats.dia import DiaMatrix
+from .spmv import _launch_record
 
 __all__ = [
     "dia_device_arrays",
@@ -37,13 +38,32 @@ MAX_K = 16  # columns per SpMM kernel call
 
 def dia_device_arrays(m: DiaMatrix, device, values_dtype=None) -> dict:
     """Band planes ``data`` ``(nb, rows)`` and ``offsets`` (int32) on
-    ``device``. ``values_dtype=torch.bfloat16`` stores the planes
-    half-width; applies widen them and sum in f32."""
+    ``device`` and, on CUDA, ``launch``: the DIA SpMV kernel's launch
+    record (``native.kernels.prepare_dia``); the SpMM kernel's,
+    ``spmm_launch``, is made at the first packed apply.
+    ``values_dtype=torch.bfloat16`` stores the planes half-width; applies
+    widen them and sum in f32."""
     data = torch.from_numpy(m.data).to(device)
     if values_dtype is not None:
         data = data.to(values_dtype)
     offsets = torch.tensor(m.offsets, dtype=torch.int32, device=device)
-    return dict(data=data.contiguous(), offsets=offsets)
+    arrs = dict(data=data.contiguous(), offsets=offsets)
+    if data.is_cuda:
+        arrs["launch"] = _prepare_dia(arrs, m)
+    return arrs
+
+
+def _prepare_dia(arrs, m: DiaMatrix):
+    from ..native.kernels import prepare_dia
+
+    return prepare_dia(arrs["data"], arrs["offsets"], rows=m.rows, cols=m.cols)
+
+
+def _prepare_dia_spmm(arrs, m: DiaMatrix):
+    from ..native.kernels import prepare_dia_spmm
+
+    return prepare_dia_spmm(arrs["data"], arrs["offsets"], rows=m.rows, cols=m.cols,
+                            lo=_dia_stream_geom(m.offsets)[0])
 
 
 def _spmv_dia_torch(data, x, *, offsets: tuple, rows: int, cols: int):
@@ -66,11 +86,8 @@ def spmv_dia(m: DiaMatrix, x: torch.Tensor, *, device_arrays=None):
     the plain version for a CPU ``x``."""
     arrs = device_arrays if device_arrays is not None else dia_device_arrays(m, x.device)
     if on_cuda(x):
-        from ..native.kernels import launch_dia
-
         y = torch.empty(m.rows, dtype=x.dtype, device=x.device)
-        launch_dia(arrs["data"], arrs["offsets"], x.contiguous(), y,
-                   rows=m.rows, cols=m.cols)
+        _launch_record(_prepare_dia, arrs, m)(x.contiguous(), y)
         return y
     return _spmv_dia_torch(arrs["data"], x, offsets=m.offsets, rows=m.rows, cols=m.cols)
 
@@ -119,21 +136,18 @@ def _unpack(x3, n: int, lo: int):
     return body.transpose(1, 2).reshape(-1, x3.shape[1])[:n]
 
 
-def _spmm_dia_packed(m: DiaMatrix, data, offsets_t, x3, *, lo: int, hi: int):
+def _spmm_dia_packed(m: DiaMatrix, arrs, x3, *, lo: int, hi: int):
     """Packed ``x3`` (cols layout) -> packed ``y3`` (rows layout, guard
     rows zero): the SpMM kernel for a CUDA ``x3``, the plain version for a
     CPU one."""
     r128 = -(-m.rows // LANES)
     if on_cuda(x3):
-        from ..native.kernels import launch_dia_spmm
-
         y3 = torch.empty((lo + r128 + hi, x3.shape[1], LANES), dtype=x3.dtype,
                          device=x3.device)
-        launch_dia_spmm(data, offsets_t, x3.contiguous(), y3, rows=m.rows, cols=m.cols,
-                        x_lo=lo, y_lo=lo)
+        _launch_record(_prepare_dia_spmm, arrs, m, key="spmm_launch")(x3.contiguous(), y3)
         return y3
     x = _unpack(x3, m.cols, lo)
-    y = _spmm_dia_torch(data, x, offsets=m.offsets, rows=m.rows)
+    y = _spmm_dia_torch(arrs["data"], x, offsets=m.offsets, rows=m.rows)
     return _pack(y, m.rows, lo, hi)
 
 
@@ -150,7 +164,7 @@ def spmm_dia_stream(m: DiaMatrix, x, *, device_arrays=None):
     arrs = device_arrays if device_arrays is not None else dia_device_arrays(m, x.device)
     lo, hi = _dia_stream_geom(m.offsets)
     x3 = _pack(x, m.cols, lo, hi)
-    y3 = _spmm_dia_packed(m, arrs["data"], arrs["offsets"], x3, lo=lo, hi=hi)
+    y3 = _spmm_dia_packed(m, arrs, x3, lo=lo, hi=hi)
     return _unpack(y3, m.rows, lo)
 
 
@@ -181,6 +195,6 @@ def dia_matvec_multi(m: DiaMatrix, k: int, device, *, device_arrays=None, values
     lo, hi = _dia_stream_geom(m.offsets)
 
     def mv(x3):
-        return _spmm_dia_packed(m, arrs["data"], arrs["offsets"], x3, lo=lo, hi=hi)
+        return _spmm_dia_packed(m, arrs, x3, lo=lo, hi=hi)
 
     return mv

@@ -241,10 +241,10 @@ class TriangularJacobi:
         self.device = self.n_op.device
         self.dinv = torch.from_numpy((1.0 / d).astype(np_dtype)).to(self.device)
         self._fused = None
-        if fused is True and self.n_op.format == "dia" and self.n_op._dia is not None:
+        if fused is True and self.n_op.format == "dia":
             from ..ops.trisweep import plan_trisweep
 
-            self._fused = plan_trisweep(self.n_op._dia, t.rows, device=self.device)
+            self._fused = plan_trisweep(self.n_op.part("dia").plan, t.rows, device=self.device)
             if self._fused is None:
                 raise ValueError("factor is not fusable (not banded or too small)")
 

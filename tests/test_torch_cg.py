@@ -70,7 +70,7 @@ def test_cg_solve_ir_bf16_planes(problem):
     a, b = problem
     hi = SpmvOperator(a, device="cpu")
     lo = SpmvOperator(a, device="cpu", values_dtype=torch.bfloat16)
-    assert lo._dia_arrs["data"].dtype == torch.bfloat16
+    assert lo.part("dia").arrays["data"].dtype == torch.bfloat16
     res = cg.cg_solve_ir(hi, lo, torch.from_numpy(b), tol=TOL, maxiter=2000)
     ref_res = ref_cg.cg_solve_ir(
         ref_op.SpmvOperator(_ref(a)), ref_op.SpmvOperator(_ref(a), values_dtype=jnp.bfloat16),

@@ -40,7 +40,7 @@ def dev():
     return require_device("cuda")
 
 
-def _run(kernel, m, x_np, dev, run, plain, **bound_kw):
+def _held(kernel, m, x_np, dev, run, plain, **bound_kw):
     from sparse_matrix_tpu_torch.native import kernels
 
     before = kernels.launch_counts[kernel]
@@ -77,7 +77,7 @@ def test_dia_kernel(dev, shape, vdt):
     arrs = spmv_dia.dia_device_arrays(dia, dev, values_dtype=vdt)
     x_np, x = _x(m, dev)
     vals = None if vdt is None else torch.from_numpy(m.vals.astype(np.float32)).to(vdt).double().numpy()
-    _run("dia", m, x_np, dev,
+    _held("dia", m, x_np, dev,
          lambda: spmv_dia.spmv_dia(dia, x, device_arrays=arrs),
          lambda: spmv_dia._spmv_dia_torch(arrs["data"], x, offsets=dia.offsets,
                                           rows=dia.rows, cols=dia.cols),
@@ -102,7 +102,7 @@ def test_aligned_kernel(dev, name):
                                          cols=plan.cols, kw=plan.spill.kw)
         return y
 
-    _run("aligned", m, x_np, dev, lambda: spmv.spmv_aligned(plan, x, device_arrays=arrs),
+    _held("aligned", m, x_np, dev, lambda: spmv.spmv_aligned(plan, x, device_arrays=arrs),
          plain, lanepack=() if plan.spill is None else (plan.spill,))
 
 
@@ -113,7 +113,7 @@ def test_lanepack_kernel(dev, kw, pack):
     plan = plan_lanepack(m, kw=kw, pack=pack)
     arrs = spmv.lanepack_device_arrays(plan, dev)
     x_np, x = _x(m, dev)
-    _run("lanepack", m, x_np, dev,
+    _held("lanepack", m, x_np, dev,
          lambda: spmv.spmv_lanepack(plan, x, device_arrays=arrs),
          lambda: spmv._lanepack_torch(arrs, x, rows=plan.rows, cols=plan.cols, kw=plan.kw),
          lanepack=(plan,))
@@ -173,7 +173,7 @@ def test_segmented_kernels_repeat_bitwise(dev, name, g, monkeypatch):
     assert seg[:, 3].max() >= 0  # some row block spans several segments
     x_np, x = _x(m, dev)
     kernel = "aligned" if name.endswith(("aligned", "spill")) else "lanepack"
-    _run(kernel, m, x_np, dev, lambda: run(x), lambda: plain(x), lanepack=scanned)
+    _held(kernel, m, x_np, dev, lambda: run(x), lambda: plain(x), lanepack=scanned)
     y1, y2 = run(x), run(x)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
@@ -216,7 +216,7 @@ def test_bell_spill_adds_into_bell_rows(dev):
         return y + spmv._lanepack_torch(arrs["spill"], x, rows=plan.rows, cols=plan.cols,
                                         kw=plan.spill.kw)
 
-    _run("bell", m, x_np, dev, lambda: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
+    _held("bell", m, x_np, dev, lambda: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
          plain, lanepack=(plan.spill,))
     assert kernels.launch_counts["lanepack"] - before["lanepack"] == 1
     y1 = spmv_bell.spmv_bell(plan, x, device_arrays=arrs)
@@ -317,7 +317,7 @@ def test_bell_kernel(dev, span, vdt):
                                          cols=plan.cols, kw=plan.spill.kw)
         return y
 
-    _run("bell", m, x_np, dev, lambda: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
+    _held("bell", m, x_np, dev, lambda: spmv_bell.spmv_bell(plan, x, device_arrays=arrs),
          plain, vals=vals, lanepack=() if plan.spill is None else (plan.spill,))
 
 
@@ -364,7 +364,7 @@ def test_stripe_kernel(dev, mode, levels, kw):
             y = y + spmv.spmv_stripe(plan.spill, x.cpu()).to(dev)
         return y
 
-    _run("stripe", m, x_np, dev, lambda: spmv.spmv_stripe(plan, x, device_arrays=arrs),
+    _held("stripe", m, x_np, dev, lambda: spmv.spmv_stripe(plan, x, device_arrays=arrs),
          plain, stripe=(plan,))
 
 
@@ -437,7 +437,7 @@ def test_stripe_kernel_repeat_bitwise(dev, name, g, monkeypatch):
         assert arrs["segments"][:, 3].max() >= 0  # some stripe spans several segments
     x_np, x = _x(m, dev)
     run = lambda: spmv.spmv_stripe(plan, x, device_arrays=arrs)  # noqa: E731
-    _run("stripe", m, x_np, dev, run, lambda: plain(x), stripe=(plan,))
+    _held("stripe", m, x_np, dev, run, lambda: plain(x), stripe=(plan,))
     y1, y2 = run(), run()
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
@@ -546,7 +546,7 @@ def test_bell_and_stripe_records_refuse_bad_y(dev):
     assert kernels.launch_counts == before
 
 
-def _run_multi(kernel, m, X_np, run, plain, **bound_kw):
+def _held_multi(kernel, m, X_np, run, plain, **bound_kw):
     from sparse_matrix_tpu_torch.native import kernels
 
     before = kernels.launch_counts[kernel]
@@ -570,7 +570,7 @@ def test_dia_spmm_kernel(dev, k, vdt):
     X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
     X = torch.from_numpy(X_np).to(dev)
     vals = None if vdt is None else torch.from_numpy(m.vals).to(vdt).double().numpy()
-    _run_multi("dia_spmm", m, X_np,
+    _held_multi("dia_spmm", m, X_np,
                lambda: spmv_dia.spmm_dia_stream(dia, X, device_arrays=arrs),
                lambda: spmv_dia._spmm_dia_torch(arrs["data"], X, offsets=dia.offsets,
                                                 rows=dia.rows),
@@ -616,7 +616,7 @@ def test_aligned_spmm_kernel(dev, k, name):
                 dim=1), plan.rows)[: plan.r128]
         return spmm.unpack_rhs(y3, plan.rows)
 
-    _run_multi("aligned_spmm", m, X_np,
+    _held_multi("aligned_spmm", m, X_np,
                lambda: spmm.spmm_aligned(plan, X, device_arrays=arrs), plain,
                lanepack=() if plan.spill is None else (plan.spill,))
 
@@ -659,7 +659,7 @@ def test_lanepack_spmm_kernel(dev, k, kw, pack):
     X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
     X = torch.from_numpy(X_np).to(dev)
     x3 = spmm.pack_rhs(X, m.cols, guard=plan.kw)
-    _run_multi("lanepack_spmm", m, X_np,
+    _held_multi("lanepack_spmm", m, X_np,
                lambda: spmm.unpack_rhs(spmm.spmm_lanepack_packed(plan, x3, device_arrays=arrs),
                                        m.rows),
                lambda: spmm.unpack_rhs(spmm._lanepack_spmm_torch(arrs, x3, cols=m.cols,
@@ -765,7 +765,7 @@ def test_aligned_spmm_kernel_equals_segment_order_bitwise(dev, g, layout, k, mon
     X_np = np.random.default_rng(k).standard_normal((m.cols, k)).astype(np.float32)
     X = torch.from_numpy(X_np).to(dev)
     want = spmv._segments_torch("aligned", arrs, X, rows=m.rows, cols=m.cols)
-    _run_multi("aligned_spmm", m, X_np, lambda: _aligned_spmm_call(plan, arrs, X, layout),
+    _held_multi("aligned_spmm", m, X_np, lambda: _aligned_spmm_call(plan, arrs, X, layout),
                lambda: want)
     y1, y2 = _aligned_spmm_call(plan, arrs, X, layout), _aligned_spmm_call(plan, arrs, X, layout)
     torch.cuda.synchronize()
@@ -875,7 +875,7 @@ def test_bell_spmm_kernel(dev, name, span, vdt, k):
                                                 cols=m.cols, kw=plan.spill.kw)
         return spmm.unpack_rhs(y3, m.rows)
 
-    _run_multi("bell_spmm", m, X_np, lambda: spmm.spmm_bell(plan, X, device_arrays=arrs), plain,
+    _held_multi("bell_spmm", m, X_np, lambda: spmm.spmm_bell(plan, X, device_arrays=arrs), plain,
                vals=vals, lanepack=() if plan.spill is None else (plan.spill,))
 
 
@@ -913,7 +913,7 @@ def test_lanepack_spmm_kernel_segments_repeat_bitwise(dev, g, layout, k, monkeyp
         return spmm.spmm_lanepack(plan, X, device_arrays=arrs)
 
     before = kernels.launch_counts["lanepack_spmm"]
-    _run_multi("lanepack_spmm", m, X_np, run, lambda: _lanepack_spmm_plain(plan, arrs, X),
+    _held_multi("lanepack_spmm", m, X_np, run, lambda: _lanepack_spmm_plain(plan, arrs, X),
                lanepack=(plan,))
     assert kernels.launch_counts["lanepack_spmm"] - before == -(-k // 16)
     y1, y2 = run(), run()
@@ -1112,7 +1112,7 @@ def test_bcsr_spmm_kernel(dev, bs, f):
         y = spmm._bcsr_torch(arrs, xf.reshape(b.bcols, bs, fpad), brows=b.brows)
         return y.reshape(-1, fpad)[: m.rows, :f]
 
-    _run_multi("bcsr_spmm", m, X_np, lambda: spmm.spmm_bcsr(b, X, device_arrays=arrs), plain)
+    _held_multi("bcsr_spmm", m, X_np, lambda: spmm.spmm_bcsr(b, X, device_arrays=arrs), plain)
     assert int(torch.count_nonzero(spmm.spmm_bcsr(b, X, device_arrays=arrs)[64:160])) == 0
 
 
@@ -1251,8 +1251,7 @@ def test_bcsr_spmm_kernel_fp64_exact(dev, fill, bs, flag):
     assert bool(torch.isfinite(x_sum)) == (flag != "nonfinite")
     if flag == "forced_full":
         x_sum = torch.full((), np.inf, device=dev)
-    kernels.launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
-                             arrs["stream"], arrs["stream_offsets"], x_sum, xf, y)
+    arrs["launch"](x_sum, xf, y)
     torch.cuda.synchronize()
     assert kernels.launch_counts["bcsr_spmm"] == before + 1
     _within_ulp(y, plain.reshape(b.brows * bs, 256))
@@ -1288,13 +1287,11 @@ def test_block_kernels_refuse_misaligned_operands(dev):
     y = torch.empty((b.brows * 32, 128), device=dev)
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        kernels.launch_bcsr_spmm(arrs["blocks_t"], arrs["block_cols"], arrs["block_offsets"],
-                                 arrs["stream"], arrs["stream_offsets"], xm.sum(), xm, y)
+        arrs["launch"](xm.sum(), xm, y)
     eng = spgemm_block.BlockSpgemm(m, m, device=dev, bs=32)
-    c = torch.empty((len(eng.c_keys), 32, 32), device=dev)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        kernels.launch_block_spgemm(eng.a_blocks_t, _misaligned(eng.b_blocks),
-                                    eng.depth_stream, eng.depth_offsets, c)
+        kernels.prepare_block_spgemm(eng.a_blocks_t, _misaligned(eng.b_blocks),
+                                     eng.depth_stream, eng.depth_offsets, num_c=len(eng.c_keys))
     assert kernels.launch_counts == before
     _within_ulp(spmm.spmm_bcsr(b, xm, device_arrays=arrs),
                 spmm.spmm_bcsr(b, X, device_arrays=arrs))
@@ -1451,7 +1448,7 @@ def test_esc_run_sum_kernel(dev, case):
     past the summed runs; signed zeros and inf/NaN products included."""
     from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops import esc_expand
-    from sparse_matrix_tpu_torch.ops.device_sorted import _run_sum_torch, plan_sort_reduce
+    from sparse_matrix_tpu_torch.ops.device_sorted import _sum_runs_torch, plan_sort_reduce
 
     a, b = _expand_cases()[case]
     plan = esc_expand.plan_expand_kmajor(a, b)
@@ -1476,7 +1473,7 @@ def test_esc_run_sum_kernel(dev, case):
         runs["launch"](prods, v2)
         torch.cuda.synchronize()
         assert kernels.launch_counts["esc_run_sum"] == before + 2
-        want = _run_sum_torch(prods.cpu(), cpu["order"], cpu["run_off"])
+        want = _sum_runs_torch(prods.cpu(), cpu["order"], cpu["run_off"])
         got = v1.cpu()
         assert torch.equal(got.isnan(), want.isnan())
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
@@ -2178,7 +2175,7 @@ def test_dia_f64_kernel_on_hpcg(dev, grid):
 
     a, _ = hpcg_problem(*grid)
     op = SpmvOperator(a, device=dev, dtype=torch.float64)
-    assert op.format == "dia" and op._dia_arrs["data"].dtype == torch.float64
+    assert op.format == "dia" and op.part("dia").arrays["data"].dtype == torch.float64
     x = torch.from_numpy(np.random.default_rng(31).standard_normal(a.cols))
     before = kernels.launch_counts["dia"]
     y = op(x.to(dev))
@@ -2210,6 +2207,49 @@ def test_dia_f32_bits_unchanged(dev):
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(m.cols).astype(np.float32))
     y = spmv_dia.spmv_dia(dia, x.to(dev), device_arrays=arrs).cpu().numpy()
     assert hashlib.sha256(y.tobytes()).hexdigest() == F32_DIA_BITS
+
+
+#: sha256 of x and the launch counts of two solves, read on an H100 80GB
+#: HBM3 before B1, B9, B10, B11 and the Krylov kernels moved onto launch
+#: records: CG to 1e-5 on Poisson 256^2 (the dispatched DIA operator, b
+#: standard normal from default_rng(0)) and an HPCG set on its 16^3 grid
+#: (4 levels, 50 iterations, FP64, HPCG's b)
+SOLVE_BITS = {
+    "cg_poisson256": ("0a4e4bb1791f77eab8a944aec5fc7226dde01edfb87468ae144c5bada28568e2",
+                      {"dia": 548, "krylov_dot": 548, "cg_update": 547, "p_update": 547}),
+    "hpcg16": ("21297fefefa502ddb5e99ba3f7dbe4c4f508562cd56af995b2e1d3d45a4241e7",
+               {"dia": 207, "symgs": 5824, "krylov_dot": 102, "cg_update": 50,
+                "p_update": 50}),
+}
+
+
+@pytest.mark.parametrize("case", list(SOLVE_BITS))
+def test_solve_bits_unchanged(dev, case):
+    """A CG solve and an HPCG set give the bits and launch counts they gave
+    before the launch path was shared."""
+    import hashlib
+
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.reference import hpcg as ref
+    from sparse_matrix_tpu_torch.solvers import amg, cg
+    from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_hierarchy
+
+    if case == "cg_poisson256":
+        m = poisson_2d_csr(256, dtype=np.float32)
+        op = SpmvOperator(m, device=dev)
+        b = torch.from_numpy(np.random.default_rng(0).standard_normal(m.rows)
+                             .astype(np.float32)).to(dev)
+        kernels.reset_launch_counts()
+        x = cg.cg_solve(op, b, tol=1e-5).x
+    else:
+        hier = hpcg_hierarchy(16, 16, 16, device=dev, dtype=torch.float64, levels=4)
+        b = ref.hpcg_rhs(16, 16, 16, dtype=torch.float64, device=dev)
+        kernels.reset_launch_counts()
+        x = amg.amg_pcg_solve(hier.levels[0].a_op, b, hierarchy=hier, tol=0.0, maxiter=50).x
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    assert (hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(), counts) == SOLVE_BITS[case]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

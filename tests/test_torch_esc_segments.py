@@ -1,7 +1,7 @@
 """The ESC expansion's segment schedule and the planned sort reduction
 (sparse_matrix_tpu_torch/ops/esc_expand.py ``ExpandPlan.segments``,
 ``expand_tiles``, ``expand_segment_arrays``, ``_expand_segments_torch``;
-ops/device_sorted.py ``plan_sort_reduce``, ``_run_sum_torch`` and
+ops/device_sorted.py ``plan_sort_reduce``, ``_sum_runs_torch`` and
 ``EscSpgemm(reduce="sort")``) on the CPU, against the plain version of the
 lane form (``_expand_torch``), the reference's ``expand_products`` (its
 interpret branch) and the per-call sort (``_packed_reduce_presort``).
@@ -215,7 +215,7 @@ def test_planned_sort_reduction_equals_the_per_call_sort(case):
     q[idx[5:6]] = float("nan")
     for prods in (p, q):
         row, col, val, nnz = _old_reduce(key, prods, a.rows, b.cols, padded)
-        got = ds._run_sum_torch(prods, runs["order"], runs["run_off"])
+        got = ds._sum_runs_torch(prods, runs["order"], runs["run_off"])
         assert int(runs["nnz"]) == runs["num_summed"] == nnz
         assert torch.equal(runs["row"], row) and torch.equal(runs["col"], col)
         assert torch.equal(got.isnan(), val.isnan())
@@ -228,7 +228,7 @@ def test_planned_sort_reduction_equals_the_per_call_sort(case):
                        np.diff(runs["run_off"].numpy()))
     want = np.zeros(order.size, np.float32)
     np.add.at(want, run_of, p.numpy()[order])
-    assert np.array_equal(ds._run_sum_torch(p, runs["order"], runs["run_off"]).numpy(), want)
+    assert np.array_equal(ds._sum_runs_torch(p, runs["order"], runs["run_off"]).numpy(), want)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -233,8 +233,10 @@ def test_dispatch_parity(name):
     ref = ref_op.SpmvOperator(_ref(m))
     op = SpmvOperator(m, device="cpu")
     assert op.format == ref.format
-    for attr in ("_dia", "_plan", "_aligned", "_bell", "_stripe"):
-        mine, theirs = getattr(op, attr), getattr(ref, attr, None)
+    for fmt, attr in (("dia", "_dia"), ("lanepack", "_plan"), ("aligned", "_aligned"),
+                      ("bell", "_bell"), ("stripe", "_stripe")):
+        part = op.part(fmt)
+        mine, theirs = None if part is None else part.plan, getattr(ref, attr, None)
         assert (mine is None) == (theirs is None), attr
         if mine is not None:
             _equal(mine, theirs, attr)

@@ -50,7 +50,7 @@ sys.meta_path.insert(0, _NoJax())
 """
 
 
-def _run_blocked(body: str) -> str:
+def _in_blocked_process(body: str) -> str:
     res = subprocess.run(
         [sys.executable, "-c", _BLOCK_JAX + body],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
@@ -60,7 +60,7 @@ def _run_blocked(body: str) -> str:
 
 
 def test_port_runs_with_jax_blocked():
-    out = _run_blocked("""
+    out = _in_blocked_process("""
 import sparse_matrix_tpu_torch as spt
 assert "torch" not in sys.modules, "importing the package must stay lazy"
 import numpy as np, torch, pkgutil, importlib
@@ -166,7 +166,8 @@ def test_cuda_device_without_gpu_raises():
 @pytest.mark.parametrize("launch", ["dia", "aligned", "lanepack", "bell", "stripe",
                                     "dia_spmm", "aligned_spmm", "lanepack_spmm",
                                     "bell_spmm", "bcsr_spmm", "block_spgemm",
-                                    "esc_expand", "esc_run_sum", "trisweep"])
+                                    "esc_expand", "esc_run_sum", "trisweep", "symgs",
+                                    "krylov"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     from sparse_matrix_tpu_torch.native import kernels
 
@@ -176,7 +177,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
     i32 = torch.zeros(1, dtype=torch.int32)
     blk = torch.zeros(1, 16, 16)
     calls = {
-        "dia": lambda: kernels.launch_dia(f32[None], i32, f32, f32, rows=128, cols=128),
+        "dia": lambda: kernels.prepare_dia(f32[None], i32, rows=128, cols=128),
         "aligned": lambda: kernels.prepare_aligned(f32[None], i8[None], i32, i32.repeat(1, 4),
                                                    i32.repeat(2), f32[None], i32,
                                                    cols=128, rows=128),
@@ -189,8 +190,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
                                                  None, i32, i32, f32, i32.repeat(1, 4),
                                                  i32.repeat(2), f32[None], i32, levels=1,
                                                  cols=128, rows=128, foreign_pad=False),
-        "dia_spmm": lambda: kernels.launch_dia_spmm(f32[None], i32, f32[None, None], f32[None, None],
-                                                    rows=128, cols=128, x_lo=0, y_lo=0),
+        "dia_spmm": lambda: kernels.prepare_dia_spmm(f32[None], i32, rows=128, cols=128, lo=1),
         "aligned_spmm": lambda: kernels.prepare_aligned_spmm(
             f32[None], i8[None], i32, i32.repeat(1, 4), i32.repeat(2), torch.zeros(0, 2048),
             i32.repeat(2), cols=128, rows=128),
@@ -199,11 +199,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
             torch.zeros(0, 2048), i32.repeat(2), cols=128, rows=128),
         "bell_spmm": lambda: kernels.prepare_bell_spmm(f32[None, None], i8[None, None], i32,
                                                        bias=128, rows=128, cols=128),
-        "bcsr_spmm": lambda: kernels.launch_bcsr_spmm(
-            blk, i32, i32.repeat(2), i32.repeat(1, 2), i32.repeat(2),
-            torch.zeros(1), f32[:, None], f32[:, None]),
-        "block_spgemm": lambda: kernels.launch_block_spgemm(blk, blk, i32.repeat(1, 2),
-                                                            i32.repeat(2), blk),
+        "bcsr_spmm": lambda: kernels.prepare_bcsr_spmm(blk, i32, i32.repeat(2),
+                                                       i32.repeat(1, 2), i32.repeat(2)),
+        "block_spgemm": lambda: kernels.prepare_block_spgemm(blk, blk, i32.repeat(1, 2),
+                                                             i32.repeat(2), num_c=1),
         "esc_expand": lambda: kernels.prepare_esc_expand(i32.repeat(2, 4), i32.repeat(1, 8),
                                                          i32, num_products=5, num_slots=1024,
                                                          n_lv=1, n_rv=1),
@@ -211,9 +210,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(launch):
         "trisweep": lambda: kernels.prepare_trisweep(f32[None], i32, f32[:0], i32[:0],
                                                      i32.repeat(2), offsets=(-1,), rows=128,
                                                      chunk_rows=128, levels=0, halo=1),
+        "symgs": lambda: kernels.prepare_symgs(f32[None], i32.repeat(128), i32,
+                                               color_start=(0, 128), diag=0),
+        "krylov": lambda: kernels.KrylovScratch(f32),
     }
     before = dict(kernels.launch_counts)
-    with pytest.raises(ValueError, match="needs CUDA"):
+    with pytest.raises(ValueError, match="need CUDA" if launch == "krylov" else "needs CUDA"):
         calls[launch]()
     assert kernels.launch_counts == before
 

@@ -162,3 +162,97 @@ def test_bench_generators_match_reference(gen, args):
     assert (a.rows, a.cols) == (b.rows, b.cols)
     for f in ("offsets", "indices", "vals"):
         assert np.array_equal(getattr(a, f), getattr(b, f))
+
+
+# -- parts: each format's apply, matmat, bytes and plan file through the
+# operator, bit for bit the per-format functions called directly ----------
+
+
+def _chunks16(apply, x):
+    k = x.shape[1]
+    if k <= 16:
+        return apply(x)
+    n = -(-k // 16)
+    steps = [k // n + (i < k % n) for i in range(n)]
+    starts = np.cumsum([0] + steps)
+    return torch.cat([apply(x[:, j:j + s]) for j, s in zip(starts, steps)], dim=1)
+
+
+def _direct(fmt, plan, x, k=None):
+    """``A @ x`` (``k`` None) or ``A @ X`` of one part's host plan through
+    the per-format functions on fresh device arrays, routed as the
+    operator routes ``matmat``; and the part's bytes per apply."""
+    from sparse_matrix_tpu_torch.ops import spmm, spmv, spmv_bell, spmv_dia
+
+    if fmt == "ell":
+        (ev, ec), spill = plan
+        ev, ec = torch.from_numpy(ev), torch.from_numpy(ec)
+        sp = None if spill is None else tuple(torch.from_numpy(a) for a in spill)
+        nbytes = sum(int(a.nbytes) for a in (ev, ec) + (sp or ()))
+        if k is None:
+            return (spmv.spmv_ell(ev, ec, x) if sp is None
+                    else spmv.spmv_ell_spill(ev, ec, *sp, x)), nbytes
+        y = spmm.spmm_ell(ev, ec, x)
+        if sp is not None:
+            y = y.index_add(0, sp[0].long(), sp[2][:, None] * x[sp[1].long()])
+        return y, nbytes
+    arrays, spmv_fn = {
+        "dia": (spmv_dia.dia_device_arrays, spmv_dia.spmv_dia),
+        "aligned": (spmv.aligned_device_arrays, spmv.spmv_aligned),
+        "lanepack": (spmv.lanepack_device_arrays, spmv.spmv_lanepack),
+        "bell": (spmv_bell.bell_device_arrays, spmv_bell.spmv_bell),
+        "stripe": (spmv.stripe_device_arrays, spmv.spmv_stripe),
+    }[fmt]
+    arrs = arrays(plan, "cpu")
+    if fmt == "dia":
+        nbytes = int(arrs["data"].nbytes)
+    elif fmt == "bell":
+        nbytes = int(arrs["vals"].nbytes + arrs["lane"].nbytes)
+        nbytes += plan.spill.slot_bytes() if plan.spill is not None else 0
+    else:
+        nbytes = plan.slot_bytes()
+    if k is None:
+        return spmv_fn(plan, x, device_arrays=arrs), nbytes
+
+    def columns(f):
+        return torch.stack([f(x[:, j]) for j in range(k)], dim=1)
+
+    if fmt == "dia":
+        return _chunks16(lambda xs: (
+            spmv_dia.spmm_dia_stream(plan, xs, device_arrays=arrs) if xs.shape[1] >= 2
+            else spmv_dia.spmv_dia(plan, xs[:, 0].contiguous(), device_arrays=arrs)[:, None]),
+            x), nbytes
+    if fmt == "bell" and k >= 8:
+        return _chunks16(lambda xs: spmm.spmm_bell(plan, xs, device_arrays=arrs), x), nbytes
+    if fmt in ("bell", "stripe"):
+        return columns(lambda v: spmv_fn(plan, v, device_arrays=arrs)), nbytes
+    spmm_fn = spmm.spmm_aligned if fmt == "aligned" else spmm.spmm_lanepack
+    return spmm_fn(plan, x, device_arrays=arrs), nbytes
+
+
+@pytest.mark.parametrize("force,name", [
+    ("dia", "poisson64"), ("hybrid", "hybrid32"), ("aligned", "hybrid32"),
+    ("lanepack", "hybrid32"), ("bell", "hybrid32"), ("stripe", "hybrid32"),
+    ("ell", "hybrid32"), (None, "hybrid32"),
+])
+def test_parts_equal_the_per_format_functions(tmp_path, force, name):
+    m = MATRICES[name]()
+    op = SpmvOperator(m, device="cpu", force=force)
+    fmts = [p.fmt for p in op.parts]
+    assert fmts == (["dia", "lanepack"] if op.format == "hybrid" else [op.format])
+    assert all(op.part(f) is p for f, p in zip(fmts, op.parts)) and op.part("nope") is None
+    x = torch.from_numpy(_x(m, 3))
+    want = [_direct(p.fmt, p.plan, x) for p in op.parts]
+    y = want[0][0] if len(want) == 1 else want[0][0] + want[1][0]
+    assert torch.equal(op(x), y)
+    assert op.bytes_per_apply() == sum(b for _y, b in want)
+    for k in (1, 7, 8, 17):
+        X = torch.from_numpy(np.random.default_rng(k).standard_normal((m.cols, k))
+                             .astype(np.float32))
+        ys = [_direct(p.fmt, p.plan, X, k)[0] for p in op.parts]
+        assert torch.equal(op.matmat(X), ys[0] if len(ys) == 1 else ys[0] + ys[1])
+    save_operator_plan(op, str(tmp_path / "plan.npz"))
+    back = load_operator_plan(str(tmp_path / "plan.npz"), "cpu")
+    assert (back.format, back.dtype, [p.fmt for p in back.parts]) == (op.format, op.dtype, fmts)
+    assert back.bytes_per_apply() == op.bytes_per_apply()
+    assert torch.equal(back(x), op(x))

@@ -177,7 +177,7 @@ def test_off_records_nothing_reads_no_clock_enters_no_profiler(case, monkeypatch
 # -- on ----------------------------------------------------------------------
 
 
-def _run_on(case):
+def _profiled_on(case):
     """Build the case and run its request with the spans on; returns the
     request's spans and its output."""
     run = CASES[case]()
@@ -202,7 +202,7 @@ def test_results_bit_equal_on_and_off(case):
 
 @pytest.mark.parametrize("case", sorted(SOLVES))
 def test_solve_spans_nest_under_one_solve(case):
-    spans, out = _run_on(case)
+    spans, out = _profiled_on(case)
     k = out.iterations
     assert 0 < k < 500
     assert _count(spans, "spmx.solve") == 1
@@ -241,7 +241,7 @@ def test_solve_spans_nest_under_one_solve(case):
 
 
 def test_vcycle_levels_nest_one_inside_the_next():
-    spans, out = _run_on("amg_pcg")
+    spans, out = _profiled_on("amg_pcg")
     vcycles = _count(spans, "spmx.krylov.precond")
     assert vcycles == out.iterations + 1
     levels = sorted({s.name for s in spans if s.name.startswith("spmx.amg.level")})
@@ -268,7 +268,7 @@ def test_vcycle_block_has_the_same_levels():
 
 @pytest.mark.parametrize("case", ["esc_sort", "esc_spmv"])
 def test_esc_refresh_spans(case):
-    spans, _ = _run_on(case)
+    spans, _ = _profiled_on(case)
     assert _names(spans) == ["spmx.esc.multiply", "spmx.esc.expand", "spmx.esc.reduce"]
     assert [s.parent for s in spans] == [-1, 0, 0]
     assert spans[1].end_ns <= spans[2].start_ns
@@ -361,7 +361,7 @@ def test_galerkin_without_a_callback_still_records_its_spans():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_no_span_opens_inside_one_of_its_name(case):
-    spans, _ = _run_on(case)
+    spans, _ = _profiled_on(case)
     assert spans
     for s in spans:
         p = s.parent
@@ -375,7 +375,7 @@ def test_on_without_a_profiler_records_in_memory_alone(monkeypatch):
         raise AssertionError("record_function entered with no profiler active")
 
     monkeypatch.setattr(torch.profiler, "record_function", boom)
-    spans, out = _run_on("pcg")
+    spans, out = _profiled_on("pcg")
     assert _count(spans, "spmx.krylov.precond") == out.iterations + 1
 
 

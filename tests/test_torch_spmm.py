@@ -220,12 +220,12 @@ def test_matmat_matches_reference(fmt, k):
     Y = op.matmat(torch.from_numpy(X)).numpy()
     _agree(Y, ref.matmat(jnp.asarray(X)))
     kw = {}
-    if op._stripe is not None:
-        kw["stripe"] = (op._stripe,)
-    if op._plan is not None:
-        kw["lanepack"] = (op._plan,)
-    if op._bell is not None and op._bell.spill is not None:
-        kw["lanepack"] = (op._bell.spill,)
+    if op.part("stripe") is not None:
+        kw["stripe"] = (op.part("stripe").plan,)
+    if op.part("lanepack") is not None:
+        kw["lanepack"] = (op.part("lanepack").plan,)
+    if op.part("bell") is not None and op.part("bell").plan.spill is not None:
+        kw["lanepack"] = (op.part("bell").plan.spill,)
     _bounded(m, X, Y, **kw)
 
 

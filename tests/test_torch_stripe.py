@@ -147,7 +147,7 @@ def test_stripe_operator_matches_reference(force):
     ref = ref_op.SpmvOperator(_ref(m), force=force)
     op = SpmvOperator(m, device="cpu", force=force)
     assert op.format == ref.format == "stripe"
-    st, ref_st = op._stripe, ref._stripe
+    st, ref_st = op.part("stripe").plan, ref._stripe
     assert (st.mode, st.levels, st.kw) == (ref_st.mode, ref_st.levels, ref_st.kw)
     assert op.bytes_per_apply() == ref.bytes_per_apply()
     x = _x(9, m.cols)
@@ -174,10 +174,10 @@ def test_stripe_plan_files_cross_load(tmp_path, mode):
     # the reference's file, read by the port
     ref_op.save_operator_plan(ref, str(tmp_path / "ref.npz"))
     op = load_operator_plan(str(tmp_path / "ref.npz"), "cpu")
-    assert op.format == "stripe" and op._stripe.mode == mode
+    assert op.format == "stripe" and op.part("stripe").plan.mode == mode
     y = op(torch.from_numpy(x)).numpy()
     _agree(y, y_ref)
-    _bounded(m, x, y, op._stripe)
+    _bounded(m, x, y, op.part("stripe").plan)
     # the port's file, read by the reference
     save_operator_plan(op, str(tmp_path / "port.npz"))
     back = ref_op.load_operator_plan(str(tmp_path / "port.npz"))
@@ -191,4 +191,4 @@ def test_stripe_not_chosen_for_banded():
     op = SpmvOperator(m, device="cpu", force="stripe")
     x = _x(11, m.cols)
     y = op(torch.from_numpy(x)).numpy()
-    _bounded(m, x, y, op._stripe)
+    _bounded(m, x, y, op.part("stripe").plan)
