@@ -138,14 +138,16 @@ Phases, each of which ends the run with an exception on failure:
    yardstick, checked against the host solve) and its bound (the planes,
    b and dinv read once and y written once over 3.35 TB/s); and on
    Poisson 64^2, depth(L) - 1 = 126 sweeps equal to the exact host solve.
-7. The SymGS kernel (no TPU kernel) on part i's 104^3 level in float64:
-   one step against its plain version (``_symgs_torch``) on the same
-   inputs on the card, within ``symgs_f64_bound``, equal bits on two
-   calls, with its times and bound (two sweep directions, each the level's
+7. The SymGS kernel (no TPU kernel) on part i's four levels (104^3, 52^3,
+   26^3, 13^3) in float64: one step, its colour passes in one launch,
+   against its plain version (``_symgs_torch``) on the same inputs on the
+   card, within ``symgs_f64_bound``, bit-equal to the step as one launch a
+   colour pass and on two calls, with the device times of both forms, the
+   plain version's and the bound (two sweep directions, each the level's
    matrix in its smallest plain form with 8-byte values, r read once and x
    read and written once, over 3.35 TB/s; no library call computes it);
-   the level's f64 DIA SpMV against its plain version within 2 nb f64
-   roundoffs of |A||x|, beside ``torch.mv`` on the f64 CSR tensor.
+   the finest level's f64 DIA SpMV against its plain version within 2 nb
+   f64 roundoffs of |A||x|, beside ``torch.mv`` on the f64 CSR tensor.
 
 The last two lines are the kernels' JSON record (each kernel with its
 worst ``ms / library_ms`` over its cases, ``worst_library_factor``) and
@@ -2475,72 +2477,108 @@ def phase_krylov_kernels(torch, dev, chk, ops, state):
 
 
 def phase_symgs_kernel(torch, dev, chk, state):
-    """The SymGS kernel on part i's finest level (104^3, f64, 8 colours):
-    one step (16 colour passes) against the plain version
-    (``_symgs_torch``) on the same inputs on the card, within
-    ``symgs_f64_bound``, and equal bits on two calls; then the level's f64
-    DIA SpMV against its plain version within 2 * nb f64 roundoffs of
-    each row's |A||x|. Each with its times and bound."""
+    """The SymGS kernel on part i's four levels (104^3, 52^3, 26^3, 13^3;
+    f64, 8 colours): one step, its 16 colour passes in one launch, against
+    the plain version (``_symgs_torch``) on the same inputs on the card,
+    within ``symgs_f64_bound``, bit-equal to the same step as one launch a
+    colour pass (``launch.by_pass``, the form before the one-launch kernel)
+    and on two calls; each level's device time for both forms, its bound
+    (two sweep directions of the level's bytes) and the plain version's
+    time. Then the finest level's f64 DIA SpMV against its plain version
+    within 2 * nb f64 roundoffs of each row's |A||x|, with its times and
+    bound."""
+    from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops.spmv_dia import _spmv_dia_torch
     from sparse_matrix_tpu_torch.ops.symgs import _color_pass, _symgs_torch, parity_colors
     from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_problem
 
+    def launched(fn):
+        """fn's result and the SymGS launches it counted"""
+        before = kernels.launch_counts["symgs"]
+        out = fn()
+        return out, kernels.launch_counts["symgs"] - before
+
     h = state.pop("hpcg_hier")
-    lv = h.levels[0]
-    plan, op = lv.symgs, lv.a_op
     nx, ny, nz = HPCG_GRID
+    rng = np.random.default_rng(SEED + 16)
+    for lvl, lv in enumerate([*h.levels, h.coarse_level]):
+        grid = (nx >> lvl, ny >> lvl, nz >> lvl)
+        plan, op = lv.symgs, lv.a_op
+        m, _b = hpcg_problem(*grid)
+        n, nnz = m.rows, m.nnz()
+        data, offsets = op.part("dia").arrays["data"], op.part("dia").plan.offsets  # natural, f64
+        nb, diag = len(offsets), offsets.index(0)
+        order = np.argsort(parity_colors(*grid), kind="stable")
+        passes = []
+        for c in range(plan.colors):
+            rows = torch.from_numpy(order[plan.color_start[c]:plan.color_start[c + 1]])
+            passes.append(tuple(t.to(dev) for t in _color_pass(data, offsets, diag, rows)))
+        x0 = torch.from_numpy(rng.standard_normal(n)).to(dev)
+        r = torch.from_numpy(rng.standard_normal(n)).to(dev)
+        case = "hpcg{}_f64".format(grid[0])
+
+        def kernel():
+            return plan.step(x0.clone(), r)
+
+        def by_pass():
+            x = x0.clone()
+            plan.launch.by_pass(r, x)
+            return x
+
+        def plain():
+            return _symgs_torch(passes, x0.clone(), r)
+
+        (xk, launches), xp = launched(kernel), plain()
+        xb, by_pass_launches = launched(by_pass)
+        torch.cuda.synchronize()
+        if launches != 1 or by_pass_launches != plan.launch.passes:
+            raise AssertionError(f"symgs/{case}: a step counted {launches} launches (1 wanted) "
+                                 f"and per pass {by_pass_launches} ({plan.launch.passes} "
+                                 "wanted)")
+        if not torch.equal(kernel(), xk):
+            raise AssertionError(f"symgs/{case}: two calls on one input differ in their bits")
+        if not torch.equal(xb, xk):
+            raise AssertionError(f"symgs/{case}: one launch and one launch a pass differ in "
+                                 "their bits")
+        bound = symgs_f64_bound(torch, r, x0, xk, 2 * plan.colors, nb)
+        err = float((xk - xp).abs().max())
+        if not (bool(torch.isfinite(xk).all()) and err <= bound):
+            raise AssertionError(f"symgs/{case}: max |kernel - plain| {err:.3e} > {bound:.3e}")
+        x_bare = x0.clone()
+        ms = cuda_ms(torch, kernel)
+        device_ms = device_ms_per_call(torch, lambda: plan.launch(r, x_bare))
+        by_pass_ms = device_ms_per_call(torch, lambda: plan.launch.by_pass(r, x_bare))
+        plain_ms = cuda_ms(torch, plain, reps=10, warmup=2)
+        # a step is two sweep directions, each the level's matrix in its
+        # smallest plain form, r read once and x read and written once
+        nbytes = 2 * (plain_form_bytes(m, 8) + 8 * n + 16 * n)
+        flops = 2.0 * 2 * nnz
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOP_PER_S * 1e3
+        row = dict(case=case, rows=n, nnz=nnz, colors=plan.colors, launches=launches,
+                   by_pass_launches=by_pass_launches, max_abs_err=err,
+                   max_err_over_bound=err / bound, bitwise_repeat=True, equal_by_pass=True,
+                   ms=ms, device_ms=device_ms, by_pass_device_ms=by_pass_ms,
+                   device_over_by_pass=device_ms / by_pass_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=int(nbytes),
+                   flops=flops)
+        chk.cases["symgs"].append(row)
+        log(f"kernel symgs        {case} rows={n} colours={plan.colors} {launches} launch "
+            f"(by pass: {by_pass_launches}), equal bits on two calls and to the per-pass form, "
+            f"max|k-plain|={err:.3e} (bound {bound:.3e}); kernel {ms:.4f} ms, device "
+            f"{device_ms:.4f} ms, per-pass device {by_pass_ms:.4f} ms "
+            f"({device_ms / by_pass_ms:.3f}x), plain {plain_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; {flops:.4g} flop / 34 "
+            f"TFLOP/s), {device_ms / row['bound_ms']:.2f}x the bound")
+        del passes, xk, xp, xb, x_bare
+    lv = h.levels[0]
+    op = lv.a_op
     m, _b = hpcg_problem(nx, ny, nz)
     n, nnz = m.rows, m.nnz()
-    data, offsets = op.part("dia").arrays["data"], op.part("dia").plan.offsets  # natural, f64
-    nb, diag = len(offsets), offsets.index(0)
-    colors = parity_colors(nx, ny, nz)
-    order = np.argsort(colors, kind="stable")
-    passes = []
-    for c in range(plan.colors):
-        rows = torch.from_numpy(order[plan.color_start[c]:plan.color_start[c + 1]])
-        passes.append(tuple(t.to(dev) for t in _color_pass(data, offsets, diag, rows)))
-    rng = np.random.default_rng(SEED + 16)
-    x0 = torch.from_numpy(rng.standard_normal(n)).to(dev)
-    r = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    data, offsets = op.part("dia").arrays["data"], op.part("dia").plan.offsets
+    nb = len(offsets)
 
-    def kernel():
-        return plan.step(x0.clone(), r)
-
-    def plain():
-        return _symgs_torch(passes, x0.clone(), r)
-
-    xk, xp = kernel(), plain()
-    torch.cuda.synchronize()
-    if not torch.equal(kernel(), xk):
-        raise AssertionError("symgs/hpcg104: two calls on one input differ in their bits")
-    bound = symgs_f64_bound(torch, r, x0, xk, 2 * plan.colors, nb)
-    err = float((xk - xp).abs().max())
-    if not (bool(torch.isfinite(xk).all()) and err <= bound):
-        raise AssertionError(f"symgs/hpcg104: max |kernel - plain| {err:.3e} > {bound:.3e}")
-    x_bare = x0.clone()
-    ms = cuda_ms(torch, kernel)
-    device_ms = device_ms_per_call(torch, lambda: plan._launch(r, x_bare))
-    plain_ms = cuda_ms(torch, plain, reps=10, warmup=2)
-    # a step is two sweep directions, each the level's matrix in its
-    # smallest plain form, r read once and x read and written once
-    nbytes = 2 * (plain_form_bytes(m, 8) + 8 * n + 16 * n)
-    flops = 2.0 * 2 * nnz
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOP_PER_S * 1e3
-    row = dict(case="hpcg104_f64", rows=n, nnz=nnz, colors=plan.colors,
-               launches=2 * plan.colors, max_abs_err=err, max_err_over_bound=err / bound,
-               bitwise_repeat=True, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=int(nbytes),
-               flops=flops)
-    chk.cases["symgs"].append(row)
-    log(f"kernel symgs        hpcg104_f64 rows={n} colours={plan.colors} "
-        f"{2 * plan.colors} launches, equal bits on two calls, max|k-plain|={err:.3e} "
-        f"(bound {bound:.3e}); kernel {ms:.4f} ms, device {device_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({nbytes} bytes / 3.35 TB/s; "
-        f"{flops:.4g} flop / 34 TFLOP/s), {ms / row['bound_ms']:.2f}x the bound")
-    del passes, xk, xp, x_bare
-
-    # the f64 DIA SpMV on the same level
+    # the f64 DIA SpMV on the finest level
     x = torch.from_numpy(rng.standard_normal(n)).to(dev)
 
     def dia_plain(d=data, v=x):

@@ -340,29 +340,59 @@ SPMX_API int spmx_trisweep(const SpmxTrisweepPlan* plan, const float* b, const f
 // `rows` (n,) int32, the rows of colour c at positions [color_start[c],
 // color_start[c + 1]), ascending; `offsets` (nb,) int32 band offsets, band
 // `diag` the main diagonal (offset 0, nonzero on every row); no two rows
-// of one colour coupled by a nonzero slot
+// of one colour coupled by a nonzero slot. `state` (2 + 2 * colors,)
+// uint32, zeros before the first step: the step's ticket, its epoch and
+// each pass's done count, which the kernel keeps for the next launch;
+// `chunk_rows` the rows of a work item and the threads of a block, and
+// `grid` the blocks of a launch, both set by spmx_symgs_prepare. A step in
+// flight on one plan is one caller's: its state, like x, is updated in
+// place.
 typedef struct {
   const void* data;
   const int32_t* rows;
   const int32_t* offsets;
+  uint32_t* state;
   int64_t color_start[SPMX_SYMGS_MAX_COLORS + 1];
   int64_t n;
   int32_t nb;
   int32_t diag;
   int32_t colors;
   int32_t values_f64;
+  int32_t chunk_rows;
+  int32_t grid;
   int32_t device;
 } SpmxSymgsPlan;
 
 SPMX_API int spmx_symgs_max_colors(void);
 
+// sets the plan's chunk_rows and grid from its colours and the card, once
+// a plan: chunk_rows T = 64 where the largest colour has at most 8,192 rows
+// (a pass of a coarse level is one memory latency: many small blocks), else
+// 128 (bandwidth: fewer rows a block, more blocks in flight); device ms of
+// one f64 step on an H100 at T = 64 / 128: 13^3 0.0312 / 0.0318, 104^3
+// 0.2598 / 0.2466 (the other levels in symgs_dia.cu); grid = the blocks of
+// the step that the card holds at once (its occupancy at T threads times
+// the SMs), at most the work items of the widest pass
+SPMX_API int spmx_symgs_prepare(SpmxSymgsPlan* plan);
+
 // one symmetric Gauss-Seidel step toward A x = r, x updated in place: the
-// colours 0 .. colors-1, then colors-1 .. 0, one launch each (empty colours
-// launch nothing); a colour's pass sets, for each of its rows i,
-// x[i] = (r[i] - sum over bands b != diag, in band order, of data[b, k] *
-// x[i + offsets[b]]) / data[diag, k] (x outside [0, n) reads 0); r and x
-// (n,) in the plan's type, x not aliasing r
+// colours 0 .. colors-1, then colors-1 .. 0 (empty colours skipped), all in
+// one launch of `grid` blocks of chunk_rows threads: work items of
+// chunk_rows rows taken in pass order from a self-resetting ticket, each
+// pass begun after the previous pass's done count in `state` shows all its
+// items of this launch (a count per launch epoch, so no memset between
+// launches), x read with ordinary loads after that acquire, never through
+// the read-only path; a colour's pass sets, for each of its rows i, x[i] =
+// (r[i] - sum over bands b != diag, in band order, of data[b, k] * x[i +
+// offsets[b]]) / data[diag, k] (x outside [0, n) reads 0); r and x (n,) in
+// the plan's type, x not aliasing r
 SPMX_API int spmx_symgs(const SpmxSymgsPlan* plan, const void* r, void* x, void* stream);
+
+// the same step as one launch a colour pass, 256 threads a block (`state`,
+// `chunk_rows` and `grid` not read): the yardstick of the one-launch step,
+// whose bits it gives
+SPMX_API int spmx_symgs_by_pass(const SpmxSymgsPlan* plan, const void* r, void* x,
+                                void* stream);
 
 // The scratch of the fused Krylov kernels (krylov_update.cu) for n-vectors
 // of one type, packed once a solve by the wrapper: `partials` (blocks,) of

@@ -130,8 +130,12 @@ def _library() -> ctypes.CDLL:
         lib.spmx_dia_f64.restype = i32
         lib.spmx_dia_f64.argtypes = [i32, vp, vp, i32, i64, i64, vp, vp, vp]
         # (plan struct, r, x, stream)
-        lib.spmx_symgs.restype = i32
-        lib.spmx_symgs.argtypes = [vp, vp, vp, vp]
+        for fn in (lib.spmx_symgs, lib.spmx_symgs_by_pass):
+            fn.restype = i32
+            fn.argtypes = [vp, vp, vp, vp]
+        # (plan struct): sets its chunk_rows and grid
+        lib.spmx_symgs_prepare.restype = i32
+        lib.spmx_symgs_prepare.argtypes = [vp]
         # prepared launches: (plan struct, x, y, add, stream)
         for fn in (lib.spmx_aligned, lib.spmx_lanepack, lib.spmx_bell, lib.spmx_stripe):
             fn.restype = i32
@@ -270,9 +274,10 @@ class RunSumPlan(ctypes.Structure):
 class SymgsPlan(ctypes.Structure):
     """``SpmxSymgsPlan`` of ``csrc/spmx_cuda.h``."""
 
-    _fields_ = [(f, ctypes.c_void_p) for f in ("data", "rows", "offsets")]
+    _fields_ = [(f, ctypes.c_void_p) for f in ("data", "rows", "offsets", "state")]
     _fields_ += [("color_start", ctypes.c_int64 * (SYMGS_MAX_COLORS + 1)), ("n", ctypes.c_int64)]
-    _fields_ += [(f, ctypes.c_int32) for f in ("nb", "diag", "colors", "values_f64", "device")]
+    _fields_ += [(f, ctypes.c_int32) for f in ("nb", "diag", "colors", "values_f64", "chunk_rows",
+                                               "grid", "device")]
 
 
 class KrylovPlan(ctypes.Structure):
@@ -1032,25 +1037,39 @@ def prepare_esc_run_sum(order, run_off, *, num_summed: int) -> PreparedRunSum:
 class PreparedSymgs(_LaunchRecord):
     """One symmetric Gauss-Seidel step on one checked plan: ``launch(r,
     x)`` checks r and x (contiguous CUDA vectors of the plan's rows and
-    value type on its device, x distinct from r) and enqueues, with one
-    ctypes call of ``(args, r, x, stream)``, one kernel a colour pass: the
-    colours forward, then backward, ``launches`` in all, each counted. x
-    is updated in place."""
+    value type on its device, x distinct from r) and enqueues the step, all
+    its colour passes, as one launch with one ctypes call of ``(args, r, x,
+    stream)``. x is updated in place, and so is the plan's ``state`` (the
+    step's ticket, epoch and pass counts): a step in flight on one plan is
+    one caller's. ``by_pass(r, x)``: the same step as one launch a colour
+    pass (``passes`` of them, each counted), the yardstick that gives the
+    step's bits."""
 
-    __slots__ = ("n", "launches")
+    __slots__ = ("n", "passes", "_by_pass")
 
-    def __init__(self, args: SymgsPlan, device: torch.device, *, dtype, launches: int,
+    def __init__(self, args: SymgsPlan, device: torch.device, *, dtype, passes: int,
                  keep: tuple):
-        super().__init__("symgs", "spmx_symgs", args, device, empty=launches == 0, keep=keep,
+        super().__init__("symgs", "spmx_symgs", args, device, empty=passes == 0, keep=keep,
                          dtype=dtype)
-        self.n, self.launches = int(args.n), launches
+        self.n, self.passes = int(args.n), passes
+        self._by_pass = _LaunchRecord("symgs", "spmx_symgs_by_pass", args, device,
+                                      empty=passes == 0, keep=keep, dtype=dtype)
 
-    def __call__(self, r: torch.Tensor, x: torch.Tensor) -> None:
+    def _operands(self, r: torch.Tensor, x: torch.Tensor) -> tuple:
         pr, px = self._ptr("r", r, self.n), self._ptr("x", x, self.n)
         if px == pr:
             raise ValueError("symgs: x must not alias r")
+        return pr, px
+
+    def __call__(self, r: torch.Tensor, x: torch.Tensor) -> None:
+        pr, px = self._operands(r, x)
         if not self._empty:
-            self._enqueue(pr, px, launches=self.launches)
+            self._enqueue(pr, px)
+
+    def by_pass(self, r: torch.Tensor, x: torch.Tensor) -> None:
+        pr, px = self._operands(r, x)
+        if not self._empty:
+            self._by_pass._enqueue(pr, px, launches=self.passes)
 
 
 def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> PreparedSymgs:
@@ -1060,8 +1079,11 @@ def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> Pr
     band offsets, band ``diag`` the main diagonal, and ``color_start`` the
     host's ``colors + 1`` bounds of each colour's columns (at most
     ``SYMGS_MAX_COLORS`` colours). The plan's values (the colouring, the
-    diagonal) are the host's, checked there, not read back here.
-    ``launch(r, x)`` (see :class:`PreparedSymgs`)."""
+    diagonal) are the host's, checked there, not read back here. The
+    record holds the kernel's ``state`` (the ticket, the epoch and a count
+    a colour pass, zeros here); the kernel's library sets the rows of a
+    work item from the colours and the grid from the card's occupancy (one
+    query here). ``launch(r, x)`` (see :class:`PreparedSymgs`)."""
     dev = _check("symgs", dict(data=(torch.float64, _F32), rows=torch.int32,
                                offsets_t=torch.int32),
                  data=data, rows=rows, offsets_t=offsets_t)
@@ -1074,13 +1096,21 @@ def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> Pr
     if not 1 <= colors <= SYMGS_MAX_COLORS or n >= 1 << 31:
         raise ValueError(f"symgs: {colors} colours and {n} rows; the kernel takes 1 to "
                          f"{SYMGS_MAX_COLORS} colours and indexes rows with int32")
+    state = torch.zeros(2 + 2 * colors, dtype=torch.int32, device=dev)
     starts = (ctypes.c_int64 * (SYMGS_MAX_COLORS + 1))(*color_start)
     args = SymgsPlan(data=data.data_ptr(), rows=rows.data_ptr(), offsets=offsets_t.data_ptr(),
-                     color_start=starts, n=n, nb=nb, diag=diag, colors=colors,
-                     values_f64=int(data.dtype == torch.float64), device=dev.index)
-    launches = 2 * sum(1 for a, b in zip(color_start, color_start[1:]) if b > a)
-    return PreparedSymgs(args, dev, dtype=data.dtype, launches=launches,
-                         keep=(data, rows, offsets_t))
+                     state=state.data_ptr(), color_start=starts, n=n, nb=nb, diag=diag,
+                     colors=colors, values_f64=int(data.dtype == torch.float64),
+                     device=dev.index)
+    passes = 2 * sum(1 for a, b in zip(color_start, color_start[1:]) if b > a)
+    if passes:
+        lib = _library()
+        err = lib.spmx_symgs_prepare(ctypes.addressof(args))
+        if err != 0:
+            raise RuntimeError(f"symgs: CUDA error {err} "
+                               f"({lib.spmx_cuda_error_string(err).decode()})")
+    return PreparedSymgs(args, dev, dtype=data.dtype, passes=passes,
+                         keep=(data, rows, offsets_t, state))
 
 
 class KrylovScratch:

@@ -8,9 +8,9 @@ sweep ``C-1 .. 0``; a colour's pass sets, for all its rows at once,
 colouring in which no two rows of one colour are coupled makes that exact
 Gauss-Seidel in the order of the colours (:func:`parity_colors` gives the
 8-colour parity colouring of a 27-point grid). On CUDA a step is
-``csrc/symgs_dia.cu``, one launch a colour pass, over planes re-laid by
-colour; on the CPU the plain version :func:`_symgs_torch` runs on the
-natural planes.
+``csrc/symgs_dia.cu``, all its colour passes in one launch, over planes
+re-laid by colour; on the CPU the plain version :func:`_symgs_torch` runs
+on the natural planes.
 """
 
 from __future__ import annotations
@@ -54,7 +54,15 @@ class SymgsPlan:
     Refused at construction: a non-square operator, no main diagonal or a
     zero on it, a colouring of the wrong length or with more colours than
     the kernel takes, and one that couples two rows of one colour. The
-    colours' rows keep their natural order within a colour."""
+    colours' rows keep their natural order within a colour.
+
+    On CUDA ``launch`` is the kernel's launch record
+    (:class:`~..native.kernels.PreparedSymgs`; ``launch.by_pass(r, x)`` is
+    the same step as one launch a colour pass, the yardstick), which holds
+    the kernel's state: the ticket, the epoch and the pass counts that
+    order a step's colour passes inside its one launch. A step in flight
+    on one plan is one caller's (x is updated in place anyway); steps on
+    one stream, eager or replayed in a CUDA graph, follow one another."""
 
     def __init__(self, dia: DiaMatrix, colors: np.ndarray, *, device, dtype=torch.float64):
         from .operator import _NP_DTYPES
@@ -86,15 +94,15 @@ class SymgsPlan:
         starts = np.zeros(ncol + 1, dtype=np.int64)
         np.cumsum(np.bincount(colors, minlength=ncol), out=starts[1:])
         self.color_start = tuple(int(s) for s in starts)
-        self._launch = None
+        self.launch = None
         if self.device.type == "cuda":
             from ..native.kernels import prepare_symgs
 
             self.data = torch.from_numpy(np.ascontiguousarray(data[:, order])).to(self.device)
             rows = torch.from_numpy(order.astype(np.int32)).to(self.device)
             offsets_t = torch.tensor(dia.offsets, dtype=torch.int32, device=self.device)
-            self._launch = prepare_symgs(self.data, rows, offsets_t,
-                                         color_start=self.color_start, diag=self.diag)
+            self.launch = prepare_symgs(self.data, rows, offsets_t,
+                                        color_start=self.color_start, diag=self.diag)
         else:
             self.data = torch.from_numpy(data)
             self._passes = [_color_pass(self.data, self.offsets, self.diag,
@@ -111,7 +119,7 @@ class SymgsPlan:
             raise ValueError(f"symgs: x {tuple(x.shape)} and r {tuple(r.shape)} must be vectors "
                              f"of {self.n}")
         if on_cuda(x):
-            self._launch(r.contiguous(), x)
+            self.launch(r.contiguous(), x)
             return x
         return _symgs_torch(self._passes, x, r)
 

@@ -2213,12 +2213,13 @@ def test_dia_f32_bits_unchanged(dev):
 #: HBM3 before B1, B9, B10, B11 and the Krylov kernels moved onto launch
 #: records: CG to 1e-5 on Poisson 256^2 (the dispatched DIA operator, b
 #: standard normal from default_rng(0)) and an HPCG set on its 16^3 grid
-#: (4 levels, 50 iterations, FP64, HPCG's b)
+#: (4 levels, 50 iterations, FP64, HPCG's b); the set's SymGS launches are
+#: one a step since the colour passes share one launch (its x the same bits)
 SOLVE_BITS = {
     "cg_poisson256": ("0a4e4bb1791f77eab8a944aec5fc7226dde01edfb87468ae144c5bada28568e2",
                       {"dia": 548, "krylov_dot": 548, "cg_update": 547, "p_update": 547}),
     "hpcg16": ("21297fefefa502ddb5e99ba3f7dbe4c4f508562cd56af995b2e1d3d45a4241e7",
-               {"dia": 207, "symgs": 5824, "krylov_dot": 102, "cg_update": 50,
+               {"dia": 207, "symgs": 364, "krylov_dot": 102, "cg_update": 50,
                 "p_update": 50}),
 }
 
@@ -2253,12 +2254,17 @@ def test_solve_bits_unchanged(dev, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("grid", [(24, 16, 8), (13, 13, 13)])
+@pytest.mark.parametrize("grid", [(24, 16, 8), (13, 13, 13), (104, 104, 104)])
 def test_symgs_kernel_matches_plain(dev, dtype, grid):
-    """One SymGS step of the kernel (16 colour passes, each one launch)
-    against the plain version on the CPU and the reference's grid SymGS on
-    the card: within 1e-13 (f64) or 1e-5 (f32) normwise, the sums taken in
-    other orders; the same bits on a second call; x updated in place."""
+    """One SymGS step of the kernel (all 16 colour passes in one launch;
+    at 104^3 a pass has more chunks than the card holds blocks, so the
+    ticket order matters) against the plain version on the CPU and the
+    reference's grid SymGS on the card: within 1e-13 (f64) or 1e-5 (f32)
+    normwise, the sums taken in other orders; the bits of the step as one
+    launch a colour pass (``by_pass``); the same bits on a second call and
+    on three replays of the step captured in a CUDA graph, from the same
+    x0 and r (the ticket and the pass counts reset themselves); x updated
+    in place."""
     from sparse_matrix_tpu_torch.native import kernels
     from sparse_matrix_tpu_torch.ops.symgs import SymgsPlan, parity_colors
     from sparse_matrix_tpu_torch.reference import hpcg as ref
@@ -2276,7 +2282,11 @@ def test_symgs_kernel_matches_plain(dev, dtype, grid):
     x = x0.to(dev)
     out = card.step(x, r.to(dev))
     torch.cuda.synchronize()
-    assert out is x and kernels.launch_counts["symgs"] - before == 16
+    assert out is x and kernels.launch_counts["symgs"] - before == 1
+    by_pass = x0.to(dev)
+    card.launch.by_pass(r.to(dev), by_pass)
+    assert kernels.launch_counts["symgs"] - before == 1 + 16
+    assert torch.equal(by_pass, x)
     plain = SymgsPlan(dia, colors, device="cpu", dtype=dtype).step(x0.clone(), r)
     grid_ref = ref.symgs(x0.to(dev).reshape(nz, ny, nx), r.to(dev).reshape(nz, ny, nx))
     tol = 1e-13 if dtype == torch.float64 else 1e-5
@@ -2284,14 +2294,29 @@ def test_symgs_kernel_matches_plain(dev, dtype, grid):
     assert _rel(x.double(), grid_ref.reshape(-1).double()) < tol
     again = card.step(x0.to(dev), r.to(dev))
     assert torch.equal(again, x)
+    xg, rg = x0.to(dev), r.to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        card.step(x0.to(dev), rg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        card.step(xg, rg)
+    for _ in range(3):
+        xg.copy_(x0.to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(xg, x)
 
 
 @pytest.mark.parametrize("grid", [(16, 16, 16), (32, 32, 32)])
 def test_hpcg_graph_replay_equals_eager_vcycle(dev, grid):
     """The ``"symgs"`` hierarchy's ``M^-1`` replays its V-cycle as one CUDA
     graph, bit-equal to the eager ``vcycle`` over several residuals; an
-    eager V-cycle launches 112 SymGS colour passes (7 steps of 16) and each
-    replay counts the same; both within 1e-13 of the reference's V-cycle."""
+    eager V-cycle launches 7 SymGS steps (one launch each, its 16 colour
+    passes inside) and each replay counts the same; both within 1e-13 of
+    the reference's V-cycle."""
     from sparse_matrix_tpu_torch.reference import hpcg as ref
     from sparse_matrix_tpu_torch.solvers.hpcg import hpcg_hierarchy
 
@@ -2303,7 +2328,7 @@ def test_hpcg_graph_replay_equals_eager_vcycle(dev, grid):
     graph = h._graph
     assert graph is not None
     _, eager, replays = _launched(lambda: h.vcycle(rs[0]))
-    assert replays == 0 and eager["symgs"] == 112 and eager["dia"] == 3
+    assert replays == 0 and eager["symgs"] == 7 and eager["dia"] == 3
     assert graph.launches == {k: v for k, v in eager.items() if v}
     rest, grown, replays = _launched(lambda: [m_inv(r) for r in rs[1:]])
     assert replays == len(rs) - 1
@@ -2331,7 +2356,7 @@ def test_hpcg_set_on_card_matches_reference(dev):
     res, grown, replays = _launched(
         lambda: amg.amg_pcg_solve(a, b, hierarchy=h, tol=0.0, maxiter=50))
     assert res.iterations == 50 and replays == 51 and res.x.dtype == torch.float64
-    assert grown["symgs"] == 51 * 112 and grown["dia"] == 51 * 3 + 51
+    assert grown["symgs"] == 51 * 7 and grown["dia"] == 51 * 3 + 51
     want = ref.cg_set(b, *grid, levels=4, maxiter=50)
     assert want.iterations == 50 and _rel(res.x, want.x) < 1e-12
 
@@ -2525,6 +2550,11 @@ def test_krylov_step_launches_no_torch_kernel(dev, tmp_path, kind):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # one step outside the counted ranges: late in a long process the
+        # profiler can miss the device record of a profile's first kernel,
+        # though it records the kernel's cudaLaunchKernel
+        state = step(state)
+        torch.cuda.synchronize()
         for _ in range(3):
             with torch.profiler.record_function("krylov.step"):
                 state = step(state)
