@@ -21,7 +21,9 @@ that kind's parameters. A run:
    with the benchmark's ranges on;
 4. the device's memory peak, then the program's state freed, then the
    comparison of a seeded sample of the window's answers with the plain
-   float64 reference (``reference.py``).
+   float64 reference (``reference.py``);
+5. no result where the process then holds JAX or the JAX package
+   (:func:`finish`).
 
 The metrics a run reports are those ``BENCHMARK.json`` lists for the
 cell: its ``end_to_end`` metrics with ``--trace 0``, its ``per_layer``
@@ -383,6 +385,31 @@ def main(argv=None, t_start=None) -> int:
         return 2
     line = run_cell(bench, args.workload, seed=args.seed, seconds=args.seconds,
                     trace=bool(args.trace), device=torch.device("cuda", 0), t_start=t_start)
+    return finish(line)
+
+
+#: top-level names of JAX, Flax and the JAX package, which no run may load
+#: (the port, ``sparse_matrix_tpu_torch``, is another top-level name)
+FOREIGN = ("jax", "jaxlib", "flax", "sparse_matrix_tpu")
+
+
+def foreign_modules(modules=None) -> list:
+    """The names in ``modules`` (``sys.modules``) whose top-level name,
+    the part before the first dot, is one of :data:`FOREIGN`."""
+    modules = sys.modules if modules is None else modules
+    return sorted(m for m in list(modules) if m.split(".")[0] in FOREIGN)
+
+
+def finish(line: dict) -> int:
+    """Once the window has closed: where this process holds JAX or the JAX
+    package, name what it holds on standard error and return 3 with no
+    result printed; else :func:`emit` the line and return 0."""
+    found = foreign_modules()
+    if found:
+        tops = sorted({m.split(".")[0] for m in found})
+        print(f"portbench: this run loaded {', '.join(tops)} ({len(found)} modules: "
+              f"{', '.join(found[:20])}); no result is printed", file=sys.stderr, flush=True)
+        return 3
     emit(line)
     return 0
 

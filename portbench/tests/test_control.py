@@ -6,25 +6,19 @@ at 2048² on the card), so the Poisson cells' control runs at 128²."""
 
 from __future__ import annotations
 
-import json
-from pathlib import Path
-
 import pytest
 
 from portbench.control import control_readings
 from portbench.harness import Bench
 
-from .conftest import make_tiny_bench
+from .conftest import cells, make_tiny_bench
 
-CONTROL_SIZES = {"poisson2d_2048": {"n": 128}, "femlike_262k": {"n_side": 24, "jitter": 2}}
-
-CELLS = [w["name"] for w in json.loads((Path(__file__).resolve().parents[2]
-                                        / "BENCHMARK.json").read_text())["workloads"]]
+CELLS = cells()
 
 
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("seed", [1, 2**31 + 77])
 def test_control_fails(tmp_path, cell, seed):
-    root = make_tiny_bench(tmp_path, CONTROL_SIZES)
+    root = make_tiny_bench(tmp_path, "control")
     checks = control_readings(Bench(root), cell, seed, 2, "cpu")
     assert any(c["value"] > c["limit"] for c in checks.values()), checks

@@ -131,7 +131,18 @@ def test_symgs_readers_read_nothing_without_the_kernel():
 
 @pytest.fixture
 def hpcg_root(tmp_path):
-    return make_tiny_bench(tmp_path)
+    return _tiny_at(tmp_path, 16)
+
+
+def _tiny_at(tmp_path, side):
+    """A tiny benchmark whose HPCG grid is ``side``^3, the grid that these
+    tests' reasoning needs, whatever the configuration's own tiny size."""
+    root = make_tiny_bench(tmp_path)
+    path = root / "portbench" / "configs" / "hpcg_104.json"
+    cfg = json.loads(path.read_text())
+    cfg["generator_params"] = {"nx": side, "ny": side, "nz": side}
+    path.write_text(json.dumps(cfg))
+    return root
 
 
 def test_cell_runs_correct_on_cpu_with_its_checks(hpcg_root):
@@ -148,10 +159,7 @@ def test_control_fails_at_32(tmp_path):
     """The reference in float32 in the program's place fails on x_error
     (a finite reading some 1e-7 above the 1e-9 limit; at 32^3 its
     recurrence does not underflow as it does at 16^3)."""
-    root = make_tiny_bench(tmp_path, {"poisson2d_2048": {"n": 40},
-                                      "femlike_262k": {"n_side": 24, "jitter": 2},
-                                      "hpcg_104": {"nx": 32, "ny": 32, "nz": 32}})
-    checks = control_readings(Bench(root), CELL, 2**32 + 9, 1, "cpu")
+    checks = control_readings(Bench(_tiny_at(tmp_path, 32)), CELL, 2**32 + 9, 1, "cpu")
     x = checks["x_error"]
     assert np.isfinite(x["value"]) and x["value"] > 10 * x["limit"]
 

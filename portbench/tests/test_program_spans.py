@@ -21,7 +21,7 @@ import pytest
 
 from portbench.harness import Bench, Run
 from portbench.spans import Memory, ProgramTrace, operator_plan_s, readings, run_spans
-from portbench.tests.conftest import make_tiny_bench
+from portbench.tests.conftest import cells, make_tiny_bench
 from portbench.tracing import Trace
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -146,16 +146,14 @@ FIVE = {"krylov_host_ms.solve", "sync_wait_ms.solve", "vcycle_coarse_ms.solve",
         "spgemm_host_ms", "operator_plan_s"}
 
 
-#: Poisson 64^2 keeps two AMG levels above the coarse size, so a level 1
-SIZES = {"poisson2d_2048": {"n": 64}, "femlike_262k": {"n_side": 24, "jitter": 2}}
-
-
-@pytest.mark.parametrize("cell", sorted(CELL_READINGS))
+@pytest.mark.parametrize("cell", [c for c in sorted(CELL_READINGS) if c in cells()])
 @pytest.mark.parametrize("spans", [True, False])
 def test_tiny_cell_on_cpu(tmp_path, cell, spans):
     from sparse_matrix_tpu_torch.utils import profiling
 
-    root = make_tiny_bench(tmp_path, SIZES)
+    # the spans' tiny Poisson, 64^2, keeps two AMG levels above the coarse
+    # size, so a level 1
+    root = make_tiny_bench(tmp_path, "spans")
     line = run_spans(Bench(root), cell, seed=2**31 + 99, spans=spans, device="cpu")
     assert not profiling.enabled()
     got = FIVE & set(line["metrics"])
