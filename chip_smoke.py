@@ -59,7 +59,7 @@ Phases, each of which ends the run with an exception on failure:
    run a dense-block case, the block-tridiagonal 16384^2 matrix of whole
    128 x 128 blocks (every depth row live), so the tile's dense rate is on
    record. TF32 must be off.
-3. Main path, in nine parts, each with every launch count set to 0 just
+3. Main path, in ten parts, each with every launch count set to 0 just
    before it and read just after:
    a. slice 1: CG through ``SpmvOperator`` on Poisson 2048^2 (auto-
       dispatched to DIA), the same with bf16 band planes through
@@ -113,6 +113,11 @@ Phases, each of which ends the run with an exception on failure:
       one set of ``amg_pcg_solve`` at tol 0 and 50 iterations on b = A 1
       after the set that captures the V-cycle's graph, held to the plain
       reference's set (``reference/hpcg.py``) on the card.
+   j. PageRank (GAP's ``pr_spmv``, the benchmark's cell at a smaller
+      scale): GAP's kron graph at scale 20 built on the card, its operator dispatched
+      with no ``force`` (csr), ``pagerank`` against the float64 plain
+      reference (iterations equal, L1 within 1e-6, the 1,024 hubs within
+      1e-5), generator, plan and ranking times.
    Solves are checked for convergence and for their true residual (per
    column for the multi-RHS solves; the ILU solves within 10 tol |b|, the
    reference tests' acceptance), products against float64: SpGEMM
@@ -148,6 +153,19 @@ Phases, each of which ends the run with an exception on failure:
    read and written once, over 3.35 TB/s; no library call computes it);
    the finest level's f64 DIA SpMV against its plain version within 2 nb
    f64 roundoffs of |A||x|, beside ``torch.mv`` on the f64 CSR tensor.
+8. The CSR-row kernel (no TPU kernel) on GAP Kronecker graphs of scale 16,
+   20 and 25, the benchmark cell's graph (``bench/kron.py``, built on the
+   card; the operator dispatched with no ``force``) with random values:
+   against its plain version (``_csr_merge_torch``; at scale 25 run 2**14
+   tiles a pass on the card) bit for bit and on two calls, within
+   ``spmv_f64_bound`` (at scale 25 computed on the card in row blocks),
+   with its times, its bound (the matrix in its smallest plain form, x and
+   y once, over 3.35 TB/s) and ``torch.mv`` on the CSR tensor as the
+   library yardstick; at scale 25 also the generator's and the plan's
+   seconds and the peak of device memory. Part j, before it: GAP's
+   PageRank (``solvers/pagerank.py``) on the scale-20 graph through the
+   dispatched operator, against the float64 plain reference
+   (``reference/pagerank.py``).
 
 The last two lines are the kernels' JSON record (each kernel with its
 worst ``ms / library_ms`` over its cases, ``worst_library_factor``) and
@@ -205,6 +223,8 @@ REPLACES = {
     "krylov_dot": ("sparse_matrix_tpu_torch/csrc/krylov_update.cu", "no TPU kernel"),
     "cg_update": ("sparse_matrix_tpu_torch/csrc/krylov_update.cu", "no TPU kernel"),
     "p_update": ("sparse_matrix_tpu_torch/csrc/krylov_update.cu", "no TPU kernel"),
+    # no TPU kernel: the port's own format for the skew class
+    "spmv_csr": ("sparse_matrix_tpu_torch/csrc/spmv_csr.cu", "no TPU kernel"),
 }
 # the kernels each part of the main path must launch
 PARTS = {
@@ -223,6 +243,8 @@ PARTS = {
     # HPCG 104^3: every level's A on the f64 DIA kernel, every smoothing
     # step on the SymGS kernel
     "hpcg": ("symgs", "dia", "cg_update", "p_update"),
+    # GAP PageRank on a Kronecker graph: the skew class's CSR-row kernel
+    "pagerank": ("spmv_csr",),
 }
 SEED = 0
 CG_TOL = 1e-5
@@ -242,6 +264,16 @@ HPCG_GRID = (104, 104, 104)
 HPCG_LEVELS = 4
 HPCG_ITERS = 50
 HPCG_LIMIT = 1e-9
+# part j: GAP's kron graph at this scale (the benchmark's is 25) and its
+# PageRank's limits against the float64 reference (sound CPU runs at scales
+# 10-18 read l1 6e-8 and hub 3e-7)
+KRON_SCALE = 20
+KRON = dict(edgefactor=16, a=0.57, b=0.19, c=0.19)
+PAGERANK_L1, PAGERANK_HUB = 1e-6, 1e-5
+# phase 8: the benchmark cell's graph (kron25.pagerank), and the tiles a
+# pass of the kernel's plain version takes there (2**25 path items)
+CSR_BENCH_SCALE = 25
+CSR_PASS_TILES = 1 << 14
 # AMG-PCG steps queued for their device time: a V-cycle launches about a
 # hundred kernels, and the queue behind the hold takes about a thousand
 AMG_STEP_CALLS = 4
@@ -385,7 +417,8 @@ class KernelChecks:
 
     def check(self, kernel, case, m, x_np, run_kernel, run_plain, *, plan_bytes,
               value_bytes=4, unpack=None, ulp_plain=False, launch=None, repeat_bits=False,
-              equal_plain=False, **bound_kw):
+              equal_plain=False, oracle=None, matrix_bytes=None, library=None, plain_reps=30,
+              **bound_kw):
         """``x_np`` is (cols,) or (cols, K); ``unpack`` maps a kernel or
         plain output to (rows,) or (rows, K); ``plan_bytes`` counts the
         bytes of the plan arrays one call of the kernel reads (x and y
@@ -397,7 +430,11 @@ class KernelChecks:
         kernel launch on the inputs the wrapper prepares, timed beside it
         as ``launch_ms`` and, with no host gaps, ``device_ms``;
         ``repeat_bits`` demands equal bits from two more kernel calls,
-        ``equal_plain`` the plain version's bits."""
+        ``equal_plain`` the plain version's bits. For a matrix too large
+        for the host's float64 passes: ``oracle(x)`` gives ``(y_f64,
+        bound)`` in ``spmv_f64_bound``'s place, ``matrix_bytes`` the
+        smallest plain form's bytes, ``library`` the ``torch.sparse`` CSR
+        tensor, and ``plain_reps`` the plain version's timed calls."""
         from sparse_matrix_tpu_torch.ops.spmv import spmv_f64_bound
 
         torch = self.torch
@@ -424,6 +461,8 @@ class KernelChecks:
         for q in range(xs.shape[1]):
             if not bound_kw and xs.shape[1] > 1:
                 y64, bound = y64_all[:, q], bound_all[:, q]
+            elif oracle is not None:
+                y64, bound = oracle(xs[:, q])
             else:
                 y64, bound = spmv_f64_bound(m, xs[:, q], **bound_kw)
             err_k = np.abs(yk2[:, q] - y64)
@@ -445,19 +484,20 @@ class KernelChecks:
         if launch is not None:
             extra = dict(launch_ms=cuda_ms(torch, launch),
                          device_ms=device_ms_per_call(torch, launch))
-        plain_ms = cuda_ms(torch, run_plain)
+        plain_ms = cuda_ms(torch, run_plain, reps=plain_reps, warmup=min(10, plain_reps))
         key = id(m)
-        if key not in self._csr:
+        if library is None and key not in self._csr:
             self._csr[key] = library_csr(torch, m, self.dev)
-        a = self._csr[key]
+        a = self._csr[key] if library is None else library
         xt = torch.from_numpy(x_np).to(self.dev)
         library_ms = cuda_ms(torch, (lambda: a @ xt) if x_np.ndim == 2 else (lambda: torch.mv(a, xt)))
         k = xs.shape[1]
-        if (key, value_bytes) not in self._mbytes:
+        if matrix_bytes is None and (key, value_bytes) not in self._mbytes:
             self._mbytes[key, value_bytes] = plain_form_bytes(m, value_bytes)
         # the product's compulsory bytes: A once (in the smallest form at
         # hand, matrix_bytes), X read and Y written once
-        matrix_bytes = min(self._mbytes[key, value_bytes], plan_bytes)
+        matrix_bytes = min(self._mbytes[key, value_bytes] if matrix_bytes is None
+                           else matrix_bytes, plan_bytes)
         nbytes = matrix_bytes + 4 * k * (m.rows + m.cols)
         flops = 2.0 * m.nnz() * k
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2476,6 +2516,171 @@ def phase_krylov_kernels(torch, dev, chk, ops, state):
         torch.cuda.empty_cache()
 
 
+def _kron(scale: int, seed: int):
+    """GAP's kron graph as the port's CsrMatrix (unit float32 values),
+    built on the card."""
+    from sparse_matrix_tpu_torch.bench.kron import kronecker
+
+    return kronecker(np.random.default_rng(seed), scale=scale, device="cuda", **KRON)
+
+
+def part_pagerank(torch, dev, mats, ops, state):
+    """Part j: GAP's PageRank on the scale-KRON_SCALE Kronecker graph
+    through the operator the dispatch picks (csr), against the float64
+    plain reference: iterations equal, L1 and hub errors within their
+    limits; generator, plan and ranking times."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.reference import pagerank as ref
+    from sparse_matrix_tpu_torch.solvers.pagerank import pagerank
+
+    t0 = time.perf_counter()
+    a = _kron(KRON_SCALE, SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = SpmvOperator(a, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    if op.format != "csr":
+        raise AssertionError(f"pagerank: kron{KRON_SCALE} dispatched to {op.format}, not csr")
+    offsets = torch.from_numpy(a.offsets).to(dev)
+    deg = torch.diff(offsets)
+    res = pagerank(op, deg)
+    want = ref.pagerank(offsets, torch.from_numpy(a.indices.view(np.int32)).to(dev),
+                        dtype=torch.float64)
+    s, r = res.scores.double(), want.scores
+    hubs = torch.topk(deg, 1024).indices
+    l1 = float((s - r).abs().sum() / r.abs().sum())
+    hub = float(((s[hubs] - r[hubs]).abs() / r[hubs]).max())
+    if res.iterations != want.iterations or not (l1 <= PAGERANK_L1 and hub <= PAGERANK_HUB):
+        raise AssertionError(f"pagerank: {res.iterations} iterations against the reference's "
+                             f"{want.iterations}, l1 {l1:.3e}, hub {hub:.3e}")
+    ms = cuda_ms(torch, lambda: pagerank(op, deg), reps=5, warmup=1)
+    state["pagerank"] = dict(scale=KRON_SCALE, rows=a.rows, nnz=a.nnz(), generator_s=gen_s,
+                             plan_s=plan_s, bytes_per_apply=op.bytes_per_apply(),
+                             iterations=res.iterations, l1_error=l1, hub_error=hub,
+                             ranking_ms=ms, splits=int(op.part("csr").arrays["splits"].shape[0]))
+    log(f"pagerank kron{KRON_SCALE}: {state['pagerank']}")
+    mats[f"kron{KRON_SCALE}"] = a
+    ops[f"kron{KRON_SCALE}"] = op
+
+
+def phase_csr_kernel(torch, dev, chk, mats, ops):
+    """The CSR-row kernel on Kronecker graphs with random values (phase 8):
+    scales 16 and KRON_SCALE against the host's float64 passes, then the
+    benchmark's scale, on the card alone (:func:`_csr_kernel_at_scale`)."""
+    from sparse_matrix_tpu_torch.formats.csr import CsrMatrix
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.ops.spmv_csr import _csr_merge_torch, csr_stream_bytes
+
+    rng = np.random.default_rng(SEED + 21)
+    for scale in (16, KRON_SCALE):
+        g = mats.pop(f"kron{scale}", None) or _kron(scale, SEED)
+        ops.pop(f"kron{scale}", None)
+        m = CsrMatrix(g.rows, g.cols, rng.standard_normal(g.nnz()).astype(np.float32),
+                      g.indices, g.offsets, is_sorted=True)
+        del g
+        op = SpmvOperator(m, device=dev)
+        if op.format != "csr":
+            raise AssertionError(f"spmv_csr: kron{scale} dispatched to {op.format}, not csr")
+        arrs = op.part("csr").arrays
+        x_np = rng.standard_normal(m.cols).astype(np.float32)
+        x = torch.from_numpy(x_np).to(dev)
+        y = torch.empty(m.rows, device=dev)
+        chk.check("spmv_csr", f"kron{scale}", m, x_np, lambda: op(x),
+                  lambda: _csr_merge_torch(arrs, x), plan_bytes=csr_stream_bytes(arrs),
+                  launch=lambda: arrs["launch"](x, y), repeat_bits=True, equal_plain=True)
+        del op, arrs, x, y
+        torch.cuda.empty_cache()
+    _csr_kernel_at_scale(torch, dev, chk, CSR_BENCH_SCALE, rng)
+
+
+def _csr_f64_oracle(torch, arrs, x_np, block_entries=1 << 26):
+    """``spmv_f64_bound`` on the card, row block by row block
+    (``reference/pagerank.row_blocks``): the float64 product and each
+    row's bound ``(nnz_row + 1) * u * (|A||x|)_i``, as host arrays."""
+    from sparse_matrix_tpu_torch.ops.spmv import U_F32
+    from sparse_matrix_tpu_torch.reference.pagerank import row_blocks
+
+    off, cols, vals = arrs["offsets"], arrs["cols"], arrs["vals"]
+    x = torch.from_numpy(np.asarray(x_np, dtype=np.float64)).to(off.device)
+    rows = off.numel() - 1
+    y = torch.zeros(rows, dtype=torch.float64, device=off.device)
+    mag = torch.zeros_like(y)
+    for r0, r1, e0, e1 in row_blocks(off, block_entries):
+        if e1 == e0:
+            continue
+        local = torch.repeat_interleave(torch.arange(r1 - r0, device=off.device),
+                                        off[r0 + 1:r1 + 1] - off[r0:r1], output_size=e1 - e0)
+        prod = vals[e0:e1].double() * x[cols[e0:e1].long()]
+        y[r0:r1].index_add_(0, local, prod)
+        mag[r0:r1].index_add_(0, local, prod.abs_())
+        del local, prod
+    bound = (torch.diff(off).double() + 1) * U_F32 * mag
+    return y.cpu().numpy(), bound.cpu().numpy()
+
+
+def _csr_kernel_at_scale(torch, dev, chk, scale, rng):
+    """The kernel on the benchmark cell's graph (GAP's kron at ``scale``)
+    with random values, on the shapes the cell gives it: a billion
+    entries, hub rows across hundreds of tiles, x past L2. The dispatch
+    (no ``force``) must pick csr. Held bit for bit to its plain version
+    run ``CSR_PASS_TILES`` tiles a pass on the card and on two calls, and
+    to the float64 product within ``spmv_f64_bound``'s bound, both
+    computed on the card (the host's float64 passes would take tens of
+    GB). Its bound counts the CSR form: the graph has far more occupied
+    diagonals than the DIA form could hold in the CSR's bytes (checked on
+    the first rows). ``torch.mv`` on the CSR tensor built from the
+    operator's arrays is the library yardstick."""
+    import warnings
+
+    from sparse_matrix_tpu_torch.formats.csr import CsrMatrix
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.ops.spmv_csr import _csr_merge_torch, csr_stream_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = _kron(scale, SEED)
+    gen_s = time.perf_counter() - t0
+    m = CsrMatrix(g.rows, g.cols, rng.standard_normal(g.nnz(), dtype=np.float32), g.indices,
+                  g.offsets, is_sorted=True)
+    del g
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    op = SpmvOperator(m, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    if op.format != "csr":
+        raise AssertionError(f"spmv_csr: kron{scale} dispatched to {op.format}, not csr")
+    arrs = op.part("csr").arrays
+    off, cols = arrs["offsets"], arrs["cols"]
+    rows, nnz = m.rows, m.nnz()
+    csr_bytes = nnz * (4 + 4) + (rows + 1) * (4 if nnz < 1 << 31 else 8)
+    head = int(torch.searchsorted(off, 1 << 22))
+    diag = torch.unique(cols[:int(off[head])].long() - torch.repeat_interleave(
+        torch.arange(head, device=dev), torch.diff(off[:head + 1]))).numel()
+    if diag * (rows * 4 + 4) <= csr_bytes:
+        raise AssertionError(f"spmv_csr: kron{scale}'s first rows hold only {diag} diagonals")
+    x_np = rng.standard_normal(m.cols).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    y = torch.empty(rows, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
+        lib = torch.sparse_csr_tensor(off, cols.long(), arrs["vals"], size=(rows, m.cols),
+                                      check_invariants=False)
+    state = dict(scale=scale, rows=rows, nnz=nnz, generator_s=gen_s, plan_s=plan_s,
+                 tiles=int(arrs["coords"].shape[0] - 1), splits=int(arrs["splits"].shape[0]),
+                 longest_row=int(torch.diff(off).max()), memory_peak_bytes=0)
+    chk.check("spmv_csr", f"kron{scale}", m, x_np, lambda: op(x),
+              lambda: _csr_merge_torch(arrs, x, tiles_per_pass=CSR_PASS_TILES),
+              plan_bytes=csr_stream_bytes(arrs), launch=lambda: arrs["launch"](x, y),
+              repeat_bits=True, equal_plain=True, oracle=lambda xq: _csr_f64_oracle(
+                  torch, arrs, xq), matrix_bytes=csr_bytes, library=lib, plain_reps=3)
+    state["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    log(f"spmv_csr kron{scale}: {state}")
+    del op, arrs, off, cols, x, y, lib, m
+    torch.cuda.empty_cache()
+
+
 def phase_symgs_kernel(torch, dev, chk, state):
     """The SymGS kernel on part i's four levels (104^3, 52^3, 26^3, 13^3;
     f64, 8 colours): one step, its 16 colour passes in one launch, against
@@ -2736,7 +2941,8 @@ def main() -> int:
                      ("spgemm", lambda *a: part_spgemm(*a, state)),
                      ("ilu", lambda *a: part_ilu(*a, state)),
                      ("amg", lambda *a: part_amg(*a, state)),
-                     ("hpcg", lambda *a: part_hpcg(*a, state))):
+                     ("hpcg", lambda *a: part_hpcg(*a, state)),
+                     ("pagerank", lambda *a: part_pagerank(*a, state))):
         kernels.reset_launch_counts()
         fn(torch, dev, mats, ops)
         torch.cuda.synchronize()
@@ -2753,10 +2959,12 @@ def main() -> int:
     phase_trisweep_kernel(torch, dev, chk, state)
     phase_krylov_kernels(torch, dev, chk, ops, state)
     phase_symgs_kernel(torch, dev, chk, state)
+    phase_csr_kernel(torch, dev, chk, mats, ops)
     log(f"ilu record: {json.dumps(state['ilu'])}")
     log(f"amg record: {json.dumps(state['amg'])}")
     log(f"hpcg record: {json.dumps(state['hpcg'])}")
     log(f"krylov record: {json.dumps(state['krylov'])}")
+    log(f"pagerank record: {json.dumps(state['pagerank'])}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

@@ -24,6 +24,8 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
                         SpMV
     ops/spmv_bell.py    BELL SpMV (kernel: csrc/spmv_bell.cu)
     ops/spmm.py         aligned SpMM (csrc/spmm_aligned.cu), packed layout
+    ops/spmv_csr.py     CSR-row SpMV for the skew class, balanced by the
+                        merge path (csrc/spmv_csr.cu)
     ops/operator.py     SpmvOperator (apply, matmat) + plan files
     ops/spgemm_*.py     SpGEMM: host hash and ESC engines, band
                         convolution, block SpGEMM (csrc/spgemm_block.cu),
@@ -42,8 +44,11 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
     solvers/poisson.py  the 2-D Poisson model problem
     solvers/hpcg.py     HPCG's 27-point problem and geometric multigrid as
                         an AmgHierarchy (smoother "symgs")
+    solvers/pagerank.py GAP's pull PageRank over a planned operator
     reference/hpcg.py   HPCG written plainly on grid tensors, the tests'
                         reference
+    reference/pagerank.py  GAP's PageRank written plainly over a CSR
+                        pattern, the tests' reference
     bench/corpus.py     the bench's 262k-row matrix classes
     entry.py            one CG step through the aligned kernel
 
@@ -96,6 +101,8 @@ _EXPORTS = {
     "save_ilu_factors": "solvers.ilu",
     "load_ilu_factors": "solvers.ilu",
     "poisson_2d_csr": "solvers.poisson",
+    "pagerank": "solvers.pagerank",
+    "PageRankResult": "solvers.pagerank",
     "AmgHierarchy": "solvers.amg",
     "AmgLevel": "solvers.amg",
     "aggregate_strong": "solvers.amg",

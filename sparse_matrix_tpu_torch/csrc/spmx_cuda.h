@@ -428,3 +428,35 @@ SPMX_API int spmx_cg_update(const SpmxKrylovPlan* plan, void* x, void* r, const 
 // distinct from p. vec = 1: p and z 16-byte aligned
 SPMX_API int spmx_p_update(const SpmxKrylovPlan* plan, void* p, const void* z, int vec,
                            const void* num, const void* den, void* stream);
+
+// A CSR-row plan (spmv_csr.cu), packed once by the wrapper: the CSR as
+// given, `offsets` (rows + 1) int64, `cols` (nnz) uint32 and `vals` (nnz)
+// f32; `coords` (tiles + 1, 2) int64, the merge path's (rows, entries) point
+// at item tile * spmx_csr_threads() * spmx_csr_items() (the last at rows +
+// nnz); `splits` (num_splits, 3) int64 rows (row, first tile, ending tile)
+// of the rows that a tile ends and earlier tiles began; `carry` (tiles) f32
+// scratch
+typedef struct {
+  const int64_t* offsets;
+  const uint32_t* cols;
+  const float* vals;
+  const int64_t* coords;
+  const int64_t* splits;
+  float* carry;
+  int64_t tiles;
+  int64_t num_splits;
+  int64_t rows;
+  int64_t ncols;
+  int32_t device;
+} SpmxCsrPlan;
+
+// the threads of one tile of spmx_csr (256) and the merge items each walks
+// (8)
+SPMX_API int spmx_csr_threads(void);
+SPMX_API int spmx_csr_items(void);
+
+// y[i] = sum over row i's entries of vals * x[cols] for every row < rows, in
+// the order of the merge path: each thread's items in order, a segmented
+// scan over a tile's threads, then the carries of earlier tiles for the
+// split rows (a second launch where the plan has any)
+SPMX_API int spmx_csr(const SpmxCsrPlan* plan, const float* x, float* y, void* stream);

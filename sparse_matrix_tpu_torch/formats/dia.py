@@ -73,14 +73,16 @@ def try_dia_from_csr(
 
 
 def _try_dia_from_csr(m, *, dtype, max_bands, min_fill):
-    r = m.row_ids()
-    c = m.indices.astype(np.int64)
     if m.nnz() > 1_000_000:
         # sampled pre-filter: 100k entries showing more than max_bands
-        # distinct offsets reject for certain
+        # distinct offsets reject for certain; their rows come from the
+        # offsets, so a rejected matrix never builds its per-entry arrays
         idx = np.linspace(0, m.nnz() - 1, 100_000).astype(np.int64)
-        if len(np.unique(c[idx] - r[idx])) > max_bands:
+        rows = np.searchsorted(m.offsets, idx, side="right") - 1
+        if len(np.unique(m.indices[idx].astype(np.int64) - rows)) > max_bands:
             return None
+    r = m.row_ids()
+    c = m.indices.astype(np.int64)
     offs = np.unique(c - r)
     if len(offs) > max_bands:
         return None

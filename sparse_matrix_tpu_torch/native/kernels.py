@@ -33,6 +33,7 @@ __all__ = [
     "prepare_lanepack",
     "prepare_bell",
     "prepare_stripe",
+    "prepare_csr",
     "PreparedSpmm",
     "prepare_aligned_spmm",
     "prepare_lanepack_spmm",
@@ -56,7 +57,8 @@ __all__ = [
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
            "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand",
-           "esc_run_sum", "trisweep", "symgs", "krylov_dot", "cg_update", "p_update")
+           "esc_run_sum", "trisweep", "symgs", "krylov_dot", "cg_update", "p_update",
+           "spmv_csr")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -106,6 +108,13 @@ SYMGS_MAX_COLORS = 64
 
 #: the 0-d scalars a :class:`KrylovScratch` holds for its kernels to write
 KRYLOV_SLOTS = 5
+
+#: the threads of one tile of the CSR-row kernel and the merge-path items
+#: each walks (kThreads and kItems of csrc/spmv_csr.cu, checked against
+#: ``spmx_csr_threads``/``_items`` when the library loads): a plan's tiles
+#: are CSR_THREADS * CSR_ITEMS items of the path
+CSR_THREADS = 256
+CSR_ITEMS = 8
 
 _F32 = torch.float32
 _VALS = (torch.float32, torch.bfloat16)
@@ -178,11 +187,14 @@ def _library() -> ctypes.CDLL:
         # (plan struct, p, z, vec, num, den, stream)
         lib.spmx_p_update.restype = i32
         lib.spmx_p_update.argtypes = [vp, vp, vp, i32, vp, vp, vp]
+        # (plan struct, x, y, stream)
+        lib.spmx_csr.restype = i32
+        lib.spmx_csr.argtypes = [vp, vp, vp, vp]
         for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
                    lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols,
                    lib.spmx_trisweep_threads, lib.spmx_esc_expand_tile,
                    lib.spmx_esc_expand_stage, lib.spmx_esc_expand_seg_stage,
-                   lib.spmx_symgs_max_colors):
+                   lib.spmx_symgs_max_colors, lib.spmx_csr_threads, lib.spmx_csr_items):
             fn.restype = i32
             fn.argtypes = []
         cols = (lib.spmx_lanepack_spmm_max_cols(), lib.spmx_lanepack_spmm_group_cols())
@@ -204,6 +216,11 @@ def _library() -> ctypes.CDLL:
         if lib.spmx_symgs_max_colors() != SYMGS_MAX_COLORS:
             raise RuntimeError(f"the SymGS plan holds {lib.spmx_symgs_max_colors()} colours, "
                                f"SYMGS_MAX_COLORS is {SYMGS_MAX_COLORS}: the structs would not "
+                               "match")
+        if (lib.spmx_csr_threads(), lib.spmx_csr_items()) != (CSR_THREADS, CSR_ITEMS):
+            raise RuntimeError(f"the CSR-row kernel runs {lib.spmx_csr_threads()} threads of "
+                               f"{lib.spmx_csr_items()} items a tile, CSR_THREADS and CSR_ITEMS "
+                               f"are {CSR_THREADS} and {CSR_ITEMS}: the plan's tiles would not "
                                "match")
         if lib.spmx_block_tile() != BLOCK_TILE:
             raise RuntimeError(f"the block kernels tile by {lib.spmx_block_tile()}, "
@@ -280,6 +297,15 @@ class SymgsPlan(ctypes.Structure):
                                                "grid", "device")]
 
 
+class CsrPlan(ctypes.Structure):
+    """``SpmxCsrPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("offsets", "cols", "vals", "coords", "splits",
+                                                 "carry")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("tiles", "num_splits", "rows", "ncols")]
+    _fields_ += [("device", ctypes.c_int32)]
+
+
 class KrylovPlan(ctypes.Structure):
     """``SpmxKrylovPlan`` of ``csrc/spmx_cuda.h``."""
 
@@ -348,23 +374,24 @@ class PreparedLaunch(_LaunchRecord):
     ``dtype`` and ``x_len`` elements on the plan's device) and y (the same,
     ``y_len`` elements, 16-byte aligned) and enqueues the kernel with one
     ctypes call of ``(args, x, y, add, stream)``, or of ``(args, x, y,
-    stream)`` where the kernel only writes y (``adds=False``: DIA, whose
-    ``add=True`` is refused)."""
+    stream)`` where the kernel only writes y (``adds=False``: DIA and
+    CSR-row, whose ``add=True`` is refused). A call counts ``launches``
+    kernels (the CSR-row plan's second pass makes two)."""
 
-    __slots__ = ("x_len", "y_len", "adds")
+    __slots__ = ("x_len", "y_len", "adds", "launches")
 
     def __init__(self, name: str, cname: str, args, device: torch.device, *, x_len: int,
                  y_len: int, empty: bool, keep: tuple, dtype: torch.dtype = _F32,
-                 adds: bool = True):
+                 adds: bool = True, launches: int = 1):
         super().__init__(name, cname, args, device, empty=empty, keep=keep, dtype=dtype)
-        self.x_len, self.y_len, self.adds = x_len, y_len, adds
+        self.x_len, self.y_len, self.adds, self.launches = x_len, y_len, adds, launches
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, add: bool = False) -> None:
         px, py = self._ptr("x", x, self.x_len), self._ptr("y", y, self.y_len, 16)
         if add and not self.adds:
             raise ValueError(f"{self.name}: the kernel only writes y")
         if not self._empty:
-            self._enqueue(px, py, *((int(add),) if self.adds else ()))
+            self._enqueue(px, py, *((int(add),) if self.adds else ()), launches=self.launches)
 
 
 class PreparedSpmm(_LaunchRecord):
@@ -674,6 +701,36 @@ def prepare_dia(data, offsets, *, rows: int, cols: int) -> PreparedLaunch:
     return PreparedLaunch("dia", cname, (*lead, offsets.data_ptr(), nb, rows, cols), dev,
                           x_len=cols, y_len=rows, empty=False, keep=(data, offsets), dtype=vec,
                           adds=False)
+
+
+def prepare_csr(offsets, cols, vals, coords, splits, carry, *, rows: int,
+                ncols: int) -> PreparedLaunch:
+    """The CSR-row kernel's launch on one plan (``ops.spmv_csr``): the CSR
+    as given, ``offsets`` (rows + 1) int64, ``cols`` (nnz) int32 holding the
+    uint32 column bits and ``vals`` (nnz) f32; ``coords`` (tiles + 1, 2) and
+    ``splits`` (S, 3) int64 from ``ops.spmv_csr.merge_path``, ``carry``
+    (tiles,) f32 scratch. ``launch(x, y)`` writes ``y = A @ x`` into every
+    row of y, counting two launches where the plan has split rows. The
+    path's values are the host's, not read back here."""
+    dev = _check("spmv_csr", dict(offsets=torch.int64, cols=torch.int32, vals=_F32,
+                                  coords=torch.int64, splits=torch.int64, carry=_F32),
+                 offsets=offsets, cols=cols, vals=vals, coords=coords, splits=splits,
+                 carry=carry)
+    tiles = coords.shape[0] - 1 if coords.dim() == 2 else -1
+    if (offsets.shape != (rows + 1,) or cols.dim() != 1 or vals.shape != cols.shape
+            or tiles < 1 or coords.shape[1] != 2 or splits.dim() != 2 or splits.shape[1] != 3
+            or carry.shape != (tiles,)):
+        raise ValueError(f"spmv_csr: arrays disagree with a {rows} x {ncols} plan")
+    if tiles >= 1 << 31:
+        raise ValueError("spmv_csr: the kernel launches a block a tile, at most 2**31 - 1")
+    num_splits = splits.shape[0]
+    args = CsrPlan(offsets=offsets.data_ptr(), cols=cols.data_ptr(), vals=vals.data_ptr(),
+                   coords=coords.data_ptr(), splits=splits.data_ptr(), carry=carry.data_ptr(),
+                   tiles=tiles, num_splits=num_splits, rows=rows, ncols=ncols,
+                   device=dev.index)
+    return PreparedLaunch("spmv_csr", "spmx_csr", args, dev, x_len=ncols, y_len=rows,
+                          empty=False, keep=(offsets, cols, vals, coords, splits, carry),
+                          adds=False, launches=1 + (num_splits > 0))
 
 
 class PreparedDiaSpmm(_LaunchRecord):

@@ -8,6 +8,12 @@ port's automatic choice equals the reference's ``SpmvOperator(m).format``
 for ``dia``, ``hybrid``, ``aligned``, ``lanepack``, ``bell``, ``stripe``
 and ``ell``, and its stripe plan the reference's ``(mode, L, KW)``.
 
+One branch is the port's own and runs first: a matrix of the skew class
+(:func:`skewed_rows`, read from the row offsets alone: power-law graphs
+such as GAP's Kronecker graphs) goes to ``csr``, the CSR-row format of
+``ops/spmv_csr.py``, which streams the CSR as given. The reference has no
+such format; where the test does not fire, the dispatch is the reference's.
+
 :meth:`SpmvOperator.matmat` runs every format, through the SpMM kernels
 where the reference runs its packed SpMM kernels.
 
@@ -67,11 +73,13 @@ from .spmv import (
     stripe_device_arrays,
 )
 from .spmv_bell import bell_device_arrays, spmv_bell
+from .spmv_csr import csr_device_arrays, csr_stream_bytes, plan_csr_rows, spmv_csr
 from .spmv_dia import dia_device_arrays, spmm_dia_stream, spmv_dia
 
 __all__ = [
     "SpmvOperator",
     "split_bands",
+    "skewed_rows",
     "save_operator_plan",
     "load_operator_plan",
 ]
@@ -82,6 +90,38 @@ BAND_FILL_THRESHOLD = 0.5
 MIN_BAND_NNZ_FRACTION = 0.3  # hybrid only pays if bands cover enough nnz
 
 _NP_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+# the skew class (skewed_rows): the longest row at least SKEW_MAX_OVER_MEAN
+# times the mean, and at least SKEW_LONG_SHARE of the entries in long rows,
+# rows longer than SKEW_LONG_FACTOR times the mean and SKEW_LONG_MIN
+SKEW_MAX_OVER_MEAN = 16
+SKEW_LONG_FACTOR = 4
+SKEW_LONG_MIN = 64
+SKEW_LONG_SHARE = 0.35
+
+
+def skewed_rows(offsets: np.ndarray) -> bool:
+    """Whether the row lengths ``diff(offsets)`` are of the skew class,
+    which the dispatch sends to the CSR-row format before any other probe.
+
+    Measured shares of the entries in long rows, with the longest row over
+    the mean (12 seeds each; PERF.md §4): GAP's Kronecker graphs (A = .57,
+    B = C = .19, edgefactor 16, undirected) 0.41-0.42 at scale 10 (22x),
+    0.39-0.42 at 11, 0.59 at 12 (55x), 0.53-0.54 at 13, 0.59-0.61 at 14
+    (138x), 0.52 at 18 (870x); the bench corpus's Pareto rows
+    (``power_law_rows``, alpha 1.5, mean length 8 to 16), which the
+    reference sends to stripe, at most 0.31 at 200 to 65,536 rows; stencils, FEM-like, random
+    local, HPCG's 27-point operator and AMG's levels have no long row. A
+    hyper-sparse matrix (mean below one) has no row past SKEW_LONG_MIN."""
+    lens = np.diff(offsets)
+    nnz = int(offsets[-1])
+    if nnz == 0:
+        return False
+    mean = nnz / lens.size
+    if int(lens.max()) < SKEW_MAX_OVER_MEAN * mean:
+        return False
+    long_rows = lens > max(SKEW_LONG_FACTOR * mean, SKEW_LONG_MIN)
+    return int(lens[long_rows].sum()) >= SKEW_LONG_SHARE * nnz
 
 
 def split_bands(
@@ -121,7 +161,8 @@ class SpmvOperator:
 
     Formats, picked by structure as in the reference: ``dia`` (banded),
     ``hybrid`` (well-filled diagonals in DIA + residual in LanePack or ELL),
-    ``aligned``, ``bell``, ``stripe``, ``lanepack`` and ``ell``. ``force``
+    ``aligned``, ``bell``, ``stripe``, ``lanepack`` and ``ell``; and, ahead
+    of them, ``csr`` for the skew class (:func:`skewed_rows`). ``force``
     names one of them. ``values_dtype=torch.bfloat16`` stores the DIA band or BELL value
     planes half-width (the other formats raise); applies widen to ``dtype``
     before they accumulate. The host plan is built once; its arrays live on
@@ -158,6 +199,9 @@ class SpmvOperator:
 
         if force == "bell":
             return "bell", ((_BellPart, plan_bell(m, dtype=dtype)),)
+
+        if force == "csr" or (force is None and skewed_rows(m.offsets)):
+            return "csr", ((_CsrPart, plan_csr_rows(m, dtype)),)
 
         if force in (None, "dia"):
             dia = try_dia_from_csr(m, dtype=dtype)
@@ -431,9 +475,9 @@ class SpmvOperator:
 
     def part(self, fmt: str):
         """The part of format ``fmt`` (``"dia"``, ``"aligned"``,
-        ``"lanepack"``, ``"bell"``, ``"stripe"`` or ``"ell"``), or None. A
-        part carries ``plan``, its host plan, and ``arrays``, its device
-        arrays."""
+        ``"lanepack"``, ``"bell"``, ``"stripe"``, ``"ell"`` or ``"csr"``),
+        or None. A part carries ``plan``, its host plan, and ``arrays``,
+        its device arrays."""
         return next((p for p in self.parts if p.fmt == fmt), None)
 
     # -- apply --------------------------------------------------------------
@@ -455,8 +499,8 @@ class SpmvOperator:
         SpMV kernel; aligned through the aligned SpMM kernel; LanePack (and
         a hybrid's LanePack part) through the LanePack SpMM kernel, or
         column by column through its SpMV kernel on large plans at K < 8
-        (``lanepack_spmm_uses_kernel``); stripe column by column; ELL as a
-        plain gather. Iterative multi-RHS solvers should use the packed
+        (``lanepack_spmm_uses_kernel``); stripe and csr column by column;
+        ELL as a plain gather. Iterative multi-RHS solvers should use the packed
         layouts directly (``dia_matvec_multi``, ``aligned_matvec_multi``,
         ``lanepack_matvec_multi``) to skip the per-apply relayout."""
         if x.device != self.device:
@@ -666,6 +710,28 @@ class _StripePart(_Part):
         return _stripe_from_payload(z, "stripe_")
 
 
+class _CsrPart(_Part):
+    """CSR-row: ``plan`` is the ``CsrMatrix`` as given (values in the
+    operator's dtype), ``arrays`` its CSR and merge path on the device
+    (``ops/spmv_csr.py``)."""
+
+    fmt, key = "csr", "csr_vals"
+    device_arrays, spmv = staticmethod(csr_device_arrays), staticmethod(spmv_csr)
+
+    def nbytes(self):
+        return csr_stream_bytes(self.arrays)
+
+    def payload(self):
+        c = self.plan
+        return {"csr_offsets": c.offsets, "csr_indices": c.indices, "csr_vals": c.vals}
+
+    @staticmethod
+    def load(z):
+        offsets = z["csr_offsets"]
+        return CsrMatrix(len(offsets) - 1, int(z["cols"]), z["csr_vals"], z["csr_indices"],
+                         offsets, is_sorted=True)
+
+
 class _EllPart(_Part):
     """ELL: ``plan`` is ``((vals, cols), spill)`` on the host (``spill``,
     the COO ``(rows, cols, vals)`` of a width-capped ELL, or None) and
@@ -778,14 +844,14 @@ def save_operator_plan(op: SpmvOperator, path: str) -> None:
 
 #: the part classes in the order a plan file's parts are read (a hybrid's
 #: DIA part first)
-_PARTS = (_DiaPart, _AlignedPart, _BellPart, _StripePart, _LanePackPart, _EllPart)
+_PARTS = (_DiaPart, _AlignedPart, _BellPart, _StripePart, _LanePackPart, _EllPart, _CsrPart)
 
 
 def load_operator_plan(path: str, device) -> SpmvOperator:
     """Rebuild an operator on ``device`` from a plan file written by either
     package's ``save_operator_plan`` (keys ``format``, ``dia_*``,
     ``ali_*``, ``alisp_*``, ``lp_*``, ``bell_*``, ``bellsp_*``,
-    ``stripe_*``, ``stripe_sp_*``, ``ell_*``). Split plans raise
+    ``stripe_*``, ``stripe_sp_*``, ``ell_*``; the port's own ``csr_*``). Split plans raise
     ``NotImplementedError``."""
     with np.load(path, allow_pickle=False) as npz:
         if "split_kind" in npz:

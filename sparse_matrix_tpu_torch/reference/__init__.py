@@ -4,4 +4,5 @@ solver of the port, and nothing of the JAX package.
 
     hpcg.py   HPCG 3.1's problem, multigrid V-cycle and CG set on grid
               tensors
+    pagerank.py  GAP's pull PageRank (pr_spmv.cc) over a CSR pattern
 """

@@ -7,5 +7,6 @@ preconditioners (``ilu``: ``ilu0``, ``ic0``, ``ilut``, ``TriangularJacobi``,
 ``amg_coarsen``, ``AmgHierarchy``, ``AmgLevel``, ``amg_preconditioner``,
 ``amg_pcg_solve``, ``strength_graph``, ``aggregate_strong``,
 ``tentative_prolongator``, ``save_amg_coarsening``,
-``load_amg_coarsening``) and the Poisson model problem (``poisson``). Import
+``load_amg_coarsening``), GAP's pull PageRank (``pagerank``) and the
+Poisson model problem (``poisson``). Import
 the submodules directly, or the names from the package."""

@@ -2568,3 +2568,110 @@ def test_krylov_step_launches_no_torch_kernel(dev, tmp_path, kind):
     want = {"dia_kernel": 3, "krylov_dot_kernel": 3 if kind == "cg" else 6,
             "cg_update_kernel": 3, "p_update_kernel": 3}
     assert kinds == want, names
+
+
+# -- the CSR-row kernel and PageRank (csrc/spmv_csr.cu, solvers/pagerank.py)
+
+
+KRON = dict(edgefactor=16, a=0.57, b=0.19, c=0.19)
+
+
+def _kron_csr(scale, seed=0):
+    from sparse_matrix_tpu_torch.bench.kron import kronecker
+
+    return kronecker(np.random.default_rng(seed), scale=scale, **KRON)
+
+
+def _csr_rows(lens, seed):
+    rng = np.random.default_rng(seed)
+    n = len(lens)
+    c = np.concatenate([np.sort(rng.choice(n, k, replace=False)) for k in lens])
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return CsrMatrix(n, n, rng.standard_normal(len(c)).astype(np.float32), c.astype(np.uint32),
+                     offsets, is_sorted=True)
+
+
+def _csr_case(name):
+    if name.startswith("kron"):
+        m = _kron_csr(int(name[4:]), seed=int(name[4:]))
+        rng = np.random.default_rng(1)
+        return CsrMatrix(m.rows, m.cols, rng.standard_normal(m.nnz()).astype(np.float32),
+                         m.indices, m.offsets, is_sorted=True)
+    lens = np.zeros(7000, np.int64)
+    lens[1], lens[2] = 1, 7000  # a row of length 0, one of 1, one holding every column
+    lens[5:12] = [2047, 2048, 2049, 4089, 1, 0, 6149]  # rows across the tiles' shares
+    lens[12:] = np.random.default_rng(3).integers(0, 4, 7000 - 12)
+    return _csr_rows(lens, 2)
+
+
+@pytest.mark.parametrize("name", ["kron12", "kron16", "kron20", "adversarial"])
+def test_csr_kernel_matches_plain_and_f64(dev, name):
+    """The kernel through the operator, its two launches counted, within the
+    float32 bound of float64, equal bits on two calls and equal bits to its
+    plain version (the same order of additions)."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.ops.spmv_csr import _csr_merge_torch
+
+    m = _csr_case(name)
+    op = SpmvOperator(m, device=dev, force=None if name.startswith("kron") else "csr")
+    assert op.format == "csr"
+    arrs = op.part("csr").arrays
+    x_np, x = _x(m, dev)
+    before = kernels.launch_counts["spmv_csr"]
+    _held("spmv_csr", m, x_np, dev, lambda: op(x), lambda: _csr_merge_torch(arrs, x))
+    assert kernels.launch_counts["spmv_csr"] - before == 1 + (arrs["splits"].shape[0] > 0)
+    y1, y2 = op(x), op(x)
+    assert torch.equal(y1, y2)
+    assert torch.equal(y1, _csr_merge_torch(arrs, x))
+    # non-finite x: the rows that read it, and only they
+    x_bad = x.clone()
+    x_bad[int(m.indices[0])] = float("nan")
+    assert torch.equal(op(x_bad).isnan(), _csr_merge_torch(arrs, x_bad).isnan())
+
+
+def test_csr_kernel_refuses_add_and_wrong_vectors(dev):
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+
+    m = _csr_case("kron12")
+    rec = SpmvOperator(m, device=dev).part("csr").arrays["launch"]
+    x = torch.zeros(m.cols, device=dev)
+    y = torch.empty(m.rows, device=dev)
+    with pytest.raises(ValueError, match="only writes y"):
+        rec(x, y, add=True)
+    with pytest.raises(ValueError, match="elements"):
+        rec(x[:-1], y)
+    with pytest.raises(TypeError, match="dtype"):
+        rec(x.double(), y)
+
+
+def test_kron_generator_card_equals_cpu(dev):
+    """The graph of a seed is the same built on the card or on the CPU."""
+    from sparse_matrix_tpu_torch.bench.kron import kronecker
+
+    on_card = kronecker(np.random.default_rng(2**33 + 5), scale=12, device=dev, **KRON)
+    on_cpu = kronecker(np.random.default_rng(2**33 + 5), scale=12, device="cpu", **KRON)
+    for f in ("offsets", "indices", "vals"):
+        assert np.array_equal(getattr(on_card, f), getattr(on_cpu, f)), f
+
+
+@pytest.mark.parametrize("scale", [14, 18])
+def test_pagerank_on_card_matches_reference(dev, scale):
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.reference import pagerank as ref
+    from sparse_matrix_tpu_torch.solvers.pagerank import pagerank
+
+    m = _kron_csr(scale, seed=scale + 7)
+    op = SpmvOperator(m, device=dev)
+    assert op.format == "csr"
+    offsets = torch.from_numpy(m.offsets).to(dev)
+    res = pagerank(op, torch.diff(offsets))
+    want = ref.pagerank(offsets, torch.from_numpy(m.indices.view(np.int32)).to(dev),
+                        dtype=torch.float64)
+    assert res.iterations == want.iterations
+    s, r = res.scores.double(), want.scores
+    assert float((s - r).abs().sum() / r.abs().sum()) <= 1e-6
+    assert float(((s - r).abs() / r).max()) <= 1e-5
+    again = pagerank(op, torch.diff(offsets))
+    assert torch.equal(again.scores, res.scores)
