@@ -161,8 +161,12 @@ Phases, each of which ends the run with an exception on failure:
    ``spmv_f64_bound`` (at scale 25 computed on the card in row blocks),
    with its times, its bound (the matrix in its smallest plain form, x and
    y once, over 3.35 TB/s) and ``torch.mv`` on the CSR tensor as the
-   library yardstick; at scale 25 also the generator's and the plan's
-   seconds and the peak of device memory. Part j, before it: GAP's
+   library yardstick; at scale 25 (x past the card's L2: column stripes,
+   as many as the rule asks) also the generator's and the plan's seconds
+   and the peak of device memory, and the stripe sweep: one stripe and
+   each count of ``CSR_STRIPE_SWEEP`` forced, each with its plan seconds,
+   plan peak, bytes a pull and device ms, within the float64 bound, the
+   rule's count bit-equal to the operator's pull. Part j, before it: GAP's
    PageRank (``solvers/pagerank.py``) on the scale-20 graph through the
    dispatched operator, against the float64 plain reference
    (``reference/pagerank.py``).
@@ -274,6 +278,8 @@ PAGERANK_L1, PAGERANK_HUB = 1e-6, 1e-5
 # pass of the kernel's plain version takes there (2**25 path items)
 CSR_BENCH_SCALE = 25
 CSR_PASS_TILES = 1 << 14
+# the stripe counts phase 8 forces on that graph beside the rule's and one
+CSR_STRIPE_SWEEP = (4, 6, 8, 12, 16)
 # AMG-PCG steps queued for their device time: a V-cycle launches about a
 # hundred kernels, and the queue behind the hold takes about a thousand
 AMG_STEP_CALLS = 4
@@ -2558,7 +2564,9 @@ def part_pagerank(torch, dev, mats, ops, state):
     state["pagerank"] = dict(scale=KRON_SCALE, rows=a.rows, nnz=a.nnz(), generator_s=gen_s,
                              plan_s=plan_s, bytes_per_apply=op.bytes_per_apply(),
                              iterations=res.iterations, l1_error=l1, hub_error=hub,
-                             ranking_ms=ms, splits=int(op.part("csr").arrays["splits"].shape[0]))
+                             ranking_ms=ms, stripes=op.part("csr").stripes,
+                             splits=sum(int(st["splits"].shape[0])
+                                        for st in op.part("csr").arrays["stripes"]))
     log(f"pagerank kron{KRON_SCALE}: {state['pagerank']}")
     mats[f"kron{KRON_SCALE}"] = a
     ops[f"kron{KRON_SCALE}"] = op
@@ -2594,27 +2602,28 @@ def phase_csr_kernel(torch, dev, chk, mats, ops):
     _csr_kernel_at_scale(torch, dev, chk, CSR_BENCH_SCALE, rng)
 
 
-def _csr_f64_oracle(torch, arrs, x_np, block_entries=1 << 26):
+def _csr_f64_oracle(torch, m, x_np, dev, block_entries=1 << 26):
     """``spmv_f64_bound`` on the card, row block by row block
-    (``reference/pagerank.row_blocks``): the float64 product and each
-    row's bound ``(nnz_row + 1) * u * (|A||x|)_i``, as host arrays."""
+    (``reference/pagerank.row_blocks``) of the host CSR ``m``: the float64
+    product and each row's bound ``(nnz_row + 1) * u * (|A||x|)_i``, as
+    host arrays."""
     from sparse_matrix_tpu_torch.ops.spmv import U_F32
     from sparse_matrix_tpu_torch.reference.pagerank import row_blocks
 
-    off, cols, vals = arrs["offsets"], arrs["cols"], arrs["vals"]
-    x = torch.from_numpy(np.asarray(x_np, dtype=np.float64)).to(off.device)
-    rows = off.numel() - 1
-    y = torch.zeros(rows, dtype=torch.float64, device=off.device)
+    off = torch.from_numpy(m.offsets).to(dev)
+    x = torch.from_numpy(np.asarray(x_np, dtype=np.float64)).to(dev)
+    y = torch.zeros(m.rows, dtype=torch.float64, device=dev)
     mag = torch.zeros_like(y)
     for r0, r1, e0, e1 in row_blocks(off, block_entries):
         if e1 == e0:
             continue
-        local = torch.repeat_interleave(torch.arange(r1 - r0, device=off.device),
+        local = torch.repeat_interleave(torch.arange(r1 - r0, device=dev),
                                         off[r0 + 1:r1 + 1] - off[r0:r1], output_size=e1 - e0)
-        prod = vals[e0:e1].double() * x[cols[e0:e1].long()]
+        cols = torch.from_numpy(m.indices[e0:e1].astype(np.int64)).to(dev)
+        prod = torch.from_numpy(m.vals[e0:e1]).to(dev).double() * x[cols]
         y[r0:r1].index_add_(0, local, prod)
         mag[r0:r1].index_add_(0, local, prod.abs_())
-        del local, prod
+        del local, cols, prod
     bound = (torch.diff(off).double() + 1) * U_F32 * mag
     return y.cpu().numpy(), bound.cpu().numpy()
 
@@ -2622,15 +2631,16 @@ def _csr_f64_oracle(torch, arrs, x_np, block_entries=1 << 26):
 def _csr_kernel_at_scale(torch, dev, chk, scale, rng):
     """The kernel on the benchmark cell's graph (GAP's kron at ``scale``)
     with random values, on the shapes the cell gives it: a billion
-    entries, hub rows across hundreds of tiles, x past L2. The dispatch
-    (no ``force``) must pick csr. Held bit for bit to its plain version
-    run ``CSR_PASS_TILES`` tiles a pass on the card and on two calls, and
-    to the float64 product within ``spmv_f64_bound``'s bound, both
-    computed on the card (the host's float64 passes would take tens of
-    GB). Its bound counts the CSR form: the graph has far more occupied
-    diagonals than the DIA form could hold in the CSR's bytes (checked on
-    the first rows). ``torch.mv`` on the CSR tensor built from the
-    operator's arrays is the library yardstick."""
+    entries, hub rows across hundreds of tiles, x past L2, so the card's
+    L2 asks for column stripes. The dispatch (no ``force``) must pick csr.
+    Held bit for bit to its plain version run ``CSR_PASS_TILES`` tiles a
+    pass on the card and on two calls, and to the float64 product within
+    ``spmv_f64_bound``'s bound, both computed on the card (the host's
+    float64 passes would take tens of GB). Its bound counts the CSR form:
+    the graph has far more occupied diagonals than the DIA form could hold
+    in the CSR's bytes (checked on the first rows). ``torch.mv`` on the CSR
+    tensor is the library yardstick. Then the stripe sweep
+    (:func:`_csr_stripe_sweep`)."""
     import warnings
 
     from sparse_matrix_tpu_torch.formats.csr import CsrMatrix
@@ -2652,33 +2662,83 @@ def _csr_kernel_at_scale(torch, dev, chk, scale, rng):
     if op.format != "csr":
         raise AssertionError(f"spmv_csr: kron{scale} dispatched to {op.format}, not csr")
     arrs = op.part("csr").arrays
-    off, cols = arrs["offsets"], arrs["cols"]
     rows, nnz = m.rows, m.nnz()
     csr_bytes = nnz * (4 + 4) + (rows + 1) * (4 if nnz < 1 << 31 else 8)
-    head = int(torch.searchsorted(off, 1 << 22))
-    diag = torch.unique(cols[:int(off[head])].long() - torch.repeat_interleave(
-        torch.arange(head, device=dev), torch.diff(off[:head + 1]))).numel()
+    head = int(np.searchsorted(m.offsets, 1 << 22))
+    diag = np.unique(m.indices[:m.offsets[head]].astype(np.int64) - np.repeat(
+        np.arange(head), np.diff(m.offsets[:head + 1]))).size
     if diag * (rows * 4 + 4) <= csr_bytes:
         raise AssertionError(f"spmv_csr: kron{scale}'s first rows hold only {diag} diagonals")
     x_np = rng.standard_normal(m.cols).astype(np.float32)
     x = torch.from_numpy(x_np).to(dev)
     y = torch.empty(rows, device=dev)
+    y64, bound = _csr_f64_oracle(torch, m, x_np, dev)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
-        lib = torch.sparse_csr_tensor(off, cols.long(), arrs["vals"], size=(rows, m.cols),
-                                      check_invariants=False)
+        lib = torch.sparse_csr_tensor(
+            torch.from_numpy(m.offsets).to(dev),
+            torch.from_numpy(m.indices.view(np.int32)).to(dev).long(),
+            torch.from_numpy(m.vals).to(dev), size=(rows, m.cols), check_invariants=False)
+    stripes = arrs["stripes"]
     state = dict(scale=scale, rows=rows, nnz=nnz, generator_s=gen_s, plan_s=plan_s,
-                 tiles=int(arrs["coords"].shape[0] - 1), splits=int(arrs["splits"].shape[0]),
-                 longest_row=int(torch.diff(off).max()), memory_peak_bytes=0)
+                 stripes=len(stripes), tiles=sum(int(st["coords"].shape[0] - 1) for st in stripes),
+                 splits=sum(int(st["splits"].shape[0]) for st in stripes),
+                 longest_row=int(np.diff(m.offsets).max()), memory_peak_bytes=0)
     chk.check("spmv_csr", f"kron{scale}", m, x_np, lambda: op(x),
               lambda: _csr_merge_torch(arrs, x, tiles_per_pass=CSR_PASS_TILES),
               plan_bytes=csr_stream_bytes(arrs), launch=lambda: arrs["launch"](x, y),
-              repeat_bits=True, equal_plain=True, oracle=lambda xq: _csr_f64_oracle(
-                  torch, arrs, xq), matrix_bytes=csr_bytes, library=lib, plain_reps=3)
+              repeat_bits=True, equal_plain=True, oracle=lambda xq: (y64, bound),
+              matrix_bytes=csr_bytes, library=lib, plain_reps=3)
     state["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated())
     log(f"spmv_csr kron{scale}: {state}")
-    del op, arrs, off, cols, x, y, lib, m
+    y_rule = op(x)
+    del lib, arrs, stripes
+    _csr_stripe_sweep(torch, dev, op.part("csr").plan, x, y_rule, y64, bound,
+                      op.part("csr").stripes)
+    del op, x, y, y_rule, m
     torch.cuda.empty_cache()
+
+
+def _csr_stripe_sweep(torch, dev, plan, x, y_rule, y64, bound, rule_stripes):
+    """The kernel on ``plan`` (the cell's graph) with the column stripes
+    forced to each count of CSR_STRIPE_SWEEP and to one: the plan's
+    seconds and its own peak of device memory (above what was allocated
+    before it), the bytes a pull streams, the device ms of a pull (no host
+    gaps), each within the float64 bound, and the count the rule picks
+    bit-equal to the operator's pull."""
+    from sparse_matrix_tpu_torch.ops.spmv_csr import csr_device_arrays, csr_stream_bytes
+
+    y = torch.empty(plan.rows, device=dev)
+    sweep = []
+    for count in (1, *CSR_STRIPE_SWEEP):
+        width = -(-plan.cols // (32 * count)) * 32 if count > 1 else plan.cols
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        arrs = csr_device_arrays(plan, dev, _stripe_cols=width)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        arrs["launch"](x, y)
+        err = np.abs(y.double().cpu().numpy() - y64)
+        if not np.all(err <= bound):
+            raise AssertionError(f"spmv_csr: {count} stripes off the f64 oracle by "
+                                 f"{float(np.max(err / np.maximum(bound, 1e-300))):.3f} bounds")
+        row = dict(stripes=len(arrs["stripes"]), width=width, plan_s=plan_s, peak_bytes=peak,
+                   bytes=csr_stream_bytes(arrs),
+                   device_ms=device_ms_per_call(torch, lambda: arrs["launch"](x, y)),
+                   ms=cuda_ms(torch, lambda: arrs["launch"](x, y), reps=10, warmup=2),
+                   max_err_over_bound=float(np.max(err / np.maximum(bound, 1e-300))))
+        if row["stripes"] == rule_stripes:
+            row["equal_rule_bits"] = bool(torch.equal(y, y_rule))
+            if not row["equal_rule_bits"]:
+                raise AssertionError(f"spmv_csr: {count} stripes differ from the operator's bits")
+        sweep.append(row)
+        log(f"spmv_csr stripes {row}")
+        del arrs
+        torch.cuda.empty_cache()
+    log(f"csr stripe sweep: {json.dumps(sweep)}")
 
 
 def phase_symgs_kernel(torch, dev, chk, state):

@@ -25,7 +25,8 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
     ops/spmv_bell.py    BELL SpMV (kernel: csrc/spmv_bell.cu)
     ops/spmm.py         aligned SpMM (csrc/spmm_aligned.cu), packed layout
     ops/spmv_csr.py     CSR-row SpMV for the skew class, balanced by the
-                        merge path (csrc/spmv_csr.cu)
+                        merge path, in column stripes where x is past
+                        L2 (csrc/spmv_csr.cu)
     ops/operator.py     SpmvOperator (apply, matmat) + plan files
     ops/spgemm_*.py     SpGEMM: host hash and ESC engines, band
                         convolution, block SpGEMM (csrc/spgemm_block.cu),

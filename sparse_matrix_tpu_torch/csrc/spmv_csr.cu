@@ -42,6 +42,20 @@
 // and every sum is taken in an order fixed by the plan, so two calls give
 // equal bits. ops/spmv_csr.py's _csr_merge_torch repeats the order.
 //
+// Column stripes. Where x is past a share of L2 (ops/spmv_csr.py's
+// stripe_width: at 134 MB, 2.7x the H100's 50 MB, each gather misses and
+// fetches a 32-byte sector for 4 bytes), the plan cuts the columns into
+// equal stripes, each a CSR of its own with its own merge path, and the
+// stripes run in order on the stream: the gathers of a stripe fall in its
+// slice of x, which L2 holds, while columns, values, offsets and y stream
+// past it with evict-first loads and stores. Stripe 0 holds every row and
+// stores y; each later stripe holds only the rows with entries in it
+// (row_ids) and adds its part to y[row_ids[r]] (kAdd), its split rows
+// after its tiles. A block loads the ids and y of the rows it ends beside
+// its columns, before its gathers: loaded after the scan, they left each
+// block idle at its end (a kron25 pull on an H100: 13.3 ms against 9.8).
+// The order of the stripes is the plan's, so the bits stay fixed.
+//
 // Entry positions are int64 throughout (scale-27 Kronecker graphs hold
 // about 4.2e9 entries); within a tile they are int32.
 #include <cuda_runtime.h>
@@ -54,12 +68,18 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
 constexpr int kSplitWarps = 8;
+// the rows of a later stripe's tile a thread prefetches y of: each such row
+// holds an entry, so a tile ends at most kTile / 2 of them
+constexpr int kAddRows = kTile / 2 / kThreads;
 
+// kAdd: a later stripe, whose rows are y's rows row_ids[r] and whose part
+// adds to what the stripes before left there
+template <bool kAdd>
 __global__ void __launch_bounds__(kThreads)
     csr_tile_kernel(const int64_t* __restrict__ offsets, const uint32_t* __restrict__ cols,
                     const float* __restrict__ vals, const int64_t* __restrict__ coords,
-                    const float* __restrict__ x, float* __restrict__ y,
-                    float* __restrict__ carry) {
+                    const int32_t* __restrict__ row_ids, const float* __restrict__ x,
+                    float* __restrict__ y, float* __restrict__ carry) {
   __shared__ float s_prod[kTile];
   __shared__ int32_t s_end[kTile];
   __shared__ float s_row[kTile];
@@ -72,9 +92,13 @@ __global__ void __launch_bounds__(kThreads)
   const int nr = (int)(coords[2 * b + 2] - r0);
   const int ne = (int)(coords[2 * b + 3] - j0);
 
-  // 1. products of the tile's entries and its rows' ends
+  // 1. products of the tile's entries and its rows' ends; with kAdd, y of
+  // the rows the tile ends, loaded now so that step 4 does not wait on them
+  // (no other block of the launch touches those rows)
   uint32_t c[kItems];
   float v[kItems];
+  int32_t rid[kAddRows];
+  float yv[kAddRows];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int e = t + k * kThreads;
@@ -83,10 +107,22 @@ __global__ void __launch_bounds__(kThreads)
       v[k] = __ldcs(vals + j0 + e);
     }
   }
+  if (kAdd) {
+#pragma unroll
+    for (int k = 0; k < kAddRows; ++k) {
+      if (t + k * kThreads < nr) rid[k] = __ldcs(row_ids + r0 + t + k * kThreads);
+    }
+  }
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int e = t + k * kThreads;
     if (e < ne) s_prod[e] = v[k] * __ldg(x + c[k]);
+  }
+  if (kAdd) {
+#pragma unroll
+    for (int k = 0; k < kAddRows; ++k) {
+      if (t + k * kThreads < nr) yv[k] = __ldcs(y + rid[k]);
+    }
   }
   for (int k = t; k < nr; k += kThreads) {
     s_end[k] = (int32_t)(__ldcs((const long long*)(offsets + r0 + k + 1)) - j0);
@@ -141,13 +177,27 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // 4. the rows this tile ends
-  for (int k = t; k < nr; k += kThreads) y[r0 + k] = s_row[k];
+  if (kAdd) {
+#pragma unroll
+    for (int k = 0; k < kAddRows; ++k) {
+      if (t + k * kThreads < nr) __stcs(y + rid[k], yv[k] + s_row[t + k * kThreads]);
+    }
+    for (int k = t + kAddRows * kThreads; k < nr; k += kThreads) {  // rows without entries
+      const int32_t r = __ldcs(row_ids + r0 + k);
+      __stcs(y + r, __ldcs(y + r) + s_row[k]);
+    }
+  } else {
+    for (int k = t; k < nr; k += kThreads) __stcs(y + r0 + k, s_row[k]);
+  }
 }
 
-// splits (S, 3) int64 rows (row, first tile, ending tile): y[row] = (the sum
-// of carry[first .. ending - 1]) + y[row], a warp a row: each lane sums a
-// stride of 32 tiles in order, then a fixed shuffle tree
+// splits (S, 3) int64 rows (row, first tile, ending tile): y[i] = (the sum
+// of carry[first .. ending - 1]) + y[i] for i = row (i = row_ids[row] with
+// kAdd), a warp a row: each lane sums a stride of 32 tiles in order, then a
+// fixed shuffle tree
+template <bool kAdd>
 __global__ void csr_split_kernel(const int64_t* __restrict__ splits, int64_t num_splits,
+                                 const int32_t* __restrict__ row_ids,
                                  const float* __restrict__ carry, float* __restrict__ y) {
   const int64_t w = (int64_t)blockIdx.x * kSplitWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -157,7 +207,21 @@ __global__ void csr_split_kernel(const int64_t* __restrict__ splits, int64_t num
   for (int64_t k = first + lane; k < last; k += 32) s += carry[k];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if (lane == 0) y[row] = s + y[row];
+  if (lane == 0) {
+    const int64_t i = kAdd ? (int64_t)row_ids[row] : row;
+    y[i] = s + y[i];
+  }
+}
+
+template <bool kAdd>
+void launch_stripe(const SpmxCsrStripe* p, const float* x, float* y, cudaStream_t s) {
+  csr_tile_kernel<kAdd><<<(unsigned)p->tiles, kThreads, 0, s>>>(
+      p->offsets, p->cols, p->vals, p->coords, p->row_ids, x, y, p->carry);
+  if (p->num_splits > 0) {
+    const int64_t blocks = (p->num_splits + kSplitWarps - 1) / kSplitWarps;
+    csr_split_kernel<kAdd><<<(unsigned)blocks, 32 * kSplitWarps, 0, s>>>(
+        p->splits, p->num_splits, p->row_ids, p->carry, y);
+  }
 }
 
 }  // namespace
@@ -169,14 +233,17 @@ SPMX_API int spmx_csr_items(void) { return kItems; }
 SPMX_API int spmx_csr(const SpmxCsrPlan* plan, const float* x, float* y, void* stream) {
   cudaError_t err = cudaSetDevice(plan->device);
   if (err != cudaSuccess) return (int)err;
-  if (plan->tiles <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  csr_tile_kernel<<<(unsigned)plan->tiles, kThreads, 0, s>>>(
-      plan->offsets, plan->cols, plan->vals, plan->coords, x, y, plan->carry);
-  if (plan->num_splits > 0) {
-    const int64_t blocks = (plan->num_splits + kSplitWarps - 1) / kSplitWarps;
-    csr_split_kernel<<<(unsigned)blocks, 32 * kSplitWarps, 0, s>>>(
-        plan->splits, plan->num_splits, plan->carry, y);
+  for (int64_t k = 0; k < plan->num_stripes; ++k) {
+    const SpmxCsrStripe* p = plan->stripes + k;
+    if (p->tiles <= 0) continue;
+    if (k == 0) {
+      launch_stripe<false>(p, x, y, s);
+    } else {
+      launch_stripe<true>(p, x, y, s);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

@@ -429,22 +429,33 @@ SPMX_API int spmx_cg_update(const SpmxKrylovPlan* plan, void* x, void* r, const 
 SPMX_API int spmx_p_update(const SpmxKrylovPlan* plan, void* p, const void* z, int vec,
                            const void* num, const void* den, void* stream);
 
-// A CSR-row plan (spmv_csr.cu), packed once by the wrapper: the CSR as
-// given, `offsets` (rows + 1) int64, `cols` (nnz) uint32 and `vals` (nnz)
-// f32; `coords` (tiles + 1, 2) int64, the merge path's (rows, entries) point
-// at item tile * spmx_csr_threads() * spmx_csr_items() (the last at rows +
-// nnz); `splits` (num_splits, 3) int64 rows (row, first tile, ending tile)
-// of the rows that a tile ends and earlier tiles began; `carry` (tiles) f32
-// scratch
+// One column stripe of a CSR-row plan (spmv_csr.cu), packed once by the
+// wrapper: the CSR of its `rows` rows, `offsets` (rows + 1) int64, `cols`
+// (nnz) uint32 and `vals` (nnz) f32; `coords` (tiles + 1, 2) int64, the
+// merge path's (rows, entries) point at item tile * spmx_csr_threads() *
+// spmx_csr_items() (the last at rows + nnz); `splits` (num_splits, 3)
+// int64 rows (row, first tile, ending tile) of the rows that a tile ends
+// and earlier tiles began; `row_ids` (rows) int32, y's row of each of its
+// rows, or NULL where its rows are y's; `carry` (tiles) f32 scratch
 typedef struct {
   const int64_t* offsets;
   const uint32_t* cols;
   const float* vals;
   const int64_t* coords;
   const int64_t* splits;
+  const int32_t* row_ids;
   float* carry;
+  int64_t rows;
   int64_t tiles;
   int64_t num_splits;
+} SpmxCsrStripe;
+
+// A CSR-row plan: `stripes`, a host array of its num_stripes column
+// stripes in the order they run; stripe 0 holds every row of y (row_ids
+// NULL), each later stripe the rows with entries in it
+typedef struct {
+  const SpmxCsrStripe* stripes;
+  int64_t num_stripes;
   int64_t rows;
   int64_t ncols;
   int32_t device;
@@ -455,8 +466,10 @@ typedef struct {
 SPMX_API int spmx_csr_threads(void);
 SPMX_API int spmx_csr_items(void);
 
-// y[i] = sum over row i's entries of vals * x[cols] for every row < rows, in
-// the order of the merge path: each thread's items in order, a segmented
-// scan over a tile's threads, then the carries of earlier tiles for the
-// split rows (a second launch where the plan has any)
+// y[i] = sum over row i's entries of vals * x[cols] for every row < rows:
+// stripe by stripe, stripe 0 storing y and each later stripe adding its
+// part to its rows; within a stripe in the order of the merge path: each
+// thread's items in order, a segmented scan over a tile's threads, then the
+// carries of earlier tiles for the split rows (a second launch where the
+// stripe has any)
 SPMX_API int spmx_csr(const SpmxCsrPlan* plan, const float* x, float* y, void* stream);

@@ -297,12 +297,19 @@ class SymgsPlan(ctypes.Structure):
                                                "grid", "device")]
 
 
+class CsrStripe(ctypes.Structure):
+    """``SpmxCsrStripe`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("offsets", "cols", "vals", "coords", "splits",
+                                                 "row_ids", "carry")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("rows", "tiles", "num_splits")]
+
+
 class CsrPlan(ctypes.Structure):
     """``SpmxCsrPlan`` of ``csrc/spmx_cuda.h``."""
 
-    _fields_ = [(f, ctypes.c_void_p) for f in ("offsets", "cols", "vals", "coords", "splits",
-                                                 "carry")]
-    _fields_ += [(f, ctypes.c_int64) for f in ("tiles", "num_splits", "rows", "ncols")]
+    _fields_ = [("stripes", ctypes.c_void_p)]
+    _fields_ += [(f, ctypes.c_int64) for f in ("num_stripes", "rows", "ncols")]
     _fields_ += [("device", ctypes.c_int32)]
 
 
@@ -376,7 +383,7 @@ class PreparedLaunch(_LaunchRecord):
     ctypes call of ``(args, x, y, add, stream)``, or of ``(args, x, y,
     stream)`` where the kernel only writes y (``adds=False``: DIA and
     CSR-row, whose ``add=True`` is refused). A call counts ``launches``
-    kernels (the CSR-row plan's second pass makes two)."""
+    kernels (the CSR-row plan's: two a stripe with split rows)."""
 
     __slots__ = ("x_len", "y_len", "adds", "launches")
 
@@ -703,34 +710,51 @@ def prepare_dia(data, offsets, *, rows: int, cols: int) -> PreparedLaunch:
                           adds=False)
 
 
-def prepare_csr(offsets, cols, vals, coords, splits, carry, *, rows: int,
-                ncols: int) -> PreparedLaunch:
-    """The CSR-row kernel's launch on one plan (``ops.spmv_csr``): the CSR
-    as given, ``offsets`` (rows + 1) int64, ``cols`` (nnz) int32 holding the
-    uint32 column bits and ``vals`` (nnz) f32; ``coords`` (tiles + 1, 2) and
-    ``splits`` (S, 3) int64 from ``ops.spmv_csr.merge_path``, ``carry``
-    (tiles,) f32 scratch. ``launch(x, y)`` writes ``y = A @ x`` into every
-    row of y, counting two launches where the plan has split rows. The
-    path's values are the host's, not read back here."""
-    dev = _check("spmv_csr", dict(offsets=torch.int64, cols=torch.int32, vals=_F32,
-                                  coords=torch.int64, splits=torch.int64, carry=_F32),
-                 offsets=offsets, cols=cols, vals=vals, coords=coords, splits=splits,
-                 carry=carry)
-    tiles = coords.shape[0] - 1 if coords.dim() == 2 else -1
-    if (offsets.shape != (rows + 1,) or cols.dim() != 1 or vals.shape != cols.shape
-            or tiles < 1 or coords.shape[1] != 2 or splits.dim() != 2 or splits.shape[1] != 3
-            or carry.shape != (tiles,)):
-        raise ValueError(f"spmv_csr: arrays disagree with a {rows} x {ncols} plan")
-    if tiles >= 1 << 31:
-        raise ValueError("spmv_csr: the kernel launches a block a tile, at most 2**31 - 1")
-    num_splits = splits.shape[0]
-    args = CsrPlan(offsets=offsets.data_ptr(), cols=cols.data_ptr(), vals=vals.data_ptr(),
-                   coords=coords.data_ptr(), splits=splits.data_ptr(), carry=carry.data_ptr(),
-                   tiles=tiles, num_splits=num_splits, rows=rows, ncols=ncols,
-                   device=dev.index)
+def prepare_csr(stripes, *, rows: int, ncols: int) -> PreparedLaunch:
+    """The CSR-row kernel's launch on one plan (``ops.spmv_csr``):
+    ``stripes``, the plan's column stripes in order, each a dict of its
+    CSR, ``offsets`` (R + 1) int64, ``cols`` (nnz) int32 holding the
+    uint32 column bits and ``vals`` (nnz) f32 of its R rows; ``coords``
+    (tiles + 1, 2) and ``splits`` (S, 3) int64 from
+    ``ops.spmv_csr.merge_path``; ``carry`` (tiles,) f32 scratch; and
+    ``row_ids`` (R,) int32, y's row of each of its rows, None for stripe 0
+    alone, whose R rows are y's. ``launch(x, y)`` writes ``y = A @ x`` into
+    every row of y: stripe 0 stores its rows, each later stripe adds to
+    its rows, in order on the stream; a call counts each stripe's
+    launches, two where it has split rows and none where it has no
+    entries. The path's values are the host's, not read back here."""
+    types = dict(offsets=torch.int64, cols=torch.int32, vals=_F32, coords=torch.int64,
+                 splits=torch.int64, carry=_F32, row_ids=torch.int32)
+    dev, structs, keep, launches = None, [], [], 0
+    for s, st in enumerate(stripes):
+        row_ids = st["row_ids"]
+        tensors = {k: st[k] for k in types if k != "row_ids" or row_ids is not None}
+        d = _check("spmv_csr", types, **tensors)
+        if dev is not None and d != dev:
+            raise ValueError(f"spmv_csr: stripe {s} is on {d}, stripe 0 on {dev}")
+        dev = d
+        offsets, cols, coords, splits = st["offsets"], st["cols"], st["coords"], st["splits"]
+        n = rows if s == 0 else (row_ids.numel() if row_ids is not None else -1)
+        tiles = coords.shape[0] - 1 if coords.dim() == 2 else -1
+        if ((s == 0) != (row_ids is None) or offsets.shape != (n + 1,) or cols.dim() != 1
+                or st["vals"].shape != cols.shape or tiles < (1 if s == 0 else 0)
+                or coords.shape[1] != 2 or splits.dim() != 2 or splits.shape[1] != 3
+                or st["carry"].shape != (tiles,)):
+            raise ValueError(f"spmv_csr: stripe {s}'s arrays disagree with a {rows} x {ncols} "
+                             "plan")
+        if tiles >= 1 << 31:
+            raise ValueError("spmv_csr: the kernel launches a block a tile, at most 2**31 - 1")
+        ptr = {k: (0 if t is None else t.data_ptr()) for k, t in st.items() if k in types}
+        structs.append(CsrStripe(rows=n, tiles=tiles, num_splits=splits.shape[0], **ptr))
+        keep += tensors.values()
+        launches += (tiles > 0) * (1 + (splits.shape[0] > 0))
+    if dev is None:
+        raise ValueError("spmv_csr: a plan has at least one stripe")
+    table = (CsrStripe * len(structs))(*structs)
+    args = CsrPlan(stripes=ctypes.addressof(table), num_stripes=len(structs), rows=rows,
+                   ncols=ncols, device=dev.index)
     return PreparedLaunch("spmv_csr", "spmx_csr", args, dev, x_len=ncols, y_len=rows,
-                          empty=False, keep=(offsets, cols, vals, coords, splits, carry),
-                          adds=False, launches=1 + (num_splits > 0))
+                          empty=False, keep=(table, *keep), adds=False, launches=launches)
 
 
 class PreparedDiaSpmm(_LaunchRecord):

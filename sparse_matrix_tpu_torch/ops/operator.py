@@ -712,11 +712,17 @@ class _StripePart(_Part):
 
 class _CsrPart(_Part):
     """CSR-row: ``plan`` is the ``CsrMatrix`` as given (values in the
-    operator's dtype), ``arrays`` its CSR and merge path on the device
-    (``ops/spmv_csr.py``)."""
+    operator's dtype), ``arrays`` its column stripes, each a CSR and its
+    merge path, on the device (``ops/spmv_csr.py``); the plan file holds
+    the CSR as given, and the stripes are derived again on the device."""
 
     fmt, key = "csr", "csr_vals"
     device_arrays, spmv = staticmethod(csr_device_arrays), staticmethod(spmv_csr)
+
+    @property
+    def stripes(self) -> int:
+        """The column stripes the device's L2 asked for (1 on a CPU)."""
+        return len(self.arrays["stripes"])
 
     def nbytes(self):
         return csr_stream_bytes(self.arrays)

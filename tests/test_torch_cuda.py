@@ -2619,9 +2619,11 @@ def test_csr_kernel_matches_plain_and_f64(dev, name):
     assert op.format == "csr"
     arrs = op.part("csr").arrays
     x_np, x = _x(m, dev)
+    assert op.part("csr").stripes == 1  # x fits the card's L2
     before = kernels.launch_counts["spmv_csr"]
     _held("spmv_csr", m, x_np, dev, lambda: op(x), lambda: _csr_merge_torch(arrs, x))
-    assert kernels.launch_counts["spmv_csr"] - before == 1 + (arrs["splits"].shape[0] > 0)
+    splits = arrs["stripes"][0]["splits"]
+    assert kernels.launch_counts["spmv_csr"] - before == 1 + (splits.shape[0] > 0)
     y1, y2 = op(x), op(x)
     assert torch.equal(y1, y2)
     assert torch.equal(y1, _csr_merge_torch(arrs, x))
@@ -2629,6 +2631,55 @@ def test_csr_kernel_matches_plain_and_f64(dev, name):
     x_bad = x.clone()
     x_bad[int(m.indices[0])] = float("nan")
     assert torch.equal(op(x_bad).isnan(), _csr_merge_torch(arrs, x_bad).isnan())
+
+
+@pytest.mark.parametrize("scale,stripes", [(16, 8), (17, 5), (18, 16)])
+def test_striped_csr_kernel_matches_plain_and_f64(dev, scale, stripes):
+    """Column stripes forced on a Kronecker graph: the kernel within the
+    float32 bound of float64, equal bits on two calls and equal bits to
+    the striped plain version, each stripe's launches counted (two where
+    it has split rows), and a non-finite x only in the rows that read it."""
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.ops.spmv_csr import (
+        _csr_merge_torch,
+        csr_device_arrays,
+        spmv_csr,
+    )
+
+    m = _csr_case(f"kron{scale}")
+    width = -(-m.cols // (32 * stripes)) * 32
+    arrs = csr_device_arrays(m, dev, _stripe_cols=width)
+    assert len(arrs["stripes"]) == stripes
+    x_np, x = _x(m, dev)
+    before = kernels.launch_counts["spmv_csr"]
+    _held("spmv_csr", m, x_np, dev, lambda: spmv_csr(m, x, device_arrays=arrs),
+          lambda: _csr_merge_torch(arrs, x))
+    want = sum(1 + (st["splits"].shape[0] > 0) for st in arrs["stripes"])
+    assert kernels.launch_counts["spmv_csr"] - before == want > stripes
+    y1, y2 = (spmv_csr(m, x, device_arrays=arrs) for _ in range(2))
+    assert torch.equal(y1, y2)
+    assert torch.equal(y1, _csr_merge_torch(arrs, x))
+    assert torch.equal(y1, _csr_merge_torch(arrs, x, tiles_per_pass=5))
+    x_bad = x.clone()
+    x_bad[int(m.indices[m.nnz() // 2])] = float("nan")
+    assert torch.equal(spmv_csr(m, x_bad, device_arrays=arrs).isnan(),
+                       _csr_merge_torch(arrs, x_bad).isnan())
+
+
+def test_csr_stripe_count_follows_the_card_l2(dev):
+    """The operator's stripe count is the rule's for the card's L2: one
+    stripe where x fits a third of it, several where it does not."""
+    from sparse_matrix_tpu_torch.ops.operator import SpmvOperator
+    from sparse_matrix_tpu_torch.ops.spmv_csr import stripe_width
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    n = -(-l2 // 4)  # x of about the whole L2: past a third of it
+    rows = np.arange(n, dtype=np.int64)
+    m = CsrMatrix.from_coo(n, n, rows, (rows * 7919) % n, np.ones(n, np.float32))
+    want = -(-n // stripe_width(n, 4, l2))
+    assert want >= 3
+    assert SpmvOperator(m, device=dev, force="csr").part("csr").stripes == want
+    assert SpmvOperator(_csr_case("kron16"), device=dev).part("csr").stripes == 1
 
 
 def test_csr_kernel_refuses_add_and_wrong_vectors(dev):

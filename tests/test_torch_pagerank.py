@@ -13,6 +13,8 @@ pre-filter, whose plans stay the reference's byte for byte.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 
@@ -166,7 +168,7 @@ def test_forced_csr_within_float32_bound(name):
     assert np.all(np.abs(y.numpy().astype(np.float64) - y64) <= bound)
     assert torch.equal(op(x), y)
     if name != "no_entries":
-        assert op.part("csr").arrays["splits"].shape[0] > 0
+        assert op.part("csr").arrays["stripes"][0]["splits"].shape[0] > 0
 
 
 @pytest.mark.parametrize("name", ["empty_one_full", "tile_edges", "hub_across_tiles"])
@@ -236,6 +238,192 @@ def test_csr_plan_file_round_trip(tmp_path):
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(m.cols).astype(np.float32))
     assert back.format == "csr" and torch.equal(back(x), op(x))
     assert back.bytes_per_apply() == op.bytes_per_apply()
+
+
+# -- column stripes --------------------------------------------------------
+
+#: sha256 of the CSR-row format's y on two Kronecker graphs (``_kron13``'s
+#: recipe at scales 11 and 13) as the format gave it before it had stripes:
+#: a one-stripe plan keeps those bits
+UNSTRIPED_BITS = {
+    11: "4ad3628a681ce4d788338e9c7d10dd7de90a8671adf327aaadf077bee5ba689b",
+    13: "3fba6fced3b03012cfc88b4d66c48be9f51a6df777d75d3a21b9103d7c213526",
+}
+
+
+def _kron_values(scale: int) -> CsrMatrix:
+    """GAP's Kronecker graph at ``scale`` (seeded by it) with standard
+    normal values."""
+    g = _kron(scale, seed=scale)
+    return CsrMatrix(g.rows, g.cols,
+                     np.random.default_rng(5).standard_normal(g.nnz()).astype(np.float32),
+                     g.indices, g.offsets, is_sorted=True)
+
+
+def _stripe_case(name):
+    """``(matrix, stripe width)``: a Kronecker graph in 8 stripes; a stripe
+    no entry falls in; a hub row across every stripe among short rows, 12
+    stripes, the last narrower; rows each inside one stripe; row lengths
+    across the tiles' shares with ``ncols`` no multiple of the width; a
+    matrix with no entries."""
+    if name == "kron13":
+        m = _kron_values(13)
+        return m, m.cols // 8
+    if name == "hub_every_stripe":
+        return _rows_case("hub_across_tiles"), 256
+    if name == "ragged_width":
+        return _rows_case("tile_edges"), 1024
+    if name == "no_entries":
+        return _rows_case("no_entries"), 500
+    n, width = 3000, 500
+    rng = np.random.default_rng(6)
+    lens = rng.integers(0, 7, n)
+    if name == "empty_stripe":  # no column in [1000, 1500)
+        pool = np.r_[0:1000, 1500:n]
+        cols = [np.sort(rng.choice(pool, k, replace=False)) for k in lens]
+    else:  # "rows_in_one_stripe": row i's columns in stripe i % 6
+        cols = [np.sort(rng.choice(width, k, replace=False)) + width * (i % 6)
+                for i, k in enumerate(lens)]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    c = np.concatenate(cols)
+    return CsrMatrix(n, n, rng.standard_normal(len(c)).astype(np.float32), c.astype(np.uint32),
+                     offsets, is_sorted=True), width
+
+
+STRIPE_CASES = ["kron13", "empty_stripe", "hub_every_stripe", "rows_in_one_stripe",
+                "ragged_width", "no_entries"]
+
+
+@pytest.mark.parametrize("ncols,itemsize,l2,width,stripes", [
+    (1 << 25, 4, 50 << 20, 1 << 22, 8),  # kron25's x, 134 MB, on an H100
+    (1 << 25, 8, 50 << 20, 1 << 21, 16),  # the same x in float64
+    (1 << 25, 4, 40 << 20, 3_355_456, 10),
+    (1 << 20, 4, 50 << 20, 1 << 20, 1),  # kron20's x, 4 MB, fits
+    (1 << 16, 4, 50 << 20, 1 << 16, 1),
+    (1000, 4, 12_000, 1000, 1),  # exactly the share
+    (1001, 4, 12_000, 512, 2),
+    (0, 4, 50 << 20, 1, 1),
+])
+def test_stripe_width_is_a_rule_of_x_and_l2(ncols, itemsize, l2, width, stripes):
+    """One stripe where x fits a third of L2; else the fewest equal stripes
+    whose slices fit, in whole 128-byte lines."""
+    got = spmv_csr.stripe_width(ncols, itemsize, l2)
+    assert got == width and max(1, -(-ncols // got)) == stripes
+    if stripes > 1:
+        assert got % 32 == 0
+        assert (got - 32) * itemsize * spmv_csr.STRIPE_L2_DIV < l2
+
+
+@pytest.mark.parametrize("scale", [11, 13])
+def test_one_stripe_plan_is_the_csr_as_given(scale):
+    """On a CPU device, and wherever the width covers every column, the
+    plan is one stripe, the CSR as given with its merge path, and gives
+    the bits the format gave before it had stripes."""
+    m = _kron_values(scale)
+    op = SpmvOperator(m, device="cpu", force="csr")
+    assert op.part("csr").stripes == 1
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(m.cols).astype(np.float32))
+    for arrs in (op.part("csr").arrays,
+                 spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=m.cols),
+                 spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=4 * m.cols)):
+        (st,) = arrs["stripes"]
+        assert st["row_ids"] is None
+        assert np.array_equal(st["offsets"].numpy(), m.offsets)
+        assert np.array_equal(st["cols"].numpy(), m.indices.view(np.int32))
+        assert np.array_equal(st["vals"].numpy(), m.vals)
+        coords, splits = spmv_csr.merge_path(st["offsets"])
+        assert torch.equal(st["coords"], coords) and torch.equal(st["splits"], splits)
+        y = spmv_csr.spmv_csr(m, x, device_arrays=arrs)
+        assert hashlib.sha256(y.numpy().tobytes()).hexdigest() == UNSTRIPED_BITS[scale]
+
+
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_stripes_partition_the_csr(name, monkeypatch):
+    """Each stripe holds its columns' entries in row order: stripe 0 every
+    row, each later stripe the rows with entries in it, ascending; together
+    they hold the CSR's entries once. A build in passes of a few entries
+    gives the same arrays; the bytes an apply streams are the stripes'."""
+    m, width = _stripe_case(name)
+    arrs = spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=width)
+    stripes = arrs["stripes"]
+    assert len(stripes) == -(-m.cols // width) > 1
+    rows = torch.from_numpy(m.row_ids())
+    want = {}
+    for s, st in enumerate(stripes):
+        lo, hi = s * width, min((s + 1) * width, m.cols)
+        inside = (m.indices >= lo) & (m.indices < hi)
+        r = rows[torch.from_numpy(inside)]
+        lens = torch.bincount(r, minlength=m.rows)
+        if s == 0:
+            assert st["row_ids"] is None
+            assert torch.equal(torch.diff(st["offsets"]), lens)
+        else:
+            ids = st["row_ids"].long()
+            assert st["row_ids"].dtype == torch.int32
+            assert torch.equal(ids, torch.nonzero(lens).flatten())
+            assert torch.equal(torch.diff(st["offsets"]), lens[ids])
+        assert int(st["offsets"][0]) == 0
+        assert np.array_equal(st["cols"].numpy(), m.indices[inside].view(np.int32))
+        assert np.array_equal(st["vals"].numpy(), m.vals[inside])
+        coords, splits = spmv_csr.merge_path(st["offsets"])
+        assert torch.equal(st["coords"], coords) and torch.equal(st["splits"], splits)
+        want[s] = st
+    assert spmv_csr.csr_stream_bytes(arrs) == sum(
+        sum(int(st[k].nbytes) for k in ("offsets", "cols", "vals", "coords", "splits"))
+        + (0 if st["row_ids"] is None else 4 * st["row_ids"].numel()) + 8 * st["coords"].shape[0]
+        - 8 for st in stripes)
+    monkeypatch.setattr(spmv_csr, "STRIPE_PASS_ENTRIES", 97)
+    again = spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=width)["stripes"]
+    for s, st in enumerate(again):
+        assert st["carry"].shape == want[s]["carry"].shape  # scratch
+        for k, t in st.items():
+            if k != "carry":
+                assert (t is None and want[s][k] is None) or torch.equal(t, want[s][k]), (s, k)
+
+
+@pytest.mark.parametrize("name", STRIPE_CASES)
+@pytest.mark.parametrize("tiles_per_pass", [1, 3, 64])
+def test_striped_plain_version_in_passes_gives_the_same_bits(name, tiles_per_pass):
+    m, width = _stripe_case(name)
+    arrs = spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=width)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(m.cols).astype(np.float32))
+    want = spmv_csr._csr_merge_torch(arrs, x)
+    assert torch.equal(spmv_csr._csr_merge_torch(arrs, x, tiles_per_pass=tiles_per_pass), want)
+
+
+@pytest.mark.parametrize("name", STRIPE_CASES)
+def test_striped_plain_version_within_float32_bound(name):
+    """The stripes' sum within the float32 bound of float64, the same bits
+    on two calls, and a non-finite x only in the rows that read it."""
+    m, width = _stripe_case(name)
+    arrs = spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=width)
+    x_np = np.random.default_rng(7).standard_normal(m.cols).astype(np.float32)
+    x = torch.from_numpy(x_np)
+    y = spmv_csr.spmv_csr(m, x, device_arrays=arrs)
+    y64, bound = spmv_f64_bound(m, x_np)
+    assert np.all(np.abs(y.numpy().astype(np.float64) - y64) <= bound)
+    assert torch.equal(spmv_csr.spmv_csr(m, x, device_arrays=arrs), y)
+    if m.nnz():
+        c = int(m.indices[len(m.indices) // 2])
+        x[c] = float("nan")
+        readers = np.unique(m.row_ids()[m.indices == c])
+        assert np.array_equal(np.flatnonzero(spmv_csr.spmv_csr(m, x, device_arrays=arrs).isnan()),
+                              readers)
+
+
+@pytest.mark.parametrize("name", ["kron13", "hub_every_stripe", "empty_stripe"])
+def test_striped_pull_matches_reference(name):
+    """Unit values: the striped pull is the reference's pull."""
+    m, width = _stripe_case(name)
+    m = CsrMatrix(m.rows, m.cols, np.ones(m.nnz(), np.float32), m.indices, m.offsets,
+                  is_sorted=True)
+    arrs = spmv_csr.csr_device_arrays(m, "cpu", _stripe_cols=width)
+    contrib = torch.from_numpy(np.random.default_rng(8).random(m.cols).astype(np.float32))
+    offsets, cols = _graph(m)
+    want = ref.pull(offsets, cols, contrib.double(), ref.row_blocks(offsets, 4096))
+    got = spmv_csr.spmv_csr(m, contrib, device_arrays=arrs).double()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 # -- the dispatch --------------------------------------------------------
