@@ -170,6 +170,15 @@ Phases, each of which ends the run with an exception on failure:
    PageRank (``solvers/pagerank.py``) on the scale-20 graph through the
    dispatched operator, against the float64 plain reference
    (``reference/pagerank.py``).
+9. GAP's direction-optimizing BFS (``graph/bfs.py``, the kernels of
+   ``csrc/bfs.cu``; no TPU kernel) on GAP's kron at scales 16, 20 and 25,
+   ``BFS_ROOTS`` roots of degree >= 1 each: its steps (levels, bottom-up
+   levels, both directions' launches), the device ms of each direction's
+   kernels and of every device operation (a profiler trace), the kernels
+   a search and its ms; parents equal on two calls and, below scale 25, to
+   the plain PyTorch steps on the CPU; no tree error against the plain
+   reference (``reference/bfs.py``, on the card, its seconds beside) and
+   its deepest level. The record line ``bfs record``.
 
 The last two lines are the kernels' JSON record (each kernel with its
 worst ``ms / library_ms`` over its cases, ``worst_library_factor``) and
@@ -280,6 +289,8 @@ CSR_BENCH_SCALE = 25
 CSR_PASS_TILES = 1 << 14
 # the stripe counts phase 8 forces on that graph beside the rule's and one
 CSR_STRIPE_SWEEP = (4, 6, 8, 12, 16)
+# phase 9: the roots of each BFS scale
+BFS_ROOTS = 3
 # AMG-PCG steps queued for their device time: a V-cycle launches about a
 # hundred kernels, and the queue behind the hold takes about a thousand
 AMG_STEP_CALLS = 4
@@ -2370,9 +2381,9 @@ def part_hpcg(torch, dev, mats, ops, state):
     state["hpcg_hier"] = h
 
 
-def _kernels_per_call(torch, fn, reps: int = 5) -> float:
-    """Device kernels launched by one ``fn()``, counted in a profiler trace
-    of ``reps`` calls."""
+def _trace_events(torch, fn, reps: int):
+    """The Chrome trace events of ``reps`` calls of ``fn()`` under the
+    profiler, after one call outside it."""
     import tempfile
     from pathlib import Path
 
@@ -2386,8 +2397,13 @@ def _kernels_per_call(torch, fn, reps: int = 5) -> float:
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    return sum(ev.get("cat") == "kernel" for ev in events) / reps
+        return json.loads(path.read_text())["traceEvents"]
+
+
+def _kernels_per_call(torch, fn, reps: int = 5) -> float:
+    """Device kernels launched by one ``fn()``, counted in a profiler trace
+    of ``reps`` calls."""
+    return sum(ev.get("cat") == "kernel" for ev in _trace_events(torch, fn, reps)) / reps
 
 
 def phase_krylov_kernels(torch, dev, chk, ops, state):
@@ -2741,6 +2757,89 @@ def _csr_stripe_sweep(torch, dev, plan, x, y_rule, y64, bound, rule_stripes):
     log(f"csr stripe sweep: {json.dumps(sweep)}")
 
 
+def _bfs_trace(torch, fn, reps: int = 5) -> dict:
+    """One ``fn()`` (a search) as a profiler trace of ``reps`` calls reads
+    it: the device ms of the top-down and bottom-up kernels (by their
+    symbols, ``spmx_bfs_td*``, ``spmx_bfs_bu*``), of every device operation,
+    and the kernels launched, each a call."""
+    events = _trace_events(torch, fn, reps)
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    ops = [ev for ev in events if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def ms(sel):
+        return sum(float(ev.get("dur", 0.0)) for ev in sel) / 1e3 / reps
+
+    return dict(td_ms=ms(ev for ev in kernels if "spmx_bfs_td" in ev.get("name", "")),
+                bu_ms=ms(ev for ev in kernels if "spmx_bfs_bu" in ev.get("name", "")),
+                device_ms=ms(ops), kernels=len(kernels) / reps)
+
+
+def phase_bfs(torch, dev, state):
+    """Phase 9: GAP's direction-optimizing BFS (``graph/bfs.py``, the
+    kernels of ``csrc/bfs.cu``) on GAP's kron at scales 16, KRON_SCALE and
+    the benchmark's (kron25.bfs), from BFS_ROOTS roots of degree >= 1 each:
+    the steps each direction took, the device ms of each direction's
+    kernels, the ms of a search, parents bit-equal on two calls (and to the
+    plain PyTorch steps on the CPU below scale 25), no tree error against
+    the plain reference (``reference/bfs.py``, on the card) and its
+    deepest level, and the reference's seconds."""
+    from sparse_matrix_tpu_torch.graph.bfs import BfsPlan, bfs
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.reference import bfs as ref
+
+    records = []
+    for scale in (16, KRON_SCALE, CSR_BENCH_SCALE):
+        t0 = time.perf_counter()
+        g = _kron(scale, SEED)
+        gen_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        plan = BfsPlan(g, device=dev)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        cpu = BfsPlan(g, device="cpu") if scale < CSR_BENCH_SCALE else None
+        deg = np.diff(g.offsets)
+        roots = np.random.default_rng(SEED + scale).choice(np.flatnonzero(deg > 0), BFS_ROOTS)
+        rec = dict(scale=scale, rows=g.rows, nnz=g.nnz(), generator_s=gen_s, plan_s=plan_s,
+                   roots=[])
+        for root in (int(r) for r in roots):
+            before = dict(kernels.launch_counts)
+            res = bfs(plan, root)
+            torch.cuda.synchronize()
+            launches = {k: kernels.launch_counts[k] - before[k]
+                        for k in ("bfs_top_down", "bfs_bottom_up")}
+            again = bfs(plan, root)
+            equal = bool(torch.equal(res.parents, again.parents))
+            t0 = time.perf_counter()
+            want = ref.bfs(plan.offsets, plan.cols, root)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            errors = ref.tree_errors(plan.offsets, plan.cols, root, res.parents, want.depths)
+            row = dict(root=root, degree=int(deg[root]), levels=res.levels,
+                       bottom_up_levels=res.bottom_up_levels, launches=launches,
+                       reached=int((want.depths >= 0).sum()), tree_errors=errors,
+                       reference_levels=want.levels, equal_two_calls=equal, reference_s=ref_s,
+                       ms=cuda_ms(torch, lambda: bfs(plan, root), reps=10, warmup=2),
+                       **_bfs_trace(torch, lambda: bfs(plan, root)))
+            if cpu is not None:
+                plain = bfs(cpu, root)
+                row["equal_plain"] = bool(torch.equal(res.parents.cpu(), plain.parents)
+                                          and (res.levels, res.bottom_up_levels)
+                                          == (plain.levels, plain.bottom_up_levels))
+            rec["roots"].append(row)
+            log(f"bfs kron{scale}: {row}")
+            if (errors or want.levels != res.levels or not equal
+                    or not row.get("equal_plain", True) or launches["bfs_top_down"] < 1):
+                raise AssertionError(f"bfs kron{scale} from {root}: {row}")
+            del res, again, want
+        rec["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated())
+        records.append(rec)
+        del plan, cpu, g
+        torch.cuda.empty_cache()
+    state["bfs"] = records
+
+
 def phase_symgs_kernel(torch, dev, chk, state):
     """The SymGS kernel on part i's four levels (104^3, 52^3, 26^3, 13^3;
     f64, 8 colours): one step, its 16 colour passes in one launch, against
@@ -2992,7 +3091,7 @@ def main() -> int:
     phase_kernels(torch, dev, chk, mats, ops, c12="--c12" in sys.argv[1:])
     phase_kernels_slice3(torch, dev, chk, mats, ops)
 
-    counts = {k: 0 for k in REPLACES}
+    counts = {k: 0 for k in kernels.KERNELS}
     state = {"esc": {}}
     for part, fn in (("slice1", lambda *a: part_slice1(*a, state)), ("classes", part_classes),
                      ("multi_rhs", part_multi_rhs),
@@ -3020,11 +3119,13 @@ def main() -> int:
     phase_krylov_kernels(torch, dev, chk, ops, state)
     phase_symgs_kernel(torch, dev, chk, state)
     phase_csr_kernel(torch, dev, chk, mats, ops)
+    phase_bfs(torch, dev, state)
     log(f"ilu record: {json.dumps(state['ilu'])}")
     log(f"amg record: {json.dumps(state['amg'])}")
     log(f"hpcg record: {json.dumps(state['hpcg'])}")
     log(f"krylov record: {json.dumps(state['krylov'])}")
     log(f"pagerank record: {json.dumps(state['pagerank'])}")
+    log(f"bfs record: {json.dumps(state['bfs'])}")
 
     record = []
     for name, (src, rep) in REPLACES.items():

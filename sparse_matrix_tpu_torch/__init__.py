@@ -46,10 +46,14 @@ an NVIDIA Hopper GPU. Its modules mirror the reference's names:
     solvers/hpcg.py     HPCG's 27-point problem and geometric multigrid as
                         an AmgHierarchy (smoother "symgs")
     solvers/pagerank.py GAP's pull PageRank over a planned operator
+    graph/bfs.py        GAP's direction-optimizing BFS: BfsPlan, bfs
+                        (csrc/bfs.cu: top-down and bottom-up steps)
     reference/hpcg.py   HPCG written plainly on grid tensors, the tests'
                         reference
     reference/pagerank.py  GAP's PageRank written plainly over a CSR
                         pattern, the tests' reference
+    reference/bfs.py    a level-synchronous BFS and Graph500's validation
+                        of a BFS tree, the tests' reference
     bench/corpus.py     the bench's 262k-row matrix classes
     entry.py            one CG step through the aligned kernel
 

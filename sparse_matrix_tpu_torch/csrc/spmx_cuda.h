@@ -473,3 +473,64 @@ SPMX_API int spmx_csr_items(void);
 // carries of earlier tiles for the split rows (a second launch where the
 // stripe has any)
 SPMX_API int spmx_csr(const SpmxCsrPlan* plan, const float* x, float* y, void* stream);
+
+// A BFS plan (bfs.cu, graph/bfs.py), packed once by the wrapper: the
+// graph's `offsets` (n + 1) int64 and `cols` (nnz) uint32, sorted within
+// each row; `has_edges` (words) the bitmap of the vertices of degree > 0;
+// the search's state: `unvisited` (words), two frontier bitmaps `bits0`,
+// `bits1` (words), two queues `queue0`, `queue1` (n) int32, `prefix` (n)
+// int64 and `counts` (2) int64; words = ceil(n / 32); `grid`, the blocks
+// of each launch, set by spmx_bfs_prepare
+typedef struct {
+  const int64_t* offsets;
+  const uint32_t* cols;
+  const uint32_t* has_edges;
+  uint32_t* unvisited;
+  uint32_t* bits0;
+  uint32_t* bits1;
+  int32_t* queue0;
+  int32_t* queue1;
+  int64_t* prefix;
+  int64_t* counts;
+  int64_t n;
+  int64_t words;
+  int32_t grid;
+  int32_t device;
+} SpmxBfsPlan;
+
+// sets plan->grid: the blocks the card holds at once of the step kernels
+SPMX_API int spmx_bfs_prepare(SpmxBfsPlan* plan);
+
+// a search from `source`: parents (n) = source at the source, 0x7fffffff
+// at the other vertices with an edge, -1 at the rest; unvisited =
+// has_edges less the source; queue0 = [source], prefix[0] its degree (one
+// launch)
+SPMX_API int spmx_bfs_start(const SpmxBfsPlan* plan, int32_t* parents, int64_t source,
+                            void* stream);
+
+// a top-down step from the q vertices of queue `cur` (prefix[0 .. q): the
+// inclusive sums of their degrees) into queue cur ^ 1: counts[0] the vertices found,
+// counts[1] the sum of their degrees, prefix their degrees, each found
+// vertex's parent its smallest frontier neighbour, claimed on parents by
+// atomicMin (two launches)
+SPMX_API int spmx_bfs_top_down(const SpmxBfsPlan* plan, int32_t* parents, int cur, int64_t q,
+                               void* stream);
+
+// frontier bitmap `flip` = the q vertices of queue `cur` (a memset, one
+// launch)
+SPMX_API int spmx_bfs_enter_bitmap(const SpmxBfsPlan* plan, int cur, int64_t q, int flip,
+                                   void* stream);
+
+// a bottom-up step from frontier bitmap `flip` into bitmap flip ^ 1:
+// counts[0] the vertices found, each found vertex's parent its first
+// frontier neighbour in column order (one launch)
+SPMX_API int spmx_bfs_bottom_up(const SpmxBfsPlan* plan, int32_t* parents, int flip,
+                                void* stream);
+
+// queue `cur` = the vertices of frontier bitmap `flip`, in no fixed order,
+// prefix their degrees, counts[0] their count (one launch)
+SPMX_API int spmx_bfs_leave_bitmap(const SpmxBfsPlan* plan, int flip, int cur, void* stream);
+
+// the search's end: parents = -1 at the vertices left unvisited (one
+// launch)
+SPMX_API int spmx_bfs_end(const SpmxBfsPlan* plan, int32_t* parents, void* stream);

@@ -52,13 +52,15 @@ __all__ = [
     "prepare_esc_run_sum",
     "PreparedSymgs",
     "prepare_symgs",
+    "PreparedBfs",
+    "prepare_bfs",
     "KrylovScratch",
 ]
 
 KERNELS = ("dia", "aligned", "lanepack", "bell", "stripe", "dia_spmm", "aligned_spmm",
            "lanepack_spmm", "bell_spmm", "bcsr_spmm", "block_spgemm", "esc_expand",
            "esc_run_sum", "trisweep", "symgs", "krylov_dot", "cg_update", "p_update",
-           "spmv_csr")
+           "spmv_csr", "bfs_top_down", "bfs_bottom_up")
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -190,6 +192,21 @@ def _library() -> ctypes.CDLL:
         # (plan struct, x, y, stream)
         lib.spmx_csr.restype = i32
         lib.spmx_csr.argtypes = [vp, vp, vp, vp]
+        # (plan struct): sets its grid
+        lib.spmx_bfs_prepare.restype = i32
+        lib.spmx_bfs_prepare.argtypes = [vp]
+        # (plan struct, parents, source, stream); (plan struct, parents, cur, q,
+        # stream); (plan struct, cur, q, flip, stream); (plan struct, parents,
+        # flip, stream); (plan struct, flip, cur, stream); (plan struct,
+        # parents, stream)
+        for fn, args in ((lib.spmx_bfs_start, [vp, vp, i64, vp]),
+                         (lib.spmx_bfs_top_down, [vp, vp, i32, i64, vp]),
+                         (lib.spmx_bfs_enter_bitmap, [vp, i32, i64, i32, vp]),
+                         (lib.spmx_bfs_bottom_up, [vp, vp, i32, vp]),
+                         (lib.spmx_bfs_leave_bitmap, [vp, i32, i32, vp]),
+                         (lib.spmx_bfs_end, [vp, vp, vp])):
+            fn.restype = i32
+            fn.argtypes = args
         for fn in (lib.spmx_block_tile, lib.spmx_stripe_group_levels,
                    lib.spmx_lanepack_spmm_max_cols, lib.spmx_lanepack_spmm_group_cols,
                    lib.spmx_trisweep_threads, lib.spmx_esc_expand_tile,
@@ -311,6 +328,16 @@ class CsrPlan(ctypes.Structure):
     _fields_ = [("stripes", ctypes.c_void_p)]
     _fields_ += [(f, ctypes.c_int64) for f in ("num_stripes", "rows", "ncols")]
     _fields_ += [("device", ctypes.c_int32)]
+
+
+class BfsPlan(ctypes.Structure):
+    """``SpmxBfsPlan`` of ``csrc/spmx_cuda.h``."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in ("offsets", "cols", "has_edges", "unvisited",
+                                                 "bits0", "bits1", "queue0", "queue1", "prefix",
+                                                 "counts")]
+    _fields_ += [(f, ctypes.c_int64) for f in ("n", "words")]
+    _fields_ += [(f, ctypes.c_int32) for f in ("grid", "device")]
 
 
 class KrylovPlan(ctypes.Structure):
@@ -1192,6 +1219,98 @@ def prepare_symgs(data, rows, offsets_t, *, color_start: tuple, diag: int) -> Pr
                                f"({lib.spmx_cuda_error_string(err).decode()})")
     return PreparedSymgs(args, dev, dtype=data.dtype, passes=passes,
                          keep=(data, rows, offsets_t, state))
+
+
+class PreparedBfs:
+    """The BFS kernels (``csrc/bfs.cu``) on one checked plan, a method a
+    step of ``graph/bfs.py``, each one ctypes call that enqueues its
+    launches and counts them: ``start(parents, source)``,
+    ``top_down(parents, cur, q)`` and ``end(parents)`` under
+    ``launch_counts["bfs_top_down"]`` (one, two and one launches),
+    ``enter_bitmap(cur, q, flip)``,
+    ``bottom_up(parents, flip)`` and ``leave_bitmap(flip, cur)`` under
+    ``["bfs_bottom_up"]`` (one each). ``parents`` is checked at each call
+    (a contiguous int32 CUDA vector of the plan's ``n`` vertices on its
+    device); the step's counts land in the plan's ``counts``. The plan's
+    state is updated in place: a search in flight on one plan is one
+    caller's."""
+
+    __slots__ = ("n", "_start", "_top_down", "_enter", "_bottom_up", "_leave", "_end")
+
+    def __init__(self, args: BfsPlan, device: torch.device, *, keep: tuple):
+        def record(name, cname):
+            return _LaunchRecord(name, cname, args, device, empty=False, keep=keep,
+                                 dtype=torch.int32)
+
+        self.n = int(args.n)
+        self._start = record("bfs_top_down", "spmx_bfs_start")
+        self._top_down = record("bfs_top_down", "spmx_bfs_top_down")
+        self._enter = record("bfs_bottom_up", "spmx_bfs_enter_bitmap")
+        self._bottom_up = record("bfs_bottom_up", "spmx_bfs_bottom_up")
+        self._leave = record("bfs_bottom_up", "spmx_bfs_leave_bitmap")
+        self._end = record("bfs_top_down", "spmx_bfs_end")
+
+    def start(self, parents: torch.Tensor, source: int) -> None:
+        if not 0 <= source < self.n:
+            raise ValueError(f"bfs: source {source} outside [0, {self.n})")
+        self._start._enqueue(self._start._ptr("parents", parents, self.n), int(source))
+
+    def top_down(self, parents: torch.Tensor, cur: int, q: int) -> None:
+        if not 1 <= q <= self.n:
+            raise ValueError(f"bfs: a frontier of {q} vertices")
+        self._top_down._enqueue(self._top_down._ptr("parents", parents, self.n), int(cur) & 1,
+                                int(q), launches=2)
+
+    def enter_bitmap(self, cur: int, q: int, flip: int) -> None:
+        if not 1 <= q <= self.n:
+            raise ValueError(f"bfs: a frontier of {q} vertices")
+        self._enter._enqueue(int(cur) & 1, int(q), int(flip) & 1)
+
+    def bottom_up(self, parents: torch.Tensor, flip: int) -> None:
+        self._bottom_up._enqueue(self._bottom_up._ptr("parents", parents, self.n),
+                                 int(flip) & 1)
+
+    def leave_bitmap(self, flip: int, cur: int) -> None:
+        self._leave._enqueue(int(flip) & 1, int(cur) & 1)
+
+    def end(self, parents: torch.Tensor) -> None:
+        self._end._enqueue(self._end._ptr("parents", parents, self.n))
+
+
+def prepare_bfs(offsets, cols, has_edges, unvisited, bits, queues, prefix,
+                counts) -> PreparedBfs:
+    """The BFS kernels' launches on one plan (``graph.bfs.BfsPlan``): the
+    graph's ``offsets`` (n + 1) int64 and ``cols`` (nnz) int32 holding the
+    uint32 column bits, sorted within each row (not read back here);
+    ``has_edges`` (words) int32, the bitmap of the vertices of degree > 0;
+    the state: ``unvisited`` (words) int32, ``bits`` (2, words) int32,
+    ``queues`` (2, n) int32, ``prefix`` (n) int64 and ``counts`` (2) int64,
+    where words = ceil(n / 32). The grid is the blocks the card holds at
+    once (one query here). See :class:`PreparedBfs`."""
+    tensors = dict(offsets=offsets, cols=cols, has_edges=has_edges, unvisited=unvisited,
+                   bits=bits, queues=queues, prefix=prefix, counts=counts)
+    i32, i64 = torch.int32, torch.int64
+    dev = _check("bfs", dict(offsets=i64, cols=i32, has_edges=i32, unvisited=i32, bits=i32,
+                             queues=i32, prefix=i64, counts=i64), **tensors)
+    n = offsets.numel() - 1
+    words = -(-n // 32)
+    if (n < 1 or n >= 1 << 31 or cols.dim() != 1 or has_edges.shape != (words,)
+            or unvisited.shape != (words,) or bits.shape != (2, words)
+            or queues.shape != (2, n) or prefix.shape != (n,)
+            or counts.shape != (2,)):
+        raise ValueError(f"bfs: the state disagrees with a graph of {n} vertices (1 to 2**31 - 1, "
+                         "int32 ids)")
+    args = BfsPlan(offsets=offsets.data_ptr(), cols=cols.data_ptr(),
+                   has_edges=has_edges.data_ptr(), unvisited=unvisited.data_ptr(),
+                   bits0=bits[0].data_ptr(), bits1=bits[1].data_ptr(),
+                   queue0=queues[0].data_ptr(), queue1=queues[1].data_ptr(),
+                   prefix=prefix.data_ptr(), counts=counts.data_ptr(), n=n,
+                   words=words, grid=0, device=dev.index)
+    lib = _library()
+    err = lib.spmx_bfs_prepare(ctypes.addressof(args))
+    if err != 0:
+        raise RuntimeError(f"bfs: CUDA error {err} ({lib.spmx_cuda_error_string(err).decode()})")
+    return PreparedBfs(args, dev, keep=tuple(tensors.values()))
 
 
 class KrylovScratch:

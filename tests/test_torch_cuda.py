@@ -2726,3 +2726,98 @@ def test_pagerank_on_card_matches_reference(dev, scale):
     assert float(((s - r).abs() / r).max()) <= 1e-5
     again = pagerank(op, torch.diff(offsets))
     assert torch.equal(again.scores, res.scores)
+
+
+# -- GAP's direction-optimizing BFS (csrc/bfs.cu, graph/bfs.py)
+
+#: (alpha, beta) as tests/test_torch_bfs.py sets them: GAP's switch, every
+#: step top-down, bottom-up first and back, every step bottom-up
+BFS_SWITCHES = {"gap": (15, 18), "top_down": (1, 18), "bottom_up_first": (10 ** 12, 1),
+                "bottom_up": (10 ** 12, 10 ** 12)}
+
+
+def _bfs_case(name):
+    """``(graph, roots)``: a seeded Kronecker graph or a small graph whose
+    shape forces a corner (one long path, a star's hub row, two components,
+    an isolated root)."""
+    if name.startswith("kron"):
+        scale = int(name[4:])
+        g = _kron_csr(scale, seed=scale + 11)
+        deg = np.diff(g.offsets)
+        return g, [int(r) for r in np.random.default_rng(scale).choice(np.flatnonzero(deg > 0), 3)]
+    if name == "path":
+        perm = np.random.default_rng(5).permutation(3000)
+        edges = np.stack([perm[:-1], perm[1:]], 1)
+        n, roots = 3000, [int(perm[0]), int(perm[1500])]
+    elif name == "star":
+        edges = np.array([(77, v) for v in range(5000) if v != 77])
+        n, roots = 5000, [77, 0]
+    elif name == "two_components":
+        rng = np.random.default_rng(9)
+        edges = np.concatenate([rng.integers(0, 3000, size=(20000, 2)),
+                                rng.integers(3000, 4000, size=(3000, 2))])
+        edges = edges[edges[:, 0] != edges[:, 1]]
+        n, roots = 4000, [0, 3500]
+    else:  # isolated root
+        edges = np.array([(0, 1), (1, 2), (2, 3), (5, 6)])
+        n, roots = 70, [4, 69]
+    r = np.concatenate([edges[:, 0], edges[:, 1]])
+    c = np.concatenate([edges[:, 1], edges[:, 0]])
+    return CsrMatrix.from_coo(n, n, r, c, np.ones(r.size, np.float32)), roots
+
+
+def _bfs_held(dev, g, roots, alpha=15, beta=18):
+    """Each root's search on the card: both directions' launches counted
+    where taken, equal parents on two calls and to the plain PyTorch steps
+    on the CPU, no tree error against the plain reference on the card."""
+    from sparse_matrix_tpu_torch.graph import bfs as gbfs
+    from sparse_matrix_tpu_torch.native import kernels
+    from sparse_matrix_tpu_torch.reference import bfs as ref
+
+    card, cpu = gbfs.BfsPlan(g, device=dev), gbfs.BfsPlan(g, device="cpu")
+    for root in roots:
+        before = dict(kernels.launch_counts)
+        res = gbfs.bfs(card, root, alpha=alpha, beta=beta)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["bfs_top_down"] > before["bfs_top_down"]
+        took_bu = kernels.launch_counts["bfs_bottom_up"] > before["bfs_bottom_up"]
+        assert took_bu == (res.bottom_up_levels > 0)
+        again = gbfs.bfs(card, root, alpha=alpha, beta=beta)
+        assert torch.equal(res.parents, again.parents)
+        plain = gbfs.bfs(cpu, root, alpha=alpha, beta=beta)
+        assert torch.equal(res.parents.cpu(), plain.parents)
+        assert (res.levels, res.bottom_up_levels) == (plain.levels, plain.bottom_up_levels)
+        want = ref.bfs(card.offsets, card.cols, root)
+        assert ref.tree_errors(card.offsets, card.cols, root, res.parents, want.depths) == 0
+        assert res.levels == want.levels
+
+
+@pytest.mark.parametrize("scale", [12, 16, 20])
+def test_bfs_kernels_match_plain_steps_on_kron(dev, scale):
+    g, roots = _bfs_case(f"kron{scale}")
+    _bfs_held(dev, g, roots)
+
+
+@pytest.mark.parametrize("switch", sorted(BFS_SWITCHES))
+@pytest.mark.parametrize("name", ["kron14", "path", "star", "two_components", "isolated_root"])
+def test_bfs_kernels_under_every_switch(dev, name, switch):
+    g, roots = _bfs_case(name)
+    _bfs_held(dev, g, roots, *BFS_SWITCHES[switch])
+
+
+def test_bfs_record_refuses_bad_state(dev):
+    from sparse_matrix_tpu_torch.graph import bfs as gbfs
+    from sparse_matrix_tpu_torch.native.kernels import prepare_bfs
+
+    g, _ = _bfs_case("star")
+    plan = gbfs.BfsPlan(g, device=dev)
+    parts = [plan.offsets, plan.cols, plan.has_edges, plan.unvisited, plan.bits, plan.queues,
+             plan.prefix, plan.counts]
+    with pytest.raises(ValueError):
+        prepare_bfs(*parts[:5], plan.queues[:, 1:].contiguous(), *parts[6:])
+    with pytest.raises(TypeError):
+        prepare_bfs(*parts[:6], plan.prefix.int(), *parts[7:])
+    with pytest.raises(ValueError):
+        plan.launch.start(torch.empty(g.rows, dtype=torch.int32, device=dev), g.rows)
+    with pytest.raises(TypeError):
+        plan.launch.start(torch.empty(g.rows, dtype=torch.int64, device=dev), 0)
